@@ -14,11 +14,22 @@ only: no jax, and no module of ipx_tpu except through ipx_tpu_torch.
   4. solves transportation(8000, 12000, 0.001, seed=1) through
      ipx_tpu_torch.LpSolver(device="cuda") with every launch counter set to
      0 just before, and through LpSolver(device="cpu"), the host path that
-     launches none of the kernels, and compares.
+     launches none of the kernels, and compares;
+  5. holds the batched kernels K5-K9 against their plain versions at the
+     shapes of that LP as a batch of B = 256 scenarios (m = 20 000,
+     n + m = 116 000), in float64 and float32, and times both;
+  6. runs BatchedPhase1Solver(device="cuda") over those 256 scenarios to
+     the handoff (tolerance 1e-4), with the counters set to 0 just before,
+     and checks a small stage against the same solver with the plain
+     versions on the card;
+  7. solves the first 4 scenarios end to end through
+     BatchedScenarioSolver(parameters=Parameters(device="cuda")), the
+     batched phase 1 and the port's LpSolver finishes, with the counters
+     set to 0 just before, against cold LpSolver(device="cpu") solves.
 
 It stops with a non-zero exit at the first failure. The line before the
-last is a JSON object with one entry per kernel; the last line is
-{"ok": true, "device": {...}}.
+last is a JSON object with one entry per kernel, whose launch counts are
+those of phase 7; the last line is {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -29,6 +40,7 @@ import time
 
 import numpy as np
 
+T_START = time.perf_counter()
 AFIRO = -464.7531428566996
 RTOL = {"float64": 1e-12, "float32": 1e-5}
 REPS = 20
@@ -91,6 +103,7 @@ def main():
     from ipx_tpu_torch.host import (SplittedNormalMatrix, build_native,
                                     normal_diag, testgen as tg)
     from ipx_tpu_torch.ops import device_cr, device_cr2, spmv
+    from ipx_tpu_torch.parallel import batch
 
     t0 = time.perf_counter()
     build.build(force=True)
@@ -294,27 +307,322 @@ def main():
     check(e_obj <= 1e-8, f"objective differs by {e_obj:.1e}")
     check(pi.kktiter1 > 0 and pi.kktiter2 > 0, "a phase ran no device CR")
     check(pi.time_cr2_NNt > 0, "no device N N' time")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
+    for name in ("csr_spmv", "normal_apply", "cr_step", "nnt"):
+        check(launches[name] > 0, f"kernel {name} was not launched in "
+              "phase 4")
     check("jax" not in sys.modules, "jax was imported")
 
-    source = {"csr_spmv": "ipx_tpu_torch/csrc/spmv.cu",
-              "normal_apply": "ipx_tpu_torch/csrc/spmv.cu",
-              "cr_step": "ipx_tpu_torch/csrc/cr.cu",
-              "nnt": "ipx_tpu_torch/csrc/spmv.cu"}
-    replaces = {"csr_spmv": "ipx_tpu/ops/spmv.py:93",
-                "normal_apply": "ipx_tpu/ops/spmv.py:226",
-                "cr_step": "ipx_tpu/ops/device_cr.py:85",
-                "nnt": "ipx_tpu/ops/device_cr2.py:116"}
+    del port, ref
+    t_batched = time.perf_counter()
+    batched_rows, launches = batched_phases(card, data, dev, rng)
+    rows.update(batched_rows)
+    print(f"phases 5-7 took {time.perf_counter() - t_batched:.1f} s; the "
+          f"script {time.perf_counter() - T_START:.1f} s", flush=True)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=source[name],
-             replaces=replaces[name], launches=launches[name], **rows[name])
-        for name in ("csr_spmv", "normal_apply", "cr_step", "nnt")]}),
-        flush=True)
+        dict(name=name, route="cuda", source=SOURCE[name],
+             replaces=REPLACES[name], launches=launches[name], **rows[name])
+        for name in SOURCE]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+SOURCE = {"csr_spmv": "ipx_tpu_torch/csrc/spmv.cu",
+          "normal_apply": "ipx_tpu_torch/csrc/spmv.cu",
+          "cr_step": "ipx_tpu_torch/csrc/cr.cu",
+          "nnt": "ipx_tpu_torch/csrc/spmv.cu",
+          "csr_spmm": "ipx_tpu_torch/csrc/spmm.cu",
+          "normal_apply_batched": "ipx_tpu_torch/csrc/spmm.cu",
+          "batched_cr_step": "ipx_tpu_torch/csrc/batch_cr.cu",
+          "step_batch": "ipx_tpu_torch/csrc/ipm_step.cu",
+          "ipm_update": "ipx_tpu_torch/csrc/ipm_step.cu"}
+REPLACES = {"csr_spmv": "ipx_tpu/ops/spmv.py:93",
+            "normal_apply": "ipx_tpu/ops/spmv.py:226",
+            "cr_step": "ipx_tpu/ops/device_cr.py:85",
+            "nnt": "ipx_tpu/ops/device_cr2.py:116",
+            "csr_spmm": "ipx_tpu/ops/spmv.py:109",
+            "normal_apply_batched": "ipx_tpu/ops/spmv.py:157",
+            "batched_cr_step": "ipx_tpu/parallel/batch.py:209",
+            "step_batch": "ipx_tpu/parallel/batch.py:604",
+            "ipm_update": "ipx_tpu/parallel/batch.py:534"}
+BATCHED = ("csr_spmm", "normal_apply_batched", "batched_cr_step",
+           "step_batch", "ipm_update")
+B_FULL = 256
+
+
+def scenarios(data, B):
+    """The B scenarios of tools/device_batch_solve_bench.py: supplies (the
+    first 8000 rows, '<') times U(1.0, 1.1), demands times U(0.9, 1.0),
+    from default_rng(0)."""
+    m, ns = data["num_constr"], 8000
+    rng = np.random.default_rng(0)
+    fac = np.empty((B, m))
+    fac[:, :ns] = rng.uniform(1.0, 1.1, size=(B, ns))
+    fac[:, ns:] = rng.uniform(0.9, 1.0, size=(B, m - ns))
+    return data["rhs"][None, :] * fac
+
+
+def batched_phases(card, data, dev, rng):
+    """Phases 5-7; returns the kernel rows of K5-K9 and the launch counts of
+    phase 7."""
+    import torch
+    from ipx_tpu_torch import LpSolver, Parameters, kernels
+    from ipx_tpu_torch.host import testgen as tg
+    from ipx_tpu_torch.ops import spmv
+    from ipx_tpu_torch.parallel import batch
+
+    rows = {}
+    b_batch = scenarios(data, B_FULL)
+    blp = batch.BatchedScenarioSolver(data, b_batch).blp
+    m, n = blp.A.shape
+    nm = n + m
+    B = B_FULL
+
+    def report(name, case, err, tol, ms, plain_ms):
+        print(f"  {name:22s} {case:34s} err {err:.3e} (tol {tol:.0e}) "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms | {card}",
+              flush=True)
+        check(err <= tol, f"{name} {case}: error {err:.3e} > {tol:.0e}")
+
+    def t(x, dtype):
+        return torch.from_numpy(np.asarray(x, dtype=np.float64)).to(
+            dtype).to(dev)
+
+    # -- phase 5: K5-K9 against their plain versions -----------------------------
+    print(f"phase 5: batched kernels at m={m} n={n} nnz(A)={blp.A.nnz} "
+          f"B={B}; {card}", flush=True)
+    A2 = blp.A.copy()
+    A2.data **= 2
+    for dtype in (torch.float64, torch.float32):
+        dn = str(dtype).split(".")[1]
+        nmd = spmv.NormalMatrixDevice(blp.A, dev, dtype)
+        for opname, op, X in (
+                ("A U", nmd.op_A, t(rng.standard_normal((n, B)), dtype)),
+                ("A' V", nmd.op_At, t(rng.standard_normal((m, B)), dtype))):
+            Y = kernels.csr_spmm(op, X)
+            Y_p = spmv.csr_spmm_plain(op, X)
+            torch.cuda.synchronize()
+            ms = cuda_ms(lambda: kernels.csr_spmm(op, X))
+            pms = cuda_ms(lambda: spmv.csr_spmm_plain(op, X))
+            report("K5 csr_spmm", f"{opname} {dn}", rel_err(Y, Y_p),
+                   RTOL[dn], ms, pms)
+            if opname == "A' V" and dtype == torch.float32:
+                rows["csr_spmm"] = dict(case="A' V, f32, B=256",
+                                        max_abs_err=max_abs(Y, Y_p), ms=ms,
+                                        plain_ms=pms)
+        W = t(10.0 ** rng.uniform(-2, 2, (nm, B)), dtype)
+        V = t(rng.standard_normal((m, B)), dtype)
+        out, dots = spmv.normal_apply_batched(nmd, W, V)
+        out2, dots2 = spmv.normal_apply_batched(nmd, W, V)
+        out_p, dots_p = spmv.normal_apply_batched_plain(nmd, W, V)
+        torch.cuda.synchronize()
+        check(torch.equal(out, out2) and torch.equal(dots, dots2),
+              "K6 is not repeatable bit for bit")
+        err = max(rel_err(out, out_p), float(
+            ((dots.double() - dots_p.double()).abs()
+             / dots_p.double().abs()).max()))
+        ms = cuda_ms(lambda: spmv.normal_apply_batched(nmd, W, V))
+        pms = cuda_ms(lambda: spmv.normal_apply_batched_plain(nmd, W, V))
+        report("K6 normal_apply_batch", f"(CV, V.CV) {dn}", err, RTOL[dn],
+               ms, pms)
+        if dtype == torch.float32:
+            rows["normal_apply_batched"] = dict(
+                case="(CV, V.CV), f32, B=256",
+                max_abs_err=max_abs(out, out_p), ms=ms, plain_ms=pms)
+
+        # K7: whole batched CR solves, lanes with different tolerances
+        Wc = 10.0 ** rng.uniform(-1, 1, (nm, B))
+        diag = A2 @ Wc[:n] + Wc[n:]
+        rs = 1.0 / np.sqrt(Wc[n:])
+        rhs = rng.standard_normal((m, B))
+        base = np.max(np.abs(rs * rhs), axis=0)
+        rel_tol = (10.0 ** rng.uniform(-8, -6, B) if dtype == torch.float64
+                   else 10.0 ** rng.uniform(-4, -3, B))
+        args = (nmd, t(Wc, dtype), t(1.0 / diag, dtype), t(rs, dtype),
+                t(rhs, dtype), t(base * rel_tol, dtype), 500)
+        Yc, trips = batch.batched_cr(*args)
+        Yc_p, trips_p = batch.batched_cr_plain(*args)
+        torch.cuda.synchronize()
+        res = rhs - (blp.A @ (Wc[:n] * (blp.A.T @ Yc.double().cpu().numpy()))
+                     + Wc[n:] * Yc.double().cpu().numpy())
+        met = bool(np.all(np.max(np.abs(rs * res), axis=0)
+                          <= base * rel_tol * (1 + 1e-6)))
+        ms = cuda_ms(lambda: batch.batched_cr(*args), reps=3, warm=1)
+        pms = cuda_ms(lambda: batch.batched_cr_plain(*args), reps=3, warm=1)
+        print(f"  K7 batched_cr_step     {dn}: trips {trips} (plain "
+              f"{trips_p}), every lane meets its tolerance: {met}",
+              flush=True)
+        check(met, f"K7 {dn}: a lane misses its tolerance")
+        if dtype == torch.float64:
+            check(abs(trips - trips_p) <= 2, "K7 f64 trips beyond 2")
+            report("K7 batched_cr_step", f"solve {dn} ({trips} trips)",
+                   rel_err(Yc, Yc_p), 1e-8, ms, pms)
+        else:
+            check(abs(trips - trips_p) <= 0.1 * trips_p,
+                  "K7 f32 trips beyond 10%")
+            report("K7 batched_cr_step", f"solve {dn} ({trips} trips)",
+                   rel_err(Yc, Yc_p), 1e-3, ms, pms)
+            rows["batched_cr_step"] = dict(
+                case=f"batched CR solve, f32, B=256, {trips} trips",
+                max_abs_err=max_abs(Yc, Yc_p), ms=ms, plain_ms=pms)
+
+        # K8 and K9 on an iterate-like state
+        finl = torch.from_numpy(np.isfinite(blp.lb)).to(dev)
+        finu = torch.from_numpy(np.isfinite(blp.ub)).to(dev)
+        st = {}
+        for name, fin in (("XL", finl), ("XU", finu), ("ZL", finl),
+                          ("ZU", finu)):
+            x = t(rng.uniform(1e-3, 10.0, (nm, B)), dtype)
+            x[~fin] = float("inf") if name.startswith("X") else 0.0
+            st[name] = x
+            st["D" + name] = t(rng.standard_normal((nm, B)) * 5.0, dtype)
+        order = ("XL", "XU", "ZL", "ZU", "DXL", "DXU", "DZL", "DZU")
+        sargs = [st[k] for k in order] + [finl, finu]
+        maxp, maxd = batch.step_batch(*sargs)
+        maxp_p, maxd_p = batch.step_batch_plain(*sargs)
+        mu = batch.muaff(*sargs, maxp, maxd, 12345)
+        mu_p = batch.muaff_plain(*sargs, maxp, maxd, 12345)
+        torch.cuda.synchronize()
+        exact = torch.equal(maxp, maxp_p) and torch.equal(maxd, maxd_p)
+        ms = cuda_ms(lambda: batch.step_batch(*sargs))
+        pms = cuda_ms(lambda: batch.step_batch_plain(*sargs))
+        report("K8 step_batch", f"(maxp, maxd) {dn}, exact {exact}",
+               0.0 if exact else 1.0, 0.0, ms, pms)
+        mms = cuda_ms(lambda: batch.muaff(*sargs, maxp, maxd, 12345))
+        mpms = cuda_ms(lambda: batch.muaff_plain(*sargs, maxp, maxd, 12345))
+        report("K8 step_batch", f"muaff {dn}", rel_err(mu, mu_p), RTOL[dn],
+               mms, mpms)
+        if dtype == torch.float64:
+            rows["step_batch"] = dict(
+                case="(maxp, maxd), f64, B=256",
+                max_abs_err=max(max_abs(maxp, maxp_p),
+                                max_abs(maxd, maxd_p)), ms=ms, plain_ms=pms)
+        X, DX = t(rng.standard_normal((nm, B)), dtype), \
+            t(rng.standard_normal((nm, B)), dtype)
+        Yv, DY = t(rng.standard_normal((m, B)), dtype), \
+            t(rng.standard_normal((m, B)), dtype)
+        ap, ad = t(rng.uniform(0.1, 1.0, B), dtype), \
+            t(rng.uniform(0.1, 1.0, B), dtype)
+        done = torch.from_numpy(rng.random(B) < 0.25).to(dev)
+        state = (X, st["XL"], st["XU"], Yv, st["ZL"], st["ZU"])
+        dirs = (DX, st["DXL"], st["DXU"], DY, st["DZL"], st["DZU"], ap, ad,
+                done, finl, finu)
+        got = [x.clone() for x in state]
+        want = [x.clone() for x in state]
+        batch.ipm_update(*got, *dirs)
+        batch.ipm_update_plain(*want, *dirs)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(max_abs(a[torch.isfinite(b)], b[torch.isfinite(b)])
+                  for a, b in zip(got, want))
+        # timed in place, over and over on the same arrays
+        ms = cuda_ms(lambda: batch.ipm_update(*got, *dirs))
+        pms = cuda_ms(lambda: batch.ipm_update_plain(*want, *dirs))
+        report("K9 ipm_update", f"6 arrays {dn}, exact {exact}",
+               0.0 if exact else 1.0, 0.0, ms, pms)
+        if dtype == torch.float64:
+            rows["ipm_update"] = dict(case="in place, f64, B=256",
+                                      max_abs_err=err, ms=ms, plain_ms=pms)
+        del nmd, W, V, out, out2, out_p, st, sargs, state, dirs, got, want
+        torch.cuda.empty_cache()
+
+    # -- phase 6: the batched phase 1 at full width -------------------------------
+    ph1 = batch.BatchedPhase1Solver(blp, feasibility_tol=1e-4,
+                                    optimality_tol=1e-4, device="cuda")
+    check(ph1.cr_dtype == "f32", "cr_dtype auto is not f32 on the card")
+    S0 = ph1._starting_point()      # also the warm-up of the kernels
+    mu0 = ph1._mu_of(S0).cpu().numpy()
+    del S0
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = ph1.solve(handoff="auto")
+    torch.cuda.synchronize()
+    t_stage = time.perf_counter() - t0
+    stage_launches = dict(kernels.LAUNCHES)
+    finl, finu = np.isfinite(blp.lb)[:, None], np.isfinite(blp.ub)[:, None]
+    with np.errstate(invalid="ignore"):
+        mu = (np.sum(np.where(finl, out["XL"] * out["ZL"], 0.0), axis=0)
+              + np.sum(np.where(finu, out["XU"] * out["ZU"], 0.0), axis=0)
+              ) / max(int(finl.sum() + finu.sum()), 1)
+    steps = int(out["iters"].max())
+    print(f"phase 6: BatchedPhase1Solver(device=\"cuda\", cr_dtype=f32) "
+          f"B={B} m={m} n={n}: {steps} steps, {int(out['done'].sum())} "
+          f"lanes converged, {int(out['cr'])} CR trips, wall "
+          f"{t_stage:.3f} s; mu from median {np.median(mu0):.3e} / max "
+          f"{mu0.max():.3e} to median {np.median(mu):.3e} / max "
+          f"{mu.max():.3e}; launches "
+          f"{ {k: stage_launches[k] for k in BATCHED} }; {card}",
+          flush=True)
+    for k in ("X", "Y", "ZL", "ZU", "pobj"):
+        check(np.all(np.isfinite(out[k])), f"phase 6: {k} is not finite")
+    check(np.all(mu < mu0), "phase 6: mu did not fall on every lane")
+    for name in BATCHED:
+        check(stage_launches[name] > 0, f"phase 6: {name} not launched")
+    del ph1, out
+
+    # the whole stage, kernels against plain versions, on a small LP
+    small = tg.transportation(60, 90, 0.05, seed=2)
+    sb = small["rhs"][None, :] * np.random.default_rng(1).uniform(
+        0.97, 1.03, (64, small["num_constr"]))
+    sblp = batch.BatchedScenarioSolver(small, sb).blp
+    t0 = time.perf_counter()
+    got = batch.BatchedPhase1Solver(sblp, device="cuda", cr_dtype="f64"
+                                    ).solve()
+    t_k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = batch.PlainBatchedPhase1Solver(sblp, device="cuda",
+                                          cr_dtype="f64").solve()
+    t_p = time.perf_counter() - t0
+    dp = float(np.max(np.abs(got["pobj"] - want["pobj"])
+                      / np.abs(want["pobj"])))
+    print(f"  stage check transportation(60, 90, 0.05, 2) B=64 f64: steps "
+          f"{int(got['iters'].max())} (plain {int(want['iters'].max())}), "
+          f"per-lane steps equal {np.array_equal(got['iters'], want['iters'])}"
+          f", CR trips {int(got['cr'])} (plain {int(want['cr'])}), pobj rel "
+          f"diff {dp:.2e}, wall {t_k:.3f} s (plain {t_p:.3f} s)", flush=True)
+    # every lane meets the IPM's tests in both runs, so pobj agrees within
+    # twice the optimality tolerance; the step counts are reported, not
+    # compared: the CR stops at a loose tolerance, and a rounding difference
+    # that moves its last trip moves the trajectory
+    check(np.all(got["done"]) and np.all(want["done"]),
+          "stage check: a lane did not converge")
+    check(dp <= 2e-8, f"stage check: pobj differs by {dp:.2e}")
+
+    # -- phase 7: scenarios end to end -----------------------------------------------
+    k4 = 4
+    sv = batch.BatchedScenarioSolver(
+        data, b_batch[:k4], parameters=Parameters(display=0, device="cuda"))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    results = sv.solve()
+    torch.cuda.synchronize()
+    t_e2e = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    lines = []
+    for k, (status, info, _) in enumerate(results):
+        cold = LpSolver(Parameters(display=0, device="cpu"))
+        check(tg.load_into_solver({**data, "rhs": b_batch[k]}, cold) == 0,
+              "load_model failed")
+        check(cold.solve() == 1000, f"scenario {k}: the host solve failed")
+        want_obj = cold.get_info().objval
+        e = abs(info.objval - want_obj) / abs(want_obj)
+        lines.append(f"scenario {k}: status {status}, objval "
+                     f"{info.objval!r} (host {want_obj!r}, rel {e:.1e}), IPM "
+                     f"iters {info.iter}, CR {info.kktiter1}+{info.kktiter2}")
+        check(status == 1000, f"scenario {k}: status {status}")
+        check(e <= 1e-8, f"scenario {k}: objval differs by {e:.1e}")
+    print(f"phase 7: BatchedScenarioSolver(Parameters(device=\"cuda\")) on "
+          f"{k4} scenarios: wall {t_e2e:.3f} s (batched phase 1, mean-basis "
+          f"solve, {k4} finishes); launches {launches}; {card}\n  "
+          + "\n  ".join(lines), flush=True)
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched in phase 7")
+    check("jax" not in sys.modules, "jax was imported")
+    return rows, launches
 
 
 if __name__ == "__main__":

@@ -50,3 +50,17 @@ def resolve(device: str, model=None) -> Optional[torch.device]:
             return cuda_device()
         return None
     raise ValueError(f"unknown device {device!r}; expected one of {DEVICES}")
+
+
+def resolve_batched(device: str) -> torch.device:
+    """The torch device of the batched phase 1 (parallel/batch.py), which has
+    no host path of its own: "cuda" is the card or raises, "torch_cpu" and
+    "cpu" are the plain versions on the CPU, and "auto" is the card when one
+    is present (the reference runs where jax's accelerator is)."""
+    if device == "auto":
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    if device == "cuda":
+        return cuda_device()
+    if device in ("torch_cpu", "cpu"):
+        return torch.device("cpu")
+    raise ValueError(f"unknown device {device!r}; expected one of {DEVICES}")

@@ -48,19 +48,43 @@ def is_stale() -> bool:
 
 
 def build(force: bool = False) -> str:
-    """Compiles the library if needed; returns its path or raises."""
+    """Compiles the library if needed; returns its path or raises. Each
+    source is compiled by its own nvcc, all started together, and the
+    objects are then linked into the library."""
     if not force and not is_stale():
         return LIB
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    jobs = []
+    for src in sources():
+        obj = os.path.join(BUILD_DIR, os.path.basename(src) + f".{tag}.o")
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler",
+               "-fPIC", "-Xptxas", "-v", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    tmp = f"{LIB}.{tag}"
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+            *(obj for _, obj, _ in jobs)]
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out[-4000:]}")
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n"
+                          f"{proc.stderr[-4000:]}")
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(LOG, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+        f.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, LIB)     # atomic: a concurrent loader sees old or new
     return LIB
 

@@ -1,8 +1,10 @@
-// Shared by spmv.cu and cr.cu: block size, the layout of the CR loop's
-// scalar state, and deterministic block reductions.
+// Shared by the kernels of csrc/: block size, the layout of the CR loops'
+// scalar state, deterministic block and per-lane reductions, and the layout
+// of the batched passes.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace ipxt {
@@ -89,6 +91,94 @@ __device__ T max_partials(const T* __restrict__ p, int64_t n, T* red) {
 
 inline int64_t blocks_for(int64_t n, int64_t per_block) {
   return (n + per_block - 1) / per_block;
+}
+
+// -- batched passes over (rows, B) arrays, B contiguous ----------------------
+//
+// A block is blockDim.x threads across lanes (or across chunks of VW lanes)
+// by blockDim.y threads across rows; blockIdx.y tiles the lanes past 256 and
+// blockIdx.x strides over the rows. Capping the row blocks keeps the
+// per-block, per-lane partials of a reduction short: (gx, B) values.
+constexpr int64_t kMaxRowBlocks = 1024;
+
+struct LaneGrid {
+  int tx, ty;
+  int64_t gx, gy;
+};
+
+inline LaneGrid lane_grid(int64_t rows, int64_t chunks) {
+  LaneGrid g;
+  g.tx = (int)(chunks < kThreads ? (chunks > 0 ? chunks : 1) : kThreads);
+  g.ty = kThreads / g.tx;
+  g.gy = blocks_for(chunks > 0 ? chunks : 1, g.tx);
+  const int64_t gx = blocks_for(rows, g.ty);
+  g.gx = gx < 1 ? 1 : (gx < kMaxRowBlocks ? gx : kMaxRowBlocks);
+  return g;
+}
+
+struct AddOp {
+  template <typename T>
+  __device__ T operator()(T a, T b) const { return a + b; }
+};
+struct MaxOp {
+  template <typename T>
+  __device__ T operator()(T a, T b) const { return nan_max(a, b); }
+};
+struct MinOp {  // the candidates of a ratio test are never NaN
+  template <typename T>
+  __device__ T operator()(T a, T b) const { return b < a ? b : a; }
+};
+
+// Reduces each thread's VW values over the rows of the block (threadIdx.y),
+// in a fixed order; the result is valid in the threads with threadIdx.y == 0.
+// `red` holds blockDim.x * blockDim.y * VW values of shared memory. Every
+// thread of the block must call it.
+template <typename T, int VW, typename Op>
+__device__ void lane_reduce(T (&v)[VW], T* red, Op op) {
+  const int t = threadIdx.y * blockDim.x + threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < VW; ++j) red[t * VW + j] = v[j];
+  __syncthreads();
+  if (threadIdx.y == 0) {
+#pragma unroll
+    for (int j = 0; j < VW; ++j) {
+      T s = red[threadIdx.x * VW + j];
+      for (int y = 1; y < (int)blockDim.y; ++y)
+        s = op(s, red[(y * blockDim.x + threadIdx.x) * VW + j]);
+      v[j] = s;
+    }
+  }
+  __syncthreads();
+}
+
+// Lane b's reduction of n per-block partials laid out (n, B), in order.
+template <typename T, typename Op>
+__device__ T lane_partials(const T* __restrict__ p, int64_t n, int64_t B,
+                           int64_t b, T init, Op op) {
+  T s = init;
+  for (int64_t k = 0; k < n; ++k) s = op(s, p[k * B + b]);
+  return s;
+}
+
+// Products and sums rounded on their own, never contracted into an FMA, for
+// the passes that must match their plain PyTorch versions bit for bit.
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
 }
 
 }  // namespace ipxt

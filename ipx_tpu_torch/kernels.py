@@ -11,7 +11,11 @@ dispatch on a tensor's device, and a launcher given anything but a CUDA
 tensor raises.
 
 Kernels: K1 ``csr_spmv``, K2 ``normal_apply`` (csrc/spmv.cu), K3
-``cr_step`` (csrc/cr.cu), K4 ``nnt`` (two K1 launches).
+``cr_step`` (csrc/cr.cu), K4 ``nnt`` (two K1 launches); for the batched
+phase 1, K5 ``csr_spmm``, K6 ``normal_apply_batched`` (csrc/spmm.cu), K7
+``batched_cr_step`` (csrc/batch_cr.cu), K8 ``step_batch`` and K9
+``ipm_update`` (csrc/ipm_step.cu). Batched arrays are (rows, B) with the B
+lanes contiguous.
 """
 from __future__ import annotations
 
@@ -22,7 +26,9 @@ import torch
 from . import build as _build
 
 # launches per kernel since the last reset_launches()
-LAUNCHES = dict.fromkeys(("csr_spmv", "normal_apply", "cr_step", "nnt"), 0)
+LAUNCHES = dict.fromkeys(("csr_spmv", "normal_apply", "cr_step", "nnt",
+                          "csr_spmm", "normal_apply_batched",
+                          "batched_cr_step", "step_batch", "ipm_update"), 0)
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _lib = None
@@ -56,6 +62,28 @@ def _declare(lib: ctypes.CDLL) -> None:
         f = getattr(lib, f"ipxt_cr_step_{t}")
         f.argtypes = [I, I64, I64, I64, D] + [P] * 11 + [I64, P, P]
         f.restype = I
+        f = getattr(lib, f"ipxt_csr_spmm_{t}")
+        f.argtypes = [I64, I64] + [P] * 10 + [I, P]
+        f.restype = I
+        f = getattr(lib, f"ipxt_lane_sum_{t}")
+        f.argtypes = [I64, I64, P, P, P]
+        f.restype = I
+        f = getattr(lib, f"ipxt_bcr_step_{t}")
+        f.argtypes = [I, I64, I64, I64, I64] + [P] * 10 + [I64, P, I64, P, P]
+        f.restype = I
+        f = getattr(lib, f"ipxt_step_batch_{t}")
+        f.argtypes = [I64, I64] + [P] * 11 + [I64, P, P, P]
+        f.restype = I
+        f = getattr(lib, f"ipxt_muaff_{t}")
+        f.argtypes = [I64, I64] + [P] * 12 + [D, P, I64, P, P]
+        f.restype = I
+        f = getattr(lib, f"ipxt_ipm_update_{t}")
+        f.argtypes = [I64, I64, I64] + [P] * 18
+        f.restype = I
+    lib.ipxt_lane_blocks.argtypes = [I64, I64]
+    lib.ipxt_lane_blocks.restype = I64
+    lib.ipxt_bcr_state_len.argtypes = [I64]
+    lib.ipxt_bcr_state_len.restype = I64
     lib.ipxt_spmv_blocks.argtypes = [I64, I]
     lib.ipxt_spmv_blocks.restype = I64
     lib.ipxt_cr_blocks.argtypes = [I64]
@@ -68,18 +96,29 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 # -- checks -------------------------------------------------------------------
 def _check(t, name: str, device: torch.device, dtype: torch.dtype,
-           numel: int) -> None:
+           shape) -> None:
+    """Raises unless `t` is a contiguous tensor of `device`, `dtype` and
+    `shape` (a tuple, or an int for a vector)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if t.dim() != 1 or t.numel() != numel:
+    if tuple(t.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"({numel},)")
+                         f"{shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def _lanes(x: torch.Tensor, name: str) -> int:
+    """B of an (rows, B) batch."""
+    if x.dim() != 2:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"(rows, B)")
+    return x.shape[1]
 
 
 def _device_of(x: torch.Tensor) -> torch.device:
@@ -244,3 +283,234 @@ class CrStep:
         """(lhs on the card, iterations, error code of the loop)."""
         st = self.state.cpu()
         return self.lhs, int(st[self.IT]), int(st[self.ERR])
+
+
+# -- K5 / K6 ------------------------------------------------------------------
+def lane_blocks(rows: int, chunks: int) -> int:
+    """Row blocks of a batched pass over `rows` rows and `chunks` lane
+    chunks: the number of per-lane partials it writes."""
+    return int(load().ipxt_lane_blocks(rows, chunks))
+
+
+def spmm_width(B: int, dtype: torch.dtype, *tensors) -> int:
+    """Lanes a thread of K5 takes: one 16-byte vector where B and the
+    pointers allow it, else 1."""
+    v = 16 // torch.empty(0, dtype=dtype).element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+    return v if B % v == 0 and aligned else 1
+
+
+def _spmm(op, U, Y, rowscale=None, addw=None, addv=None, partials=None,
+          state=None) -> None:
+    """One launch of the batched CSR kernel with its optional epilogues."""
+    device, dtype = U.device, U.dtype
+    lib = load()
+    _check_operand(op, device, dtype)
+    B = _lanes(U, "U")
+    _check(U, "U", device, dtype, (op.cols, B))
+    _check(Y, "Y", device, dtype, (op.rows, B))
+    for name, t in (("rowscale", rowscale), ("addw", addw), ("addv", addv)):
+        if t is not None:
+            _check(t, name, device, dtype, (op.rows, B))
+    if (addw is None) != (addv is None):
+        raise ValueError("addw and addv go together")
+    vw = spmm_width(B, dtype, U, Y, rowscale, addw, addv, partials)
+    if partials is not None:
+        if addv is None:
+            raise ValueError("partials need addv")
+        _check(partials, "partials", device, dtype,
+               (lane_blocks(op.rows, B // vw), B))
+    if state is not None:
+        _check(state, "state", device, dtype, int(lib.ipxt_bcr_state_len(B)))
+    fn = getattr(lib, f"ipxt_csr_spmm_{_SUFFIX[dtype]}")
+    err = fn(op.rows, B, op.indptr.data_ptr(), op.indices.data_ptr(),
+             op.vals.data_ptr(), U.data_ptr(), _ptr(rowscale), _ptr(addw),
+             _ptr(addv), Y.data_ptr(), _ptr(partials), _ptr(state), vw,
+             _stream(device))
+    _raise_if(err, "csr_spmm")
+
+
+def csr_spmm(op, U: torch.Tensor) -> torch.Tensor:
+    """K5: Y = op @ U for U of shape (op.cols, B), on the card."""
+    device = _device_of(U)
+    Y = torch.empty((op.rows, _lanes(U, "U")), dtype=U.dtype, device=device)
+    _spmm(op, U, Y)
+    LAUNCHES["csr_spmm"] += 1
+    return Y
+
+
+def normal_partials_shape(A, W, V, out, U) -> tuple:
+    """Shape of the per-lane partials that K6's second launch writes for
+    these buffers."""
+    B = _lanes(V, "V")
+    vw = spmm_width(B, V.dtype, U, out, W[W.shape[0] - A.rows:], V)
+    return (lane_blocks(A.rows, B // vw), B)
+
+
+def normal_apply_batched(At, A, W: torch.Tensor, V: torch.Tensor, out=None,
+                         U=None, partials=None, state=None, dots=None):
+    """K6: out = A (W[:n] * (A' V)) + W[n:] * V for V of shape (m, B), with
+    the per-block partials of the column dots V.out in `partials`; with
+    `dots` (a (B,) tensor) also their sums. The batched CR passes
+    `partials`, never `dots`: the sum (lane_sum in csrc/spmm.cu) serves
+    spmv.normal_apply_batched."""
+    device = _device_of(V)
+    n, m = At.rows, A.rows
+    B = _lanes(V, "V")
+    _check(W, "W", device, V.dtype, (n + m, B))
+    e = lambda *s: torch.empty(s, dtype=V.dtype, device=device)  # noqa: E731
+    out = e(m, B) if out is None else out
+    U = e(n, B) if U is None else U
+    if partials is None:
+        partials = e(*normal_partials_shape(A, W, V, out, U))
+    _spmm(At, V, U, rowscale=W[:n], state=state)
+    _spmm(A, U, out, addw=W[n:], addv=V, partials=partials, state=state)
+    if dots is not None:
+        _check(dots, "dots", device, V.dtype, B)
+        fn = getattr(_lib, f"ipxt_lane_sum_{_SUFFIX[V.dtype]}")
+        _raise_if(fn(partials.shape[0], B, partials.data_ptr(),
+                     dots.data_ptr(), _stream(device)), "lane_sum")
+    LAUNCHES["normal_apply_batched"] += 1
+    return out
+
+
+# -- K7 -----------------------------------------------------------------------
+class BatchedCrStep:
+    """K7: the passes of one batched CR solve (csrc/batch_cr.cu) on one card.
+
+    Owns the loop's (m, B) arrays, the K6 scratch, the per-lane partials and
+    the state, all allocated once per solve. `R` starts as a copy of `rhs`.
+    `invd` and `resscale` are (m, B) and `tol` is (B,), all of rhs's dtype;
+    `W` is the (n + m, B) weight of the K6 that the host launches on `S`
+    between kPassB and kBeta (`normal_apply`)."""
+
+    INIT, START, PASS_CA, CHECK, PASS_B, BETA = range(6)
+    # state slots (csrc/common.cuh)
+    IT, DONE = 3, 5
+
+    def __init__(self, At, A, W: torch.Tensor, invd: torch.Tensor,
+                 resscale: torch.Tensor, tol: torch.Tensor,
+                 rhs: torch.Tensor):
+        device, dtype = _device_of(rhs), rhs.dtype
+        lib = load()
+        n, m = At.rows, A.rows
+        B = _lanes(rhs, "rhs")
+        _check(rhs, "rhs", device, dtype, (m, B))
+        _check(invd, "invd", device, dtype, (m, B))
+        _check(resscale, "resscale", device, dtype, (m, B))
+        _check(tol, "tol", device, dtype, B)
+        _check(W, "W", device, dtype, (n + m, B))
+        e = lambda *s: torch.empty(s, dtype=dtype, device=device)  # noqa: E731
+        self.At, self.A, self.W = At, A, W
+        self.m, self.B = m, B
+        self.R = rhs.clone()
+        self.Y, self.S, self.CS, self.D, self.CD = (e(m, B) for _ in range(5))
+        self.U = e(n, B)
+        self.npa = lane_blocks(m, B)
+        self.pa = e(2, self.npa, B)
+        self.pc = e(*normal_partials_shape(A, W, self.S, self.CS, self.U))
+        # zeros made on the host: the state is copied up, not filled by a
+        # device kernel
+        self.state = torch.zeros(int(lib.ipxt_bcr_state_len(B)),
+                                 dtype=dtype).to(device)
+        self._keep = (invd, resscale, tol)   # alive while the loop runs
+        self._fn = getattr(lib, f"ipxt_bcr_step_{_SUFFIX[dtype]}")
+        self._args = (invd.data_ptr(), resscale.data_ptr(), tol.data_ptr(),
+                      self.Y.data_ptr(), self.R.data_ptr(),
+                      self.S.data_ptr(), self.CS.data_ptr(),
+                      self.D.data_ptr(), self.CD.data_ptr(),
+                      self.pa.data_ptr(), self.npa, self.pc.data_ptr(),
+                      self.pc.shape[0], self.state.data_ptr(),
+                      _stream(device))
+
+    def launch(self, phase: int, k: int, maxiter: int) -> None:
+        err = self._fn(phase, self.m, self.B, k, maxiter, *self._args)
+        _raise_if(err, f"batched_cr_step phase {phase}")
+        LAUNCHES["batched_cr_step"] += 1
+
+    def normal_apply(self) -> None:
+        """CS = C S and the partials of S.CS, through K6."""
+        normal_apply_batched(self.At, self.A, self.W, self.S, out=self.CS,
+                             U=self.U, partials=self.pc, state=self.state)
+
+    def done(self) -> bool:
+        return bool(self.state[self.DONE].item())
+
+    def result(self):
+        """(Y on the card, trips)."""
+        return self.Y, int(self.state[self.IT].item())
+
+
+# -- K8 / K9 ------------------------------------------------------------------
+def _check_step(arrays, fins, device, dtype, nm, B) -> None:
+    for name, t in arrays.items():
+        _check(t, name, device, dtype, (nm, B))
+    for name, t in fins.items():
+        _check(t, name, device, torch.bool, nm)
+
+
+def step_batch(XL, XU, ZL, ZU, DXL, DXU, DZL, DZU, finl, finu):
+    """K8: per-lane (maxp, maxd), the largest steps to the boundary of the
+    (XL, XU) and (ZL, ZU) pairs, capped at 1."""
+    device, dtype = _device_of(XL), XL.dtype
+    nm, B = XL.shape[0], _lanes(XL, "XL")
+    arrays = dict(XL=XL, XU=XU, ZL=ZL, ZU=ZU, DXL=DXL, DXU=DXU, DZL=DZL,
+                  DZU=DZU)
+    _check_step(arrays, dict(finl=finl, finu=finu), device, dtype, nm, B)
+    npb = lane_blocks(nm, B)
+    e = lambda *s: torch.empty(s, dtype=dtype, device=device)  # noqa: E731
+    partials, maxp, maxd = e(2, npb, B), e(B), e(B)
+    fn = getattr(load(), f"ipxt_step_batch_{_SUFFIX[dtype]}")
+    err = fn(nm, B, *(t.data_ptr() for t in arrays.values()),
+             finl.data_ptr(), finu.data_ptr(), partials.data_ptr(), npb,
+             maxp.data_ptr(), maxd.data_ptr(), _stream(device))
+    _raise_if(err, "step_batch")
+    LAUNCHES["step_batch"] += 1
+    return maxp, maxd
+
+
+def muaff(XL, XU, ZL, ZU, DXL, DXU, DZL, DZU, finl, finu, maxp, maxd,
+          num_fin: int):
+    """K8's second kernel: per-lane mean complementarity after the affine
+    step, (sum of the finite (X + maxp DX)(Z + maxd DZ)) / max(num_fin, 1)."""
+    device, dtype = _device_of(XL), XL.dtype
+    nm, B = XL.shape[0], _lanes(XL, "XL")
+    arrays = dict(XL=XL, XU=XU, ZL=ZL, ZU=ZU, DXL=DXL, DXU=DXU, DZL=DZL,
+                  DZU=DZU)
+    _check_step(arrays, dict(finl=finl, finu=finu), device, dtype, nm, B)
+    _check(maxp, "maxp", device, dtype, B)
+    _check(maxd, "maxd", device, dtype, B)
+    npb = lane_blocks(nm, B)
+    partials = torch.empty((npb, B), dtype=dtype, device=device)
+    out = torch.empty(B, dtype=dtype, device=device)
+    fn = getattr(load(), f"ipxt_muaff_{_SUFFIX[dtype]}")
+    err = fn(nm, B, *(t.data_ptr() for t in arrays.values()),
+             finl.data_ptr(), finu.data_ptr(), maxp.data_ptr(),
+             maxd.data_ptr(), float(num_fin), partials.data_ptr(), npb,
+             out.data_ptr(), _stream(device))
+    _raise_if(err, "muaff")
+    LAUNCHES["step_batch"] += 1
+    return out
+
+
+def ipm_update(X, XL, XU, Y, ZL, ZU, DX, DXL, DXU, DY, DZL, DZU, alphap,
+               alphad, done, finl, finu) -> None:
+    """K9: the masked iterate update of a batched IPM step, in place."""
+    device, dtype = _device_of(X), X.dtype
+    nm, B = X.shape[0], _lanes(X, "X")
+    _lanes(Y, "Y")
+    m = Y.shape[0]
+    _check_step(dict(X=X, XL=XL, XU=XU, ZL=ZL, ZU=ZU, DX=DX, DXL=DXL,
+                     DXU=DXU, DZL=DZL, DZU=DZU), dict(finl=finl, finu=finu),
+                device, dtype, nm, B)
+    _check(Y, "Y", device, dtype, (m, B))
+    _check(DY, "DY", device, dtype, (m, B))
+    _check(alphap, "alphap", device, dtype, B)
+    _check(alphad, "alphad", device, dtype, B)
+    _check(done, "done", device, torch.bool, B)
+    fn = getattr(load(), f"ipxt_ipm_update_{_SUFFIX[dtype]}")
+    err = fn(nm, m, B, *(t.data_ptr() for t in (
+        X, XL, XU, Y, ZL, ZU, DX, DXL, DXU, DY, DZL, DZU, alphap, alphad,
+        done, finl, finu)), _stream(device))
+    _raise_if(err, "ipm_update")
+    LAUNCHES["ipm_update"] += 1

@@ -1,6 +1,6 @@
 """Sparse matrix-vector products on a torch device (port of ipx_tpu/ops/spmv.py).
 
-Two kernels live behind the wrappers here, each with its plain PyTorch
+Four kernels live behind the wrappers here, each with its plain PyTorch
 version beside it:
 
 * K1 ``csr_spmv``: y = A x over CSR rows (csrc/spmv.cu). Replaces
@@ -11,11 +11,19 @@ version beside it:
   v.Cv (two launches of K1 with epilogues). Replaces
   ``NormalMatrixDevice.apply`` / ``normal_apply_tree`` and the fused dot of
   ``ipx_tpu/ops/device_cr.py`` ``cr.C``.
+* K5 ``csr_spmm``: Y = A U for a batch U of shape (cols, B), B contiguous
+  (csrc/spmm.cu). Replaces ``apply_csr_batched`` / ``apply_csr_batched_tree``
+  (a take of the rows of U and a sorted segment_sum) for A, A' and A.^2.
+* K6 ``normal_apply_batched``: C V = A (W_s * (A' V)) + W_slack * V for V of
+  shape (m, B) and per-lane weights W of shape (n+m, B), with the column dots
+  V.CV (two launches of K5 with epilogues). Replaces
+  ``NormalMatrixDevice.apply_batched`` / ``normal_apply_batched_tree``.
 
-Both are memory-bound on the H100 (about 12-16 bytes of index and value per
-nonzero plus a gather of x that stays in L2); see csrc/spmv.cu for what the
-design does about it. A wrapper takes the plain version only for a tensor on
-the CPU; for a CUDA tensor it launches the kernel or raises.
+All four are memory-bound on the H100: K1 and K2 move about 12-16 bytes of
+index and value per nonzero plus a gather of x that stays in L2, K5 and K6
+gather one row of B values per nonzero; csrc/spmv.cu and csrc/spmm.cu say
+what the designs do about it. A wrapper takes the plain version only for a
+tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -108,6 +116,19 @@ class NormalMatrixDevice:
         tests; the CR loop calls kernels.normal_apply directly."""
         return normal_apply(self, W, v)
 
+    def apply_batched(self, W: torch.Tensor, V: torch.Tensor):
+        """(C V, column dots V.CV) for V of shape (m, B) and W of shape
+        (n+m, B): K6, the counterpart of ipx_tpu's apply_batched."""
+        return normal_apply_batched(self, W, V)
+
+    def apply_batched_struct(self, U: torch.Tensor) -> torch.Tensor:
+        """A U for U of shape (n, B): K5."""
+        return csr_spmm(self.op_A, U)
+
+    def applyT_batched_struct(self, V: torch.Tensor) -> torch.Tensor:
+        """A' V for V of shape (m, B): K5."""
+        return csr_spmm(self.op_At, V)
+
 
 def normal_apply_plain(nmd: NormalMatrixDevice, W: torch.Tensor,
                        v: torch.Tensor):
@@ -126,3 +147,37 @@ def normal_apply(nmd: NormalMatrixDevice, W: torch.Tensor, v: torch.Tensor):
     dot = torch.empty(1, dtype=v.dtype, device=v.device)
     out = kernels.normal_apply(nmd.op_At, nmd.op_A, W, v, dot=dot)
     return out, dot[0]
+
+
+def csr_spmm_plain(op: CsrOperand, U: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5: gather rows of U, scale, scatter-add by row."""
+    Y = torch.zeros((op.rows, U.shape[1]), dtype=U.dtype, device=U.device)
+    return Y.index_add_(0, op.row_ids,
+                        op.vals[:, None] * U.index_select(0, op.indices))
+
+
+def csr_spmm(op: CsrOperand, U: torch.Tensor) -> torch.Tensor:
+    """K5: Y = op @ U for U of shape (op.cols, B)."""
+    if U.device.type == "cpu":
+        return csr_spmm_plain(op, U)
+    return kernels.csr_spmm(op, U)
+
+
+def normal_apply_batched_plain(nmd: NormalMatrixDevice, W: torch.Tensor,
+                               V: torch.Tensor):
+    """Plain version of K6."""
+    n = nmd.n
+    U = csr_spmm_plain(nmd.op_At, V) * W[:n]
+    out = csr_spmm_plain(nmd.op_A, U) + W[n:] * V
+    return out, torch.sum(V * out, dim=0)
+
+
+def normal_apply_batched(nmd: NormalMatrixDevice, W: torch.Tensor,
+                         V: torch.Tensor):
+    """K6: (C V, column dots V.CV). The batched CR on the card launches
+    kernels.normal_apply_batched itself and keeps the dots as partials."""
+    if V.device.type == "cpu":
+        return normal_apply_batched_plain(nmd, W, V)
+    dots = torch.empty(V.shape[1], dtype=V.dtype, device=V.device)
+    out = kernels.normal_apply_batched(nmd.op_At, nmd.op_A, W, V, dots=dots)
+    return out, dots

@@ -101,6 +101,7 @@ def test_port_imports_no_jax():
         "sys.path.insert(0, 'tests')\n"
         "import ipx_tpu_torch\n"
         "import ipx_tpu_torch.host\n"
+        "import ipx_tpu_torch.parallel.batch\n"
         "from lp_fixtures import afiro\n"
         "p = ipx_tpu_torch.Parameters(display=0, device='torch_cpu')\n"
         "s = ipx_tpu_torch.LpSolver(p)\n"

@@ -26,7 +26,13 @@ with the card's nvidia-smi name and power limit:
            LP: host wall time per call and device time per call from
            torch.profiler, and the device's busy share over the calls;
   busy     device time over wall time of one port solve, from
-           torch.profiler, with the ten kernels and copies that took most.
+           torch.profiler, with the ten kernels and copies that took most;
+  batched  K5-K9 and their plain versions at the shapes of that LP as a
+           batch of 256 scenarios (chip_smoke.py phase 5): host wall time
+           and device time per call;
+  stage    the batched phase 1 of chip_smoke.py phase 6
+           (BatchedPhase1Solver(device="cuda"), B = 256, handoff "auto"):
+           wall time, device busy share and the ten largest device items.
 
 It imports torch and ipx_tpu_torch only, and no jax.
 """
@@ -48,6 +54,9 @@ from ipx_tpu_torch import LpSolver, Parameters, backend, kernels  # noqa: E402
 from ipx_tpu_torch.host import (SplittedNormalMatrix,  # noqa: E402
                                 normal_diag, testgen)
 from ipx_tpu_torch.ops import device_cr, device_cr2, spmv  # noqa: E402
+from ipx_tpu_torch.parallel import batch  # noqa: E402
+
+from chip_smoke import scenarios  # noqa: E402
 
 INSTANCE = (8000, 12000, 0.001, 1)
 OMP_VARS = ("OMP_NUM_THREADS", "OMP_WAIT_POLICY", "OMP_PROC_BIND")
@@ -117,7 +126,6 @@ def _device_us(prof):
 
 
 def part_kernels(data, args, card):
-    from torch.profiler import ProfilerActivity, profile
     dev = backend.cuda_device()
     host, _, _ = solve(data, "cpu", stop_at_switch=1)
     md = host.basis.model
@@ -161,6 +169,13 @@ def part_kernels(data, args, card):
          lambda: device_cr2.nnt_plain(dsc._Nt, dsc._N, w), 100),
         ("K3 mixed CR solve", lambda: mk.solve(rhs, tol, -1),
          lambda: mp.solve(rhs, tol, -1), 5)]
+    profile_cases(cases, card)
+
+
+def profile_cases(cases, card):
+    """Host wall time and profiler device time per call of each (name,
+    kernel, plain, reps) case."""
+    from torch.profiler import ProfilerActivity, profile
     for name, kern, plain, reps in cases:
         for label, fn in (("kernel", kern), ("plain", plain)):
             for _ in range(3):
@@ -200,13 +215,106 @@ def part_busy(data, args, card):
               f"{e.self_device_time_total / e.count:6.2f} us", flush=True)
 
 
+def _batch(data, B=256):
+    return batch.BatchedScenarioSolver(data, scenarios(data, B)).blp
+
+
+def part_batched(data, args, card):
+    dev = backend.cuda_device()
+    blp = _batch(data)
+    m, n = blp.A.shape
+    B = blp.batch
+    rng = np.random.default_rng(args.seed)
+
+    def t(x, dtype=torch.float64):
+        return torch.from_numpy(np.asarray(x, dtype=np.float64)).to(
+            dtype).to(dev)
+
+    f32 = torch.float32
+    n64 = spmv.NormalMatrixDevice(blp.A, dev)
+    n32 = spmv.NormalMatrixDevice(blp.A, dev, f32)
+    U64, V32 = t(rng.standard_normal((n, B))), t(rng.standard_normal((m, B)),
+                                                   f32)
+    W32 = t(10.0 ** rng.uniform(-2, 2, (n + m, B)), f32)
+    Wc = 10.0 ** rng.uniform(-1, 1, (n + m, B))
+    A2 = blp.A.copy()
+    A2.data **= 2
+    rs = 1.0 / np.sqrt(Wc[n:])
+    rhs = rng.standard_normal((m, B))
+    tol = np.max(np.abs(rs * rhs), axis=0) * 10.0 ** rng.uniform(-4, -3, B)
+    cr = (n32, t(Wc, f32), t(1.0 / (A2 @ Wc[:n] + Wc[n:]), f32), t(rs, f32),
+          t(rhs, f32), t(tol, f32), 500)
+    finl = torch.from_numpy(np.isfinite(blp.lb)).to(dev)
+    finu = torch.from_numpy(np.isfinite(blp.ub)).to(dev)
+    st = {}
+    for name, fin in (("XL", finl), ("XU", finu), ("ZL", finl),
+                      ("ZU", finu)):
+        x = t(rng.uniform(1e-3, 10.0, (n + m, B)))
+        x[~fin] = float("inf") if name.startswith("X") else 0.0
+        st[name] = x
+        st["D" + name] = t(rng.standard_normal((n + m, B)) * 5.0)
+    sargs = [st[k] for k in ("XL", "XU", "ZL", "ZU", "DXL", "DXU", "DZL",
+                             "DZU")] + [finl, finu]
+    upd = (t(rng.standard_normal((n + m, B))), st["XL"], st["XU"],
+           t(rng.standard_normal((m, B))), st["ZL"], st["ZU"],
+           t(rng.standard_normal((n + m, B))), st["DXL"], st["DXU"],
+           t(rng.standard_normal((m, B))), st["DZL"], st["DZU"],
+           t(rng.uniform(0.1, 1.0, B)), t(rng.uniform(0.1, 1.0, B)),
+           torch.from_numpy(rng.random(B) < 0.25).to(dev), finl, finu)
+    cases = [
+        ("K5 A U f64", lambda: kernels.csr_spmm(n64.op_A, U64),
+         lambda: spmv.csr_spmm_plain(n64.op_A, U64), 50),
+        ("K5 A'V f32", lambda: kernels.csr_spmm(n32.op_At, V32),
+         lambda: spmv.csr_spmm_plain(n32.op_At, V32), 50),
+        ("K6 f32", lambda: spmv.normal_apply_batched(n32, W32, V32),
+         lambda: spmv.normal_apply_batched_plain(n32, W32, V32), 50),
+        ("K7 f32 CR solve", lambda: batch.batched_cr(*cr),
+         lambda: batch.batched_cr_plain(*cr), 3),
+        ("K8 maxp/maxd f64", lambda: batch.step_batch(*sargs),
+         lambda: batch.step_batch_plain(*sargs), 20),
+        ("K9 update f64", lambda: batch.ipm_update(*upd),
+         lambda: batch.ipm_update_plain(*upd), 20)]
+    profile_cases(cases, card)
+
+
+def part_stage(data, args, card):
+    from torch.profiler import ProfilerActivity, profile
+    backend.cuda_device()
+    blp = _batch(data)
+    ph1 = batch.BatchedPhase1Solver(blp, feasibility_tol=1e-4,
+                                    optimality_tol=1e-4, device="cuda")
+    ph1._starting_point()           # warm-up
+    torch.cuda.synchronize()
+    for label, prof in (("wall", None),
+                        ("profiled", profile(
+                            activities=[ProfilerActivity.CUDA]))):
+        t0 = time.perf_counter()
+        if prof is None:
+            out = ph1.solve(handoff="auto")
+        else:
+            with prof:
+                out = ph1.solve(handoff="auto")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"stage {label} B={blp.batch} steps {int(out['iters'].max())} "
+              f"CR trips {int(out['cr'])} wall {wall:.3f} s | {card}",
+              flush=True)
+    dev_us, events = _device_us(prof)
+    print(f"stage device {dev_us / 1e6:.4f} s = {dev_us / 1e6 / wall:.2%} "
+          f"of the profiled wall | {card}", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"stage   {e.key[:60]:60s} count {e.count:7d} total "
+              f"{e.self_device_time_total / 1e3:9.3f} ms, mean "
+              f"{e.self_device_time_total / e.count:8.2f} us", flush=True)
+
+
 PARTS = {"e2e": part_e2e, "native": part_native, "kernels": part_kernels,
-         "busy": part_busy}
+         "busy": part_busy, "batched": part_batched, "stage": part_stage}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--what", default="e2e,native,kernels,busy",
+    ap.add_argument("--what", default="e2e,native,kernels,busy,batched,stage",
                     help="comma-separated parts: " + ", ".join(PARTS))
     ap.add_argument("--turns", type=int, default=2,
                     help="solves per path in the e2e part")
