@@ -17,7 +17,8 @@ only: no jax, and no module of ipx_tpu except through ipx_tpu_torch.
      launches none of the kernels, and compares;
   5. holds the batched kernels K5-K9 against their plain versions at the
      shapes of that LP as a batch of B = 256 scenarios (m = 20 000,
-     n + m = 116 000), in float64 and float32, and times both;
+     n + m = 116 002), in float64 and float32, and K10-K13, the rest of the
+     batched IPM step, in float64, and times both;
   6. runs BatchedPhase1Solver(device="cuda") over those 256 scenarios to
      the handoff (tolerance 1e-4), with the counters set to 0 just before,
      and checks a small stage against the same solver with the plain
@@ -25,7 +26,13 @@ only: no jax, and no module of ipx_tpu except through ipx_tpu_torch.
   7. solves the first 4 scenarios end to end through
      BatchedScenarioSolver(parameters=Parameters(device="cuda")), the
      batched phase 1 and the port's LpSolver finishes, with the counters
-     set to 0 just before, against cold LpSolver(device="cpu") solves.
+     set to 0 just before, against cold LpSolver(device="cpu") solves;
+  8. runs the shared-basis polish (parallel/batch2.py) on 4 lanes of the
+     phase-6 handoff state for POLISH_STEPS steps through the kernels, with
+     the counters set to 0 just before, and through the plain versions on
+     the card with the kernel run's shared-basis CR solutions; then
+     BatchedScenarioSolver(phase2_polish=True) end to end on a small LP.
+    The plain run replays the kernel run's host CR solutions.
 
 It stops with a non-zero exit at the first failure. The line before the
 last is a JSON object with one entry per kernel, whose launch counts are
@@ -316,7 +323,7 @@ def main():
     t_batched = time.perf_counter()
     batched_rows, launches = batched_phases(card, data, dev, rng)
     rows.update(batched_rows)
-    print(f"phases 5-7 took {time.perf_counter() - t_batched:.1f} s; the "
+    print(f"phases 5-8 took {time.perf_counter() - t_batched:.1f} s; the "
           f"script {time.perf_counter() - T_START:.1f} s", flush=True)
 
     print(card, flush=True)
@@ -337,7 +344,11 @@ SOURCE = {"csr_spmv": "ipx_tpu_torch/csrc/spmv.cu",
           "normal_apply_batched": "ipx_tpu_torch/csrc/spmm.cu",
           "batched_cr_step": "ipx_tpu_torch/csrc/batch_cr.cu",
           "step_batch": "ipx_tpu_torch/csrc/ipm_step.cu",
-          "ipm_update": "ipx_tpu_torch/csrc/ipm_step.cu"}
+          "ipm_update": "ipx_tpu_torch/csrc/ipm_step.cu",
+          "ipm_prologue": "ipx_tpu_torch/csrc/ipm_prologue.cu",
+          "newton_rhs": "ipx_tpu_torch/csrc/newton.cu",
+          "newton_recover": "ipx_tpu_torch/csrc/newton.cu",
+          "starting_point": "ipx_tpu_torch/csrc/start.cu"}
 REPLACES = {"csr_spmv": "ipx_tpu/ops/spmv.py:93",
             "normal_apply": "ipx_tpu/ops/spmv.py:226",
             "cr_step": "ipx_tpu/ops/device_cr.py:85",
@@ -346,10 +357,19 @@ REPLACES = {"csr_spmv": "ipx_tpu/ops/spmv.py:93",
             "normal_apply_batched": "ipx_tpu/ops/spmv.py:157",
             "batched_cr_step": "ipx_tpu/parallel/batch.py:209",
             "step_batch": "ipx_tpu/parallel/batch.py:604",
-            "ipm_update": "ipx_tpu/parallel/batch.py:534"}
+            "ipm_update": "ipx_tpu/parallel/batch.py:534",
+            "ipm_prologue": "ipx_tpu/parallel/batch.py:411",
+            "newton_rhs": "ipx_tpu/parallel/batch.py:465",
+            "newton_recover": "ipx_tpu/parallel/batch.py:473",
+            "starting_point": "ipx_tpu/parallel/batch.py:331"}
 BATCHED = ("csr_spmm", "normal_apply_batched", "batched_cr_step",
-           "step_batch", "ipm_update")
+           "step_batch", "ipm_update", "ipm_prologue", "newton_rhs",
+           "newton_recover", "starting_point")
+# the kernels of a polish step: its CR runs on the host
+POLISH = ("csr_spmm", "step_batch", "ipm_update", "ipm_prologue",
+          "newton_rhs", "newton_recover")
 B_FULL = 256
+POLISH_STEPS = 3
 
 
 def scenarios(data, B):
@@ -365,8 +385,8 @@ def scenarios(data, B):
 
 
 def batched_phases(card, data, dev, rng):
-    """Phases 5-7; returns the kernel rows of K5-K9 and the launch counts of
-    phase 7."""
+    """Phases 5-8; returns the kernel rows of K5-K13 and the launch counts
+    of phase 7."""
     import torch
     from ipx_tpu_torch import LpSolver, Parameters, kernels
     from ipx_tpu_torch.host import testgen as tg
@@ -527,6 +547,8 @@ def batched_phases(card, data, dev, rng):
                                       max_abs_err=err, ms=ms, plain_ms=pms)
         del nmd, W, V, out, out2, out_p, st, sargs, state, dirs, got, want
         torch.cuda.empty_cache()
+    rows.update(step_kernels(blp, dev, rng, report, t))
+    torch.cuda.empty_cache()
 
     # -- phase 6: the batched phase 1 at full width -------------------------------
     ph1 = batch.BatchedPhase1Solver(blp, feasibility_tol=1e-4,
@@ -561,6 +583,9 @@ def batched_phases(card, data, dev, rng):
     check(np.all(mu < mu0), "phase 6: mu did not fall on every lane")
     for name in BATCHED:
         check(stage_launches[name] > 0, f"phase 6: {name} not launched")
+    # 4 lanes of the handoff state for phase 8
+    handoff = {k: np.ascontiguousarray(out[k][..., :4]) for k in (
+        "X", "XL", "XU", "Y", "ZL", "ZU", "done", "iters")}
     del ph1, out
 
     # the whole stage, kernels against plain versions, on a small LP
@@ -622,7 +647,298 @@ def batched_phases(card, data, dev, rng):
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched in phase 7")
     check("jax" not in sys.modules, "jax was imported")
+
+    polish_phase(card, data, b_batch[:4], handoff, "cuda")
     return rows, launches
+
+
+class plain_products:
+    """Within it the plain K11 and K12 take K5's products (their plain
+    product sums each row in another order), so that their outputs can be
+    held against the kernels' bit for bit."""
+
+    def __enter__(self):
+        from ipx_tpu_torch import kernels
+        from ipx_tpu_torch.ops import spmv
+        self.saved = spmv.csr_spmm_plain
+        spmv.csr_spmm_plain = kernels.csr_spmm
+
+    def __exit__(self, *exc):
+        from ipx_tpu_torch.ops import spmv
+        spmv.csr_spmm_plain = self.saved
+
+
+def step_kernels(blp, dev, rng, report, t):
+    """Phase 5, K10-K13 in float64 at B = 256 on an iterate-like state over
+    the LP's bounds; returns their kernel rows."""
+    import torch
+    from ipx_tpu_torch import kernels
+    from ipx_tpu_torch.ops import spmv
+    from ipx_tpu_torch.parallel import batch
+
+    f64 = torch.float64
+    m, n = blp.A.shape
+    nm, B = n + m, B_FULL
+    rows = {}
+    lb, ub = t(blp.lb, f64), t(blp.ub, f64)
+    finl, finu = torch.isfinite(lb), torch.isfinite(ub)
+    s = dict(X=t(rng.standard_normal((nm, B)), f64),
+             Y=t(rng.standard_normal((m, B)), f64),
+             bT=t(np.ascontiguousarray(blp.b.T), f64),
+             cT=t(np.ascontiguousarray(blp.c.T), f64))
+    for name, fin in (("XL", finl), ("XU", finu), ("ZL", finl),
+                      ("ZU", finu)):
+        x = t(10.0 ** rng.uniform(-4, 1, (nm, B)), f64)
+        x[~fin] = float("inf") if name.startswith("X") else 0.0
+        s[name] = x
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    done[1::3] = True
+    nmd = spmv.NormalMatrixDevice(blp.A, dev)
+    num_fin = int(finl.sum() + finu.sum())
+    args = (kernels.csr_spmm(nmd.op_A, s["X"][:n]),
+            kernels.csr_spmm(nmd.op_At, s["Y"]), s["X"], s["XL"], s["XU"],
+            s["Y"], s["ZL"], s["ZU"], done, s["bT"], s["cT"], lb, ub, finl,
+            finu)
+    # an optimality limit between two lanes' gaps, far from every lane's
+    probe = batch.ipm_prologue_plain(*args, 1e30, 1e30, 0.0, 0.3, num_fin)
+    gaps = np.sort(probe.gap.cpu().numpy())
+    tests = (1e30, 1e30, float(np.sqrt(gaps[B // 2 - 1] * gaps[B // 2])),
+             0.3, num_fin)
+    got = batch.ipm_prologue(*args, *tests)
+    again = batch.ipm_prologue(*args, *tests)
+    want = batch.ipm_prologue_plain(*args, *tests)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(getattr(got, k), getattr(want, k))
+                for k in ("RB", "RC", "RL", "RU", "pres", "dres"))
+    G = torch.where(finl[:, None], s["ZL"] / s["XL"], 0.0) \
+        + torch.where(finu[:, None], s["ZU"] / s["XU"], 0.0)
+    W, rs = batch.kkt_weights_plain(G, got.regval, n)
+    exact &= torch.equal(got.W, W) and torch.equal(got.resscale, rs)
+    exact &= all(torch.equal(a, b) for a, b in zip(got, again))
+    clear = (want.gap - tests[2]).abs() > 1e-12 * tests[2]
+    exact &= torch.equal(got.done[clear], want.done[clear])
+    fl, fu = finl[:, None], finu[:, None]
+    zero = torch.zeros_like(s["X"])
+    scale = dict(
+        pobj=(s["cT"] * s["X"]).abs().sum(0),
+        dobj=(s["bT"] * s["Y"]).abs().sum(0)
+        + torch.where(fl, lb[:, None] * s["ZL"], zero).abs().sum(0)
+        + torch.where(fu, ub[:, None] * s["ZU"], zero).abs().sum(0),
+        mu=(torch.where(fl, s["XL"] * s["ZL"], zero).abs().sum(0)
+            + torch.where(fu, s["XU"] * s["ZU"], zero).abs().sum(0))
+        / num_fin)
+    del zero, G, W, rs, again
+    sums = max(float(((getattr(got, k) - getattr(want, k)).abs()
+                      / scale[k]).max()) for k in scale)
+    err = max(max_abs(getattr(got, k), getattr(want, k)) for k in scale)
+    ms = cuda_ms(lambda: batch.ipm_prologue(*args, *tests))
+    pms = cuda_ms(lambda: batch.ipm_prologue_plain(*args, *tests))
+    report("K10 ipm_prologue", f"f64, exact {exact}, sums", sums, 1e-13, ms,
+           pms)
+    check(exact, "K10: an elementwise output, a max or done differs, or "
+          "two runs differ")
+    rows["ipm_prologue"] = dict(case="f64, B=256; max_abs_err of pobj, dobj"
+                                ", mu (the rest bit for bit)",
+                                max_abs_err=err, ms=ms, plain_ms=pms)
+
+    # K11 (corrector form) and K12 on the prologue's outputs
+    sig = t(rng.uniform(0.0, 1.0, B), f64)
+    dirs = tuple(t(rng.standard_normal((nm, B)), f64) for _ in range(4))
+    rhs_in = (nmd.op_A, got.RC, got.RL, got.RU, s["XL"], s["XU"], s["ZL"],
+              s["ZU"], got.W, got.RB, finl, finu, sig, got.mu, *dirs)
+    r_got = batch.newton_rhs(*rhs_in)
+    with plain_products():
+        r_want = batch.newton_rhs_plain(*rhs_in)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(a, b) for a, b in zip(r_got, r_want))
+    ms = cuda_ms(lambda: batch.newton_rhs(*rhs_in))
+    pms = cuda_ms(lambda: batch.newton_rhs_plain(*rhs_in))
+    report("K11 newton_rhs", f"corrector f64, exact {exact}",
+           0.0 if exact else 1.0, 0.0, ms, pms)
+    rows["newton_rhs"] = dict(
+        case="corrector, f64, B=256, K5 products shared",
+        max_abs_err=max(max_abs(a, b) for a, b in zip(r_got, r_want)),
+        ms=ms, plain_ms=pms)
+    SL, SU, RHS1, _ = r_got
+    del dirs, r_want
+    DY = t(rng.standard_normal((m, B)), f64)
+    rec_in = (nmd.op_A, kernels.csr_spmm(nmd.op_At, DY), DY, RHS1, got.W,
+              got.RB, got.RC, got.RL, got.RU, SL, SU, s["XL"], s["XU"],
+              s["ZL"], s["ZU"], finl, finu)
+    d_got = batch.newton_recover(*rec_in)
+    with plain_products():
+        d_want = batch.newton_recover_plain(*rec_in)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(a, b) for a, b in zip(d_got, d_want))
+    ms = cuda_ms(lambda: batch.newton_recover(*rec_in))
+    pms = cuda_ms(lambda: batch.newton_recover_plain(*rec_in))
+    report("K12 newton_recover", f"f64, exact {exact}",
+           0.0 if exact else 1.0, 0.0, ms, pms)
+    rows["newton_recover"] = dict(
+        case="f64, B=256, K5 products shared",
+        max_abs_err=max(max_abs(a, b) for a, b in zip(d_got, d_want)),
+        ms=ms, plain_ms=pms)
+    del rec_in, d_got, d_want, r_got, rhs_in, got, want, probe, args
+
+    # K13 from the clamped zero point and two seeded CR solutions
+    X0 = torch.clamp(torch.zeros((nm, B), dtype=f64, device=dev),
+                     lb[:, None], ub[:, None])
+    DY, Y = t(rng.standard_normal((m, B)), f64), \
+        t(rng.standard_normal((m, B)), f64)
+    ATY = kernels.csr_spmm(nmd.op_At, Y)
+    cT = s["cT"].clone()
+    cT[:, 3] = torch.cat([ATY, Y])[:, 3] + 1e-3 * cT[:, 3]   # a fix-up lane
+    del s
+    sp_in = (X0, kernels.csr_spmm(nmd.op_At, DY), DY, ATY, Y, cT, lb, ub,
+             finl, finu)
+    *k_got, lane = kernels.starting_point(*sp_in, batch.RHO)
+    k_lane = batch.starting_point_plain(*sp_in, lane=lane)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(a, b) for a, b in zip(k_got, k_lane))
+    L = dict(zip(kernels.START_ROWS, lane))
+    check(bool(L["fixup"][3] != 0), "K13: the fix-up lane was not fixed")
+    del k_lane
+    k_want = batch.starting_point_plain(*sp_in)
+    err = 0.0
+    for a, b in zip(k_got, k_want):
+        fin = torch.isfinite(b)
+        exact &= torch.equal(fin, torch.isfinite(a))
+        err = max(err, rel_err(a[fin], b[fin]))
+    abs_err = max(max_abs(a[torch.isfinite(b)], b[torch.isfinite(b)])
+                  for a, b in zip(k_got, k_want))
+    del k_got, k_want
+    ms = cuda_ms(lambda: batch.starting_point(*sp_in))
+    pms = cuda_ms(lambda: batch.starting_point_plain(*sp_in))
+    report("K13 starting_point", f"f64, exact given scalars {exact}", err,
+           1e-12, ms, pms)
+    check(exact, "K13: an output differs given the kernel's scalars")
+    rows["starting_point"] = dict(case="f64, B=256, against the plain sums",
+                                  max_abs_err=abs_err, ms=ms, plain_ms=pms)
+    return rows
+
+
+def polish_phase(card, data, b4, handoff, device):
+    """Phase 8: POLISH_STEPS steps of SharedBasisBatchedPolish from the
+    handoff state of the 4 scenarios b4, through the kernels and through
+    the plain versions on `device`, from twin bases; then
+    BatchedScenarioSolver(phase2_polish=True) end to end on a small LP.
+    The plain run replays the kernel run's host CR solutions."""
+    import torch
+    from ipx_tpu_torch import LpSolver, Parameters, kernels
+    from ipx_tpu_torch.host import testgen as tg
+    from ipx_tpu_torch.parallel import batch, batch2
+
+    sv = batch.BatchedScenarioSolver(
+        data, b4, parameters=Parameters(display=0, device=device))
+    # the mean-scenario basis, as BatchedScenarioSolver._polish builds it
+    p = sv._params()
+    p.dualize, p.scale, p.crossover, p.display = 0, 0, 0, 0
+    t0 = time.perf_counter()
+    s = sv._load(p)
+    check(s.solve() == 1000 and s.basis is not None,
+          "phase 8: the mean-scenario solve failed")
+    t_mean = time.perf_counter() - t0
+    check(s.basis.factorization_is_fresh or s.basis.factorize() == 0,
+          "phase 8: the mean basis does not factorize")
+    # The plain run takes the kernel run's shared-basis CR solutions in
+    # turn: the CR is the same host code in both runs, and it stops at a
+    # loose tolerance after hundreds of iterations, so on its own the plain
+    # run's rounding moves maxvolume's exchanges and the CR's last trip, and
+    # with them the direction (first-step mu 1.55e-5 apart at this size).
+    solutions = []
+    runs = {}
+    for name, cls in (("kernels", batch.BatchedPhase1Solver),
+                      ("plain", batch.PlainBatchedPhase1Solver)):
+        pol = batch2.SharedBasisBatchedPolish(
+            sv.blp, s.basis, maxiter=POLISH_STEPS, device=device,
+            solver_cls=cls)
+        if name == "kernels":
+            def record(*a, cr_solve=pol._ph1._cr_solve):
+                Y, iters = cr_solve(*a)
+                solutions.append((Y.clone(), iters))
+                return Y, iters
+            pol._ph1._cr_solve = record
+        else:
+            replay = iter(solutions)
+            pol._ph1._cr_solve = lambda *a: next(replay)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = pol.run(handoff)
+        torch.cuda.synchronize()
+        runs[name] = (pol, out, time.perf_counter() - t0,
+                      dict(kernels.LAUNCHES))
+    lines = []
+    for name, (pol, out, wall, launched) in runs.items():
+        mus = np.array(pol.mu_history)
+        lines.append(
+            f"{name:7s}: {len(pol.step_cr)} steps, shared-basis CR "
+            f"iterations per step "
+            f"{pol.step_cr if name == 'kernels' else 'replayed'}, wall "
+            f"{wall:.3f} s, "
+            f"corrected solves {pol.corrected_solves}, basis updates "
+            f"{pol.basis_updates}; mu per step (lanes) "
+            + "; ".join(" ".join(f"{v:.6e}" for v in row) for row in mus))
+        check(np.all(np.isfinite(mus)), f"phase 8 {name}: mu not finite")
+        # every lane is active at the start; a later step may raise an
+        # active lane's mu (the inexact shared-basis CR), in ipx_tpu's
+        # polish too, so the first step and the whole run are checked
+        check(np.all(mus[1] < mus[0]) and np.all(mus[-1] < mus[0]),
+              f"phase 8 {name}: mu did not fall on every lane")
+        check(pol.correction_failures == pol.refresh_failures == 0,
+              f"phase 8 {name}: a correction or refresh failed")
+    k_launch = runs["kernels"][3]
+    for name in POLISH:
+        check(k_launch[name] > 0, f"phase 8: {name} not launched")
+    check(not any(runs["plain"][3].values()),
+          "phase 8: the plain run launched a kernel")
+    mk, mp = runs["kernels"][0].mu_history[1], runs["plain"][0].mu_history[1]
+    e_mu = float(np.max(np.abs(mk - mp) / np.abs(mp)))
+    e_all = float(np.max(np.abs(np.array(runs["kernels"][0].mu_history)
+                                - np.array(runs["plain"][0].mu_history))
+                         / np.array(runs["plain"][0].mu_history)))
+    print(f"phase 8: SharedBasisBatchedPolish(device=\"{device}\") on 4 "
+          f"lanes of the phase-6 handoff, m={sv.m} n={sv.n}: mean-scenario "
+          f"solve {t_mean:.3f} s; mu rel diff kernels/plain (the plain run "
+          f"replays the kernel run's CR solutions) first step {e_mu:.2e} "
+          f"(tol 1e-8), all steps {e_all:.2e}; launches "
+          f"{ {k: k_launch[k] for k in POLISH} }; {card}\n  "
+          + "\n  ".join(lines), flush=True)
+    check(e_mu <= 1e-8, f"phase 8: first-step mu differs by {e_mu:.2e}")
+
+    small = tg.transportation(60, 90, 0.05, seed=2)
+    sb = small["rhs"][None, :] * np.random.default_rng(1).uniform(
+        0.97, 1.03, (4, small["num_constr"]))
+    sv = batch.BatchedScenarioSolver(
+        small, sb, parameters=Parameters(display=0, device=device),
+        phase2_polish=True)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    results = sv.solve()
+    torch.cuda.synchronize()
+    t_e2e = time.perf_counter() - t0
+    launched = dict(kernels.LAUNCHES)
+    lines = []
+    for k, (status, info, _) in enumerate(results):
+        cold = LpSolver(Parameters(display=0, device="cpu"))
+        check(tg.load_into_solver({**small, "rhs": sb[k]}, cold) == 0,
+              "load_model failed")
+        check(cold.solve() == 1000, f"phase 8 scenario {k}: host failed")
+        want = cold.get_info().objval
+        e = abs(info.objval - want) / max(1.0, abs(want))
+        lines.append(f"scenario {k}: status {status}, objval {info.objval!r}"
+                     f" (host {want!r}, rel {e:.1e})")
+        check(status == 1000, f"phase 8 scenario {k}: status {status}")
+        check(e <= 1e-8, f"phase 8 scenario {k}: objval differs by {e:.1e}")
+    pol = sv.polish
+    check(pol is not None, "phase 8: the polish did not run")
+    print(f"  BatchedScenarioSolver(phase2_polish=True, device=\"{device}\")"
+          f" transportation(60, 90, 0.05, 2) B=4: wall {t_e2e:.3f} s, polish "
+          f"{len(pol.step_cr)} steps, {pol.total_cr_iters} shared-basis CR "
+          f"iterations; launches {launched}\n  " + "\n  ".join(lines),
+          flush=True)
+    for name in POLISH:
+        check(launched[name] > 0, f"phase 8 e2e: {name} not launched")
 
 
 if __name__ == "__main__":

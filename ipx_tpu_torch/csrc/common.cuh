@@ -160,6 +160,67 @@ __device__ T lane_partials(const T* __restrict__ p, int64_t n, int64_t B,
   return s;
 }
 
+// -- column reductions across blocks (K10, K13) -------------------------------
+//
+// A reducing pass over (rows, B) takes blocks of RedGrid::tx lanes (at most
+// 32: one warp reads 256 contiguous bytes of a row) by kThreads / tx rows;
+// blockIdx.y tiles the lanes and blockIdx.x strides over the rows, at most
+// kRedRowBlocks of them. Each block reduces its rows in a fixed order
+// (lane_reduce) and writes one partial per quantity and lane, laid out
+// (Q, B, nblk), so that a lane's partials are contiguous. The finishing
+// launch gives every lane one warp, which reduces them in a fixed order
+// with shuffles (warp_partials). No atomics: two runs agree bit for bit.
+constexpr int64_t kRedRowBlocks = 512;
+constexpr int kWarpsPerBlock = kThreads / 32;
+
+inline LaneGrid red_grid(int64_t rows, int64_t B) {
+  LaneGrid g;
+  g.tx = (int)(B < 32 ? (B > 0 ? B : 1) : 32);
+  g.ty = kThreads / g.tx;
+  g.gy = blocks_for(B > 0 ? B : 1, g.tx);
+  const int64_t gx = blocks_for(rows, g.ty);
+  g.gx = gx < 1 ? 1 : (gx < kRedRowBlocks ? gx : kRedRowBlocks);
+  return g;
+}
+
+// Stores the block's reduced values v[0..Q) of lane b as partials of
+// quantities q0 .. q0 + Q, at row block blockIdx.x; call after lane_reduce.
+template <typename T, int Q>
+__device__ __forceinline__ void store_partials(const T (&v)[Q], T* p,
+                                               int q0, int64_t B, int64_t b,
+                                               int64_t nblk) {
+  if (threadIdx.y != 0 || b >= B) return;
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    p[((int64_t)(q0 + q) * B + b) * nblk + blockIdx.x] = v[q];
+}
+
+// The reduction of the nblk partials at p by the 32 threads of one warp:
+// thread t takes p[t], p[t + 32], ... in order, then a shuffle tree; the
+// result is valid in the warp's thread 0. Every thread of the warp calls it.
+template <typename T, typename Op>
+__device__ T warp_partials(const T* __restrict__ p, int64_t nblk, T init,
+                           Op op) {
+  T s = init;
+  for (int64_t k = threadIdx.x & 31; k < nblk; k += 32) s = op(s, p[k]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s = op(s, __shfl_down_sync(0xffffffffu, s, off));
+  return s;
+}
+
+// The lane of the warp that calls it, in a finishing launch of
+// blocks_for(B, kWarpsPerBlock) blocks of kThreads threads.
+__device__ __forceinline__ int64_t warp_lane() {
+  return (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+}
+
+// min and max that propagate NaN, as torch.minimum and torch.maximum do
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) {
+  return (a < b || a != a) ? a : b;
+}
+
 // Products and sums rounded on their own, never contracted into an FMA, for
 // the passes that must match their plain PyTorch versions bit for bit.
 __device__ __forceinline__ double mul_rn(double a, double b) {

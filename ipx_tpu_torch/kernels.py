@@ -14,8 +14,10 @@ Kernels: K1 ``csr_spmv``, K2 ``normal_apply`` (csrc/spmv.cu), K3
 ``cr_step`` (csrc/cr.cu), K4 ``nnt`` (two K1 launches); for the batched
 phase 1, K5 ``csr_spmm``, K6 ``normal_apply_batched`` (csrc/spmm.cu), K7
 ``batched_cr_step`` (csrc/batch_cr.cu), K8 ``step_batch`` and K9
-``ipm_update`` (csrc/ipm_step.cu). Batched arrays are (rows, B) with the B
-lanes contiguous.
+``ipm_update`` (csrc/ipm_step.cu); for the rest of the batched IPM step, in
+float64, K10 ``ipm_prologue`` (csrc/ipm_prologue.cu), K11 ``newton_rhs``
+and K12 ``newton_recover`` (csrc/newton.cu) and K13 ``starting_point``
+(csrc/start.cu). Batched arrays are (rows, B) with the B lanes contiguous.
 """
 from __future__ import annotations
 
@@ -28,7 +30,9 @@ from . import build as _build
 # launches per kernel since the last reset_launches()
 LAUNCHES = dict.fromkeys(("csr_spmv", "normal_apply", "cr_step", "nnt",
                           "csr_spmm", "normal_apply_batched",
-                          "batched_cr_step", "step_batch", "ipm_update"), 0)
+                          "batched_cr_step", "step_batch", "ipm_update",
+                          "ipm_prologue", "newton_rhs", "newton_recover",
+                          "starting_point"), 0)
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _lib = None
@@ -80,6 +84,21 @@ def _declare(lib: ctypes.CDLL) -> None:
         f = getattr(lib, f"ipxt_ipm_update_{t}")
         f.argtypes = [I64, I64, I64] + [P] * 18
         f.restype = I
+    f64 = {"ipxt_ipm_prologue_f64": [I64] * 3 + [P] * 22 + [I64, P, P]
+           + [D] * 5 + [P],
+           "ipxt_lane_mu_f64": [I64, I64] + [P] * 7 + [I64, P, D, P],
+           "ipxt_newton_rhs_f64": [I64] * 3 + [P] * 21,
+           "ipxt_normal_rhs_f64": [I64] * 3 + [P] * 5,
+           "ipxt_newton_dx_f64": [I64] * 3 + [P] * 5,
+           "ipxt_newton_recover_f64": [I64] * 3 + [P] * 22,
+           "ipxt_starting_point_f64": [I64] * 3 + [P] * 17 + [I64, P, D, D,
+                                                               P]}
+    for name, argtypes in f64.items():
+        f = getattr(lib, name)
+        f.argtypes = argtypes
+        f.restype = I
+    lib.ipxt_red_blocks.argtypes = [I64, I64]
+    lib.ipxt_red_blocks.restype = I64
     lib.ipxt_lane_blocks.argtypes = [I64, I64]
     lib.ipxt_lane_blocks.restype = I64
     lib.ipxt_bcr_state_len.argtypes = [I64]
@@ -514,3 +533,181 @@ def ipm_update(X, XL, XU, Y, ZL, ZU, DX, DXL, DXU, DY, DZL, DZU, alphap,
         done, finl, finu)), _stream(device))
     _raise_if(err, "ipm_update")
     LAUNCHES["ipm_update"] += 1
+
+
+# -- K10-K13: the rest of the batched IPM step, float64 ---------------------------
+F64 = torch.float64
+# rows of the per-lane outputs of K10 and K13
+PROLOGUE_ROWS = ("mu", "pobj", "dobj", "gap", "pres", "dres", "regval", "tol")
+START_ROWS = ("xshift", "fixup", "zshift", "xsum", "zsum", "mu", "hx", "hz")
+
+
+def red_blocks(rows: int, B: int) -> int:
+    """Row blocks of a reducing pass of K10 or K13: the last axis of its
+    partials."""
+    return int(load().ipxt_red_blocks(rows, B))
+
+
+def _check_f64(device, shapes: dict, masks: dict = None) -> None:
+    """Checks float64 arrays {name: (tensor, shape)} and bool masks."""
+    for name, (t, shape) in shapes.items():
+        _check(t, name, device, F64, shape)
+    for name, (t, shape) in (masks or {}).items():
+        _check(t, name, device, torch.bool, shape)
+
+
+def _dims(X, Y):
+    """(n, m, B) of an iterate with X of shape (n + m, B), Y (m, B)."""
+    _lanes(Y, "Y")
+    nm, B, m = X.shape[0], _lanes(X, "X"), Y.shape[0]
+    return nm - m, m, B
+
+
+def ipm_prologue(AX, ATY, X, XL, XU, Y, ZL, ZU, done, bT, cT, lb, ub, finl,
+                 finu, feas_b, feas_c, opt_tol, kkt_tol, num_fin: int):
+    """K10: the residuals, the convergence test and the KKT weights of one
+    step from the K5 products AX = A X[:n] and ATY = A' Y. Returns (RB, RC,
+    RL, RU, W, resscale, lane, done): lane has the rows PROLOGUE_ROWS of B
+    values, done the lanes done after this test."""
+    device = _device_of(X)
+    n, m, B = _dims(X, Y)
+    nm = n + m
+    _check_f64(device, dict(
+        AX=(AX, (m, B)), ATY=(ATY, (n, B)), X=(X, (nm, B)), XL=(XL, (nm, B)),
+        XU=(XU, (nm, B)), Y=(Y, (m, B)), ZL=(ZL, (nm, B)), ZU=(ZU, (nm, B)),
+        bT=(bT, (m, B)), cT=(cT, (nm, B)), lb=(lb, nm), ub=(ub, nm)),
+        dict(finl=(finl, nm), finu=(finu, nm), done=(done, B)))
+    e = lambda *s: torch.empty(s, dtype=F64, device=device)  # noqa: E731
+    RB, RC, RL, RU, W, rs = (e(m, B), e(nm, B), e(nm, B), e(nm, B),
+                             e(nm, B), e(m, B))
+    nblk = red_blocks(nm, B)
+    partials, lane = e(11, B, nblk), e(len(PROLOGUE_ROWS), B)
+    done_out = torch.empty(B, dtype=torch.bool, device=device)
+    err = _lib.ipxt_ipm_prologue_f64(
+        n, m, B, *(t.data_ptr() for t in (
+            AX, ATY, X, XL, XU, Y, ZL, ZU, bT, cT, lb, ub, finl, finu, done,
+            RB, RC, RL, RU, W, rs, partials)), nblk, lane.data_ptr(),
+        done_out.data_ptr(), float(feas_b), float(feas_c), float(opt_tol),
+        float(kkt_tol), float(max(num_fin, 1)), _stream(device))
+    _raise_if(err, "ipm_prologue")
+    LAUNCHES["ipm_prologue"] += 1
+    return RB, RC, RL, RU, W, rs, lane, done_out
+
+
+def lane_mu(XL, XU, ZL, ZU, finl, finu, num_fin: int) -> torch.Tensor:
+    """K10's complementarity alone: per-lane mu of an (n + m, B) state."""
+    device = _device_of(XL)
+    nm, B = XL.shape[0], _lanes(XL, "XL")
+    _check_f64(device, dict(XL=(XL, (nm, B)), XU=(XU, (nm, B)),
+                            ZL=(ZL, (nm, B)), ZU=(ZU, (nm, B))),
+               dict(finl=(finl, nm), finu=(finu, nm)))
+    nblk = red_blocks(nm, B)
+    partials = torch.empty((2, B, nblk), dtype=F64, device=device)
+    out = torch.empty(B, dtype=F64, device=device)
+    err = load().ipxt_lane_mu_f64(
+        nm, B, *(t.data_ptr() for t in (XL, XU, ZL, ZU, finl, finu,
+                                        partials)), nblk, out.data_ptr(),
+        float(max(num_fin, 1)), _stream(device))
+    _raise_if(err, "lane_mu")
+    LAUNCHES["ipm_prologue"] += 1
+    return out
+
+
+def newton_rhs(op_A, RC, RL, RU, XL, XU, ZL, ZU, W, RB, finl, finu,
+               sigma=None, mu=None, DXL=None, DZL=None, DXU=None, DZU=None):
+    """K11: SL, SU, RHS1 and the normal right-hand side rhs = A (W RHS1)[:n]
+    + (W RHS1)[n:] - RB, the product by K5. Predictor without `sigma`;
+    the corrector takes sigma and mu (B,) and the predictor's DXL, DZL, DXU,
+    DZU. Returns (SL, SU, RHS1, rhs)."""
+    device = _device_of(RC)
+    n, m, B = _dims(RC, RB)
+    nm = n + m
+    arrays = dict(RC=RC, RL=RL, RU=RU, XL=XL, XU=XU, ZL=ZL, ZU=ZU, W=W)
+    corr = dict(DXL=DXL, DZL=DZL, DXU=DXU, DZU=DZU)
+    if sigma is not None:
+        arrays.update(corr)
+    elif any(t is not None for t in corr.values()) or mu is not None:
+        raise ValueError("the predictor takes no corrector terms")
+    shapes = {k: (t, (nm, B)) for k, t in arrays.items()}
+    shapes["RB"] = (RB, (m, B))
+    if sigma is not None:
+        shapes.update(sigma=(sigma, B), mu=(mu, B))
+    _check_f64(device, shapes, dict(finl=(finl, nm), finu=(finu, nm)))
+    _check_operand(op_A, device, F64)
+    if (op_A.rows, op_A.cols) != (m, n):
+        raise ValueError(f"op_A is {op_A.rows} x {op_A.cols}, expected "
+                         f"{m} x {n}")
+    e = lambda *s: torch.empty(s, dtype=F64, device=device)  # noqa: E731
+    SL, SU, RHS1, WR, rhs = e(nm, B), e(nm, B), e(nm, B), e(nm, B), e(m, B)
+    err = _lib.ipxt_newton_rhs_f64(
+        n, m, B, *(_ptr(t) for t in (RC, RL, RU, XL, XU, ZL, ZU, W, finl,
+                                     finu, sigma, mu, DXL, DZL, DXU, DZU, SL,
+                                     SU, RHS1, WR)), _stream(device))
+    _raise_if(err, "newton_rhs")
+    AWR = csr_spmm(op_A, WR[:n])
+    err = _lib.ipxt_normal_rhs_f64(n, m, B, AWR.data_ptr(), WR.data_ptr(),
+                                   RB.data_ptr(), rhs.data_ptr(),
+                                   _stream(device))
+    _raise_if(err, "normal_rhs")
+    LAUNCHES["newton_rhs"] += 1
+    return SL, SU, RHS1, rhs
+
+
+def newton_recover(op_A, ATDY, DY, RHS1, W, RB, RC, RL, RU, SL, SU, XL, XU,
+                   ZL, ZU, finl, finu):
+    """K12: the direction from the CR's DY and the K5 product ATDY = A' DY,
+    with A DX[:n] by K5 between its two passes. Returns (DX, DXL, DXU, DYn,
+    DZL, DZU), DYn = -DY."""
+    device = _device_of(RC)
+    n, m, B = _dims(RC, RB)
+    nm = n + m
+    shapes = {k: (t, (nm, B)) for k, t in dict(
+        RHS1=RHS1, W=W, RC=RC, RL=RL, RU=RU, SL=SL, SU=SU, XL=XL, XU=XU,
+        ZL=ZL, ZU=ZU).items()}
+    shapes.update(ATDY=(ATDY, (n, B)), DY=(DY, (m, B)), RB=(RB, (m, B)))
+    _check_f64(device, shapes, dict(finl=(finl, nm), finu=(finu, nm)))
+    _check_operand(op_A, device, F64)
+    if (op_A.rows, op_A.cols) != (m, n):
+        raise ValueError(f"op_A is {op_A.rows} x {op_A.cols}, expected "
+                         f"{m} x {n}")
+    e = lambda *s: torch.empty(s, dtype=F64, device=device)  # noqa: E731
+    DX, DXL, DXU, DZL, DZU, DYn = (e(nm, B), e(nm, B), e(nm, B), e(nm, B),
+                                   e(nm, B), e(m, B))
+    err = _lib.ipxt_newton_dx_f64(n, m, B, ATDY.data_ptr(), RHS1.data_ptr(),
+                                  W.data_ptr(), DX.data_ptr(),
+                                  _stream(device))
+    _raise_if(err, "newton_dx")
+    ADX = csr_spmm(op_A, DX[:n])
+    err = _lib.ipxt_newton_recover_f64(
+        n, m, B, *(t.data_ptr() for t in (
+            ATDY, DY, RB, RC, RL, RU, SL, SU, XL, XU, ZL, ZU, finl, finu, ADX,
+            DX, DXL, DXU, DYn, DZL, DZU)), _stream(device))
+    _raise_if(err, "newton_recover")
+    LAUNCHES["newton_recover"] += 1
+    return DX, DXL, DXU, DYn, DZL, DZU
+
+
+def starting_point(X0, ATDY, DY, ATY, Y, cT, lb, ub, finl, finu, rho):
+    """K13: the starting point's masked passes from the clamped zero point
+    X0, the primal solve's DY and A' DY and the dual solve's Y and A' Y.
+    Returns (X, XL, XU, Y, ZL, ZU, lane), lane with the rows START_ROWS."""
+    device = _device_of(X0)
+    n, m, B = _dims(X0, Y)
+    nm = n + m
+    _check_f64(device, dict(
+        X0=(X0, (nm, B)), ATDY=(ATDY, (n, B)), DY=(DY, (m, B)),
+        ATY=(ATY, (n, B)), Y=(Y, (m, B)), cT=(cT, (nm, B)), lb=(lb, nm),
+        ub=(ub, nm)), dict(finl=(finl, nm), finu=(finu, nm)))
+    e = lambda *s: torch.empty(s, dtype=F64, device=device)  # noqa: E731
+    X, XL, XU, ZL, ZU, Yo = (e(nm, B), e(nm, B), e(nm, B), e(nm, B),
+                             e(nm, B), e(m, B))
+    nblk = red_blocks(nm, B)
+    partials, lane = e(4, B, nblk), e(len(START_ROWS), B)
+    err = _lib.ipxt_starting_point_f64(
+        n, m, B, *(t.data_ptr() for t in (
+            X0, ATDY, DY, ATY, Y, cT, lb, ub, finl, finu, X, XL, XU, Yo, ZL,
+            ZU, partials)), nblk, lane.data_ptr(), float(rho),
+        1.0 - float(rho), _stream(device))
+    _raise_if(err, "starting_point")
+    LAUNCHES["starting_point"] += 1
+    return X, XL, XU, Yo, ZL, ZU, lane

@@ -1,8 +1,9 @@
 """LpSolver of the port: ipx_tpu's LpSolver building the port's KKT solvers.
 
 Presolve, the IPM, the starting basis, crossover, postsolve and checkpoints
-are inherited; only the three places that build a KKT solver
-(ipx_tpu/lp_solver.py:481-571) are overridden.
+are inherited; the three places that build a KKT solver
+(ipx_tpu/lp_solver.py:481-571) are overridden, and so is clear_model, so
+that a second LP on one solver starts from a fresh Model.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from typing import Optional
 
 from ipx_tpu.ipm import IPM
 from ipx_tpu.lp_solver import LpSolver as _LpSolver
+from ipx_tpu.model import Model
+from ipx_tpu.presolve import Presolver
 from ipx_tpu.status import SolveStatus
 
 from .kkt.basis_precond import KKTSolverBasis
@@ -22,6 +25,15 @@ class LpSolver(_LpSolver):
     def __init__(self, parameters: Optional[Parameters] = None):
         super().__init__(parameters if parameters is not None
                          else Parameters())
+
+    def clear_model(self) -> None:
+        """ipx_tpu's clear_model, then a fresh Model and Presolver. Model.clear
+        keeps the native handles that ipx_tpu caches on the Model (the CSC/CSR
+        copies and the normal-apply handle); a second LP that reused them
+        crashed the process in a native kernel."""
+        super().clear_model()
+        self.model = Model()
+        self.presolver = Presolver(self.user_model, self.model)
 
     def _compute_starting_point(self, ipm: IPM) -> None:
         t0 = perf_counter()

@@ -426,7 +426,7 @@ def test_phase1_1024_scenarios():
 def test_batched_device_choice(monkeypatch):
     """"cuda" raises without a card, "cpu" and "torch_cpu" are the plain
     versions on the CPU, "auto" is the CPU without a card; cr_dtype "auto"
-    is float64 there; the polish, not ported yet, raises."""
+    is float64 there; phase2_polish=True is accepted, "auto" is off."""
     _, blp = make_batch(B=2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
@@ -441,8 +441,10 @@ def test_batched_device_choice(monkeypatch):
     with pytest.raises(ValueError, match="cr_dtype"):
         port.BatchedPhase1Solver(blp, cr_dtype="bf16")
     a = random_lp(10, 12, density=0.3, seed=1)
-    with pytest.raises(NotImplementedError, match="batch2"):
-        port.BatchedScenarioSolver(a, a["rhs"][None, :], phase2_polish=True)
+    for polish, want in ((True, True), ("auto", False), (False, False)):
+        sv = port.BatchedScenarioSolver(a, a["rhs"][None, :],
+                                        phase2_polish=polish)
+        assert sv.phase2_polish is want
 
 
 def test_batched_wrappers_refuse_a_device_they_cannot_run_on():
@@ -469,13 +471,17 @@ def test_batch_module_imports_no_jax():
         "sys.path.insert(0, 'tests')\n"
         "import numpy as np\n"
         "from ipx_tpu_torch.parallel.batch import BatchedScenarioSolver\n"
+        "import ipx_tpu_torch.parallel.batch2\n"
         "from lp_fixtures import random_lp\n"
         "a = random_lp(12, 16, density=0.3, seed=2)\n"
         "b = a['rhs'][None, :] * np.array([[1.0], [1.05]])\n"
         "from ipx_tpu_torch import Parameters\n"
-        "res = BatchedScenarioSolver(a, b, parameters=Parameters(\n"
-        "    display=0, device='torch_cpu')).solve()\n"
-        "assert [r[0] for r in res] == [1000, 1000], res\n"
+        "for polish in (False, True):\n"
+        "    sv = BatchedScenarioSolver(a, b, parameters=Parameters(\n"
+        "        display=0, device='torch_cpu'), phase2_polish=polish)\n"
+        "    res = sv.solve()\n"
+        "    assert [r[0] for r in res] == [1000, 1000], res\n"
+        "assert sv.polish is not None\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

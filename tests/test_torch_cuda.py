@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K9 against their plain PyTorch versions on the card,
+"""The CUDA kernels K1-K13 against their plain PyTorch versions on the card,
 at small shapes with the edge cases the main path's shapes do not show
 (empty rows, rows longer than a warp, partial blocks, lane counts that
 allow no vector loads, lanes past one block).
@@ -11,7 +11,9 @@ imports jax, and the ``cuda`` marker is then registered on the command line:
 
 Tolerances: 1e-12 relative in float64 and 1e-5 in float32 (the kernels sum
 each row in a shuffle tree or in another order than the plain version);
-K8's step sizes and K9 are exact.
+K8's step sizes and K9 are exact, and so are the elementwise outputs of
+K10-K13 given the same per-lane scalars; their column sums are held to
+1e-13 of the sums of their terms' absolute values.
 """
 import numpy as np
 import pytest
@@ -379,3 +381,263 @@ def test_batched_launcher_checks_raise(dev):
         kernels.step_batch(*(a[k] for k in ORDER[:-1]),
                            torch.zeros((3, 40), dtype=torch.float64,
                                        device=dev).t(), finl, finu)
+
+
+# -- the rest of the batched step, K10-K13 (float64) ------------------------------
+def _iterate(dev, B, n=400, m=150, seed=13):
+    """A seeded batched iterate over a random A: bounds finite below only,
+    above only, both and neither, XL / XU infinite where the bound is, two
+    lanes done, and the K5 products A X[:n] and A' Y."""
+    A, rng = _matrix(m, n, 0.02, seed)
+    nm = n + m
+    finl = rng.random(nm) < 0.7
+    finu = rng.random(nm) < 0.4
+    lb = np.where(finl, rng.uniform(-2.0, 0.0, nm), -np.inf)
+    ub = np.where(finu, rng.uniform(0.5, 3.0, nm), np.inf)
+    s = {"X": rng.standard_normal((nm, B)), "Y": rng.standard_normal((m, B)),
+         "bT": rng.standard_normal((m, B)), "cT": rng.standard_normal((nm, B))}
+    for name, fin in (("XL", finl), ("XU", finu), ("ZL", finl),
+                      ("ZU", finu)):
+        x = 10.0 ** rng.uniform(-4, 1, (nm, B))
+        x[~fin] = np.inf if name.startswith("X") else 0.0
+        s[name] = x
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    s = {k: t(v) for k, v in s.items()}
+    done = np.zeros(B, dtype=bool)
+    done[1::3] = True
+    s.update(done=t(done), lb=t(lb), ub=t(ub), finl=t(finl), finu=t(finu))
+    nmd = spmv.NormalMatrixDevice(A, dev)
+    s["AX"] = kernels.csr_spmm(nmd.op_A, s["X"][:n])
+    s["ATY"] = kernels.csr_spmm(nmd.op_At, s["Y"])
+    return s, nmd, int(finl.sum() + finu.sum())
+
+
+PRO_IN = ("AX", "ATY", "X", "XL", "XU", "Y", "ZL", "ZU", "done", "bT", "cT",
+          "lb", "ub", "finl", "finu")
+
+
+def _abs_sums(s, num_fin):
+    """Per lane, the sums of the absolute terms of pobj, dobj and mu: the
+    scale of their rounding."""
+    fl, fu = s["finl"][:, None], s["finu"][:, None]
+    z = torch.zeros_like(s["X"])
+    t_l = torch.where(fl, s["lb"][:, None] * s["ZL"], z).abs().sum(0)
+    t_u = torch.where(fu, s["ub"][:, None] * s["ZU"], z).abs().sum(0)
+    c_l = torch.where(fl, s["XL"] * s["ZL"], z).abs().sum(0)
+    c_u = torch.where(fu, s["XU"] * s["ZU"], z).abs().sum(0)
+    return dict(pobj=(s["cT"] * s["X"]).abs().sum(0),
+                dobj=(s["bT"] * s["Y"]).abs().sum(0) + t_l + t_u,
+                mu=(c_l + c_u) / num_fin)
+
+
+@pytest.mark.parametrize("B", [5, 40])
+def test_ipm_prologue(dev, B):
+    """K10 against its plain version: the residuals bit for bit; W and
+    resscale bit for bit from the kernel's own regval; pres and dres exact;
+    pobj, dobj and mu within 1e-13 of the sums of their terms' absolute
+    values; done equal on the lanes whose gap is not within 1e-12 of the
+    limit; and two runs bit for bit."""
+    s, nmd, num_fin = _iterate(dev, B)
+    n = nmd.n
+    args = [s[k] for k in PRO_IN]
+    probe = batch.ipm_prologue_plain(*args, 1e30, 1e30, 0.0, 0.3, num_fin)
+    gaps = np.sort(probe.gap.cpu().numpy())
+    opt_tol = float(np.sqrt(gaps[B // 2 - 1] * gaps[B // 2]))
+    tests = (1e30, 1e30, opt_tol, 0.3, num_fin)
+    before = kernels.LAUNCHES["ipm_prologue"]
+    got = batch.ipm_prologue(*args, *tests)
+    again = batch.ipm_prologue(*args, *tests)
+    assert kernels.LAUNCHES["ipm_prologue"] == before + 2
+    want = batch.ipm_prologue_plain(*args, *tests)
+    for k in ("RB", "RC", "RL", "RU", "pres", "dres"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    fl, fu = s["finl"][:, None], s["finu"][:, None]
+    G = torch.where(fl, s["ZL"] / s["XL"], 0.0) \
+        + torch.where(fu, s["ZU"] / s["XU"], 0.0)
+    W, rs = batch.kkt_weights_plain(G, got.regval, n)
+    assert torch.equal(got.W, W) and torch.equal(got.resscale, rs)
+    scale = _abs_sums(s, num_fin)
+    for k in ("pobj", "dobj", "mu"):
+        err = (getattr(got, k) - getattr(want, k)).abs()
+        assert torch.all(err <= 1e-13 * scale[k]), k
+    by_min = want.regval < want.mu     # regval is min G there: exact
+    assert torch.equal(got.regval[by_min], want.regval[by_min])
+    clear = (want.gap - opt_tol).abs() > 1e-12 * opt_tol
+    assert torch.equal(got.done[clear], want.done[clear])
+    assert bool(got.done.any()) and not bool(got.done.all())
+    for k, v in got._asdict().items():
+        assert torch.equal(v, getattr(again, k)), k
+    mu = batch.lane_mu(s["XL"], s["XU"], s["ZL"], s["ZU"], s["finl"],
+                       s["finu"], num_fin)
+    assert torch.all((mu - want.mu).abs() <= 1e-13 * scale["mu"])
+
+
+@pytest.mark.parametrize("corrector", [False, True])
+def test_newton_rhs_and_recover(dev, monkeypatch, corrector):
+    """K11 and K12 against their plain versions, bit for bit: the plain
+    versions take the kernel's K5 products (K5 sums each row in another
+    order than the plain product), so every output must be equal."""
+    B = 6
+    s, nmd, num_fin = _iterate(dev, B, seed=14)
+    P = batch.ipm_prologue(*(s[k] for k in PRO_IN), 1e-6, 1e-6, 1e-8, 0.3,
+                           num_fin)
+    rng = np.random.default_rng(15)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    nm = nmd.n + nmd.m
+    corr = ()
+    if corrector:
+        corr = (t(rng.uniform(0.0, 1.0, B)), P.mu) + tuple(
+            t(rng.standard_normal((nm, B))) for _ in range(4))
+    rhs_in = (nmd.op_A, P.RC, P.RL, P.RU, s["XL"], s["XU"], s["ZL"], s["ZU"],
+              P.W, P.RB, s["finl"], s["finu"], *corr)
+    monkeypatch.setattr(spmv, "csr_spmm_plain", kernels.csr_spmm)
+    before = dict(kernels.LAUNCHES)
+    got = batch.newton_rhs(*rhs_in)
+    want = batch.newton_rhs_plain(*rhs_in)
+    for k, a, b in zip(("SL", "SU", "RHS1", "rhs"), got, want):
+        assert torch.equal(a, b), k
+    SL, SU, RHS1, rhs = got
+    DY = t(rng.standard_normal((nmd.m, B)))
+    DY[:, 2] = 0.0
+    ATDY = kernels.csr_spmm(nmd.op_At, DY)
+    rec_in = (nmd.op_A, ATDY, DY, RHS1, P.W, P.RB, P.RC, P.RL, P.RU, SL, SU,
+              s["XL"], s["XU"], s["ZL"], s["ZU"], s["finl"], s["finu"])
+    got = batch.newton_recover(*rec_in)
+    want = batch.newton_recover_plain(*rec_in)
+    for k, a, b in zip(("DX", "DXL", "DXU", "DYn", "DZL", "DZU"), got, want):
+        assert torch.equal(a, b), k
+    assert kernels.LAUNCHES["newton_rhs"] == before["newton_rhs"] + 1
+    assert kernels.LAUNCHES["newton_recover"] == before["newton_recover"] + 1
+
+
+def test_starting_point(dev):
+    """K13 against its plain version: fed the kernel's per-lane scalars, the
+    plain passes give every output bit for bit; xshift and zshift (maxima)
+    are exact and xsum, zsum and mu agree to 1e-13 relative."""
+    B = 7
+    s, nmd, _ = _iterate(dev, B, seed=16)
+    rng = np.random.default_rng(17)
+    n, m = nmd.n, nmd.m
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    X0 = torch.clamp(torch.zeros_like(s["X"]), s["lb"][:, None],
+                     s["ub"][:, None])
+    DY, Y = t(rng.standard_normal((m, B))), t(rng.standard_normal((m, B)))
+    ATY = kernels.csr_spmm(nmd.op_At, Y)
+    cT = s["cT"].clone()
+    # a lane whose dual residual Z = c - AI'Y is small against c: the fix-up
+    cT[:, 3] = torch.cat([ATY, Y])[:, 3] + 1e-3 * cT[:, 3]
+    args = (X0, kernels.csr_spmm(nmd.op_At, DY), DY, ATY, Y, cT, s["lb"],
+            s["ub"], s["finl"], s["finu"])
+    before = kernels.LAUNCHES["starting_point"]
+    *got, lane = kernels.starting_point(*args, batch.RHO)
+    assert kernels.LAUNCHES["starting_point"] == before + 1
+    for k, a, b in zip(("X", "XL", "XU", "Y", "ZL", "ZU"), got,
+                       batch.starting_point_plain(*args, lane=lane)):
+        assert torch.equal(a, b), k
+    L = dict(zip(kernels.START_ROWS, lane))
+    fl, fu = s["finl"][:, None], s["finu"][:, None]
+    X = args[0] + torch.cat([args[1], DY])
+    XL, XU = X - s["lb"][:, None], s["ub"][:, None] - X
+    xinf = torch.maximum(torch.where(fl, -XL, 0.0).amax(0),
+                         torch.where(fu, -XU, 0.0).amax(0))
+    assert torch.equal(L["xshift"], 1.0 + 1.5 * xinf.clamp(min=0.0))
+    # without the kernel's scalars: the sums' rounding only
+    for a, b in zip(got, batch.starting_point_plain(*args)):
+        fin = torch.isfinite(b)
+        assert torch.equal(fin, torch.isfinite(a))
+        assert _rel(a[fin], b[fin]) <= 1e-12
+    assert bool((L["fixup"] != 0).any())
+    assert bool(L["fixup"][3] != 0)
+
+
+# -- the shared-basis polish (parallel/batch2.py) -------------------------------------
+def _polish_setup(B=4):
+    """test_batch2.py's pipeline LP: a loose batched phase 1 on the CPU and
+    the factorized mean-scenario basis."""
+    from ipx_tpu_torch import LpSolver, Parameters
+    from ipx_tpu_torch.host import testgen as tg
+    data = tg.transportation(50, 100, 0.06, seed=12)
+    m = data["num_constr"]
+    rng = np.random.default_rng(6)
+    b = data["rhs"][None, :] * rng.uniform(0.98, 1.05, size=(B, m))
+    blp = batch.BatchedScenarioSolver(data, b).blp
+    state = batch.BatchedPhase1Solver(
+        blp, feasibility_tol=1e-3, optimality_tol=1e-3, maxiter=60,
+        device="cpu").solve()
+    s = LpSolver(Parameters(display=0, device="cpu", scale=0, dualize=0,
+                            crossover=0))
+    assert tg.load_into_solver(dict(data, rhs=b.mean(axis=0)), s) == 0
+    assert s.solve() == 1000
+    if not s.basis.factorization_is_fresh:
+        assert s.basis.factorize() == 0
+    return data, blp, state, s
+
+
+def test_polish_kernels_against_plain(dev):
+    """Three polish steps on the card through the kernels and through the
+    plain versions (PlainBatchedPhase1Solver) on the card, the plain run
+    taking the kernel run's shared-basis CR solutions (the CR is the same
+    host code in both; on its own, rounding moves its last trip and
+    maxvolume's exchanges): the first step's per-lane mu agrees to 1e-8
+    of the lane's mu before it (a lane that converges in the step cancels
+    most of its complementarity, so the rounding is measured against the
+    terms it came from), mu is finite and falls on every lane in the first
+    step, and
+    K10-K12 were launched by the kernels' run only. Later steps are not
+    compared: once the weights spread, a replayed solution no longer fits
+    the other run's right-hand side to its rounding."""
+    from ipx_tpu_torch.parallel import batch2
+    _, blp, state, s = _polish_setup()
+    solutions, mus = [], {}
+    for name, cls in (("kernels", batch.BatchedPhase1Solver),
+                      ("plain", batch.PlainBatchedPhase1Solver)):
+        pol = batch2.SharedBasisBatchedPolish(
+            blp, s.basis, feasibility_tol=1e-8, optimality_tol=1e-8,
+            maxiter=3, device="cuda", solver_cls=cls)
+        if name == "kernels":
+            def record(*a, cr_solve=pol._ph1._cr_solve):
+                Y, iters = cr_solve(*a)
+                solutions.append((Y.clone(), iters))
+                return Y, iters
+            pol._ph1._cr_solve = record
+        else:
+            replay = iter(solutions)
+            pol._ph1._cr_solve = lambda *a: next(replay)
+        kernels.reset_launches()
+        out = pol.run(state)
+        torch.cuda.synchronize()
+        launched = dict(kernels.LAUNCHES)
+        mus[name] = np.array(pol.mu_history)
+        assert np.all(np.isfinite(mus[name])), name
+        assert np.all(mus[name][1] < mus[name][0]), name
+        assert np.all(out["mu"] < mus[name][0]), name
+        assert pol.correction_failures == pol.refresh_failures == 0
+        for k in ("ipm_prologue", "newton_rhs", "newton_recover"):
+            assert (launched[k] > 0) == (name == "kernels"), (name, k)
+    assert mus["kernels"].shape == mus["plain"].shape
+    assert np.all(np.abs(mus["kernels"][1] - mus["plain"][1])
+                  <= 1e-8 * mus["plain"][0])
+
+
+def test_scenario_solver_polish_on_the_card(dev):
+    """BatchedScenarioSolver(phase2_polish=True) on device="cuda": every
+    scenario at status 1000 with the host solve's objective to 1e-8."""
+    from ipx_tpu_torch import LpSolver, Parameters
+    from ipx_tpu_torch.host import testgen as tg
+    data = tg.transportation(40, 80, 0.08, seed=2)
+    m = data["num_constr"]
+    rng = np.random.default_rng(7)
+    b = data["rhs"][None, :] * rng.uniform(0.98, 1.04, size=(3, m))
+    sv = batch.BatchedScenarioSolver(
+        data, b, parameters=Parameters(display=0, device="cuda"),
+        phase2_polish=True)
+    kernels.reset_launches()
+    res = sv.solve()
+    assert sv.polish is not None and sv.polish.device.type == "cuda"
+    assert kernels.LAUNCHES["ipm_prologue"] > 0
+    for k, (st, info, _) in enumerate(res):
+        host = LpSolver(Parameters(display=0, device="cpu"))
+        assert tg.load_into_solver(dict(data, rhs=b[k]), host) == 0
+        assert host.solve() == 1000 and st == 1000, k
+        want = host.get_info().objval
+        assert abs(info.objval - want) <= 1e-8 * max(1.0, abs(want)), k

@@ -102,6 +102,7 @@ def test_port_imports_no_jax():
         "import ipx_tpu_torch\n"
         "import ipx_tpu_torch.host\n"
         "import ipx_tpu_torch.parallel.batch\n"
+        "import ipx_tpu_torch.parallel.batch2\n"
         "from lp_fixtures import afiro\n"
         "p = ipx_tpu_torch.Parameters(display=0, device='torch_cpu')\n"
         "s = ipx_tpu_torch.LpSolver(p)\n"
@@ -114,6 +115,37 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("device", ["cpu", "torch_cpu"])
+def test_second_lp_on_one_solver(device):
+    """afiro, then grid_flow(8, 8, 1) on the same LpSolver: the second solve
+    reaches the objective of a fresh solver. It runs in a subprocess, so
+    that a crash in a native kernel (rc -11 before clear_model built a fresh
+    Model) fails this test and not the worker."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import ipx_tpu_torch\n"
+        "from ipx_tpu_torch.host import testgen as tg\n"
+        "from lp_fixtures import afiro\n"
+        f"p = ipx_tpu_torch.Parameters(display=0, device={device!r})\n"
+        "s = ipx_tpu_torch.LpSolver(p)\n"
+        "assert afiro().load_into(s) == 0 and s.solve() == 1000\n"
+        "data = tg.grid_flow(8, 8, 1)\n"
+        "assert tg.load_into_solver(data, s) == 0\n"
+        "st = s.solve()\n"
+        "fresh = ipx_tpu_torch.LpSolver(p)\n"
+        "assert tg.load_into_solver(data, fresh) == 0\n"
+        "assert fresh.solve() == 1000\n"
+        "print(st, repr(s.get_info().objval), "
+        "repr(fresh.get_info().objval))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, (out.returncode, out.stderr[-2000:])
+    st, obj, want = out.stdout.split()[-3:]
+    assert int(st) == 1000
+    assert float(obj) == pytest.approx(float(want), rel=1e-9)
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",

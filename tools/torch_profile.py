@@ -27,12 +27,18 @@ with the card's nvidia-smi name and power limit:
            torch.profiler, and the device's busy share over the calls;
   busy     device time over wall time of one port solve, from
            torch.profiler, with the ten kernels and copies that took most;
-  batched  K5-K9 and their plain versions at the shapes of that LP as a
+  batched  K5-K13 and their plain versions at the shapes of that LP as a
            batch of 256 scenarios (chip_smoke.py phase 5): host wall time
            and device time per call;
   stage    the batched phase 1 of chip_smoke.py phase 6
            (BatchedPhase1Solver(device="cuda"), B = 256, handoff "auto"):
-           wall time, device busy share and the ten largest device items.
+           wall time, device busy share and the ten largest device items,
+           each named by its kernel (K1-K13) where it is one;
+  polish   one full shared-basis polish (SharedBasisBatchedPolish,
+           device="cuda", 40 steps at most, as BatchedScenarioSolver runs
+           it) of 4 scenarios from their batched phase-1 handoff: steps,
+           shared-basis CR iterations, wall time, the host CR's share,
+           device time and busy share, and the largest device items.
 
 It imports torch and ipx_tpu_torch only, and no jax.
 """
@@ -116,6 +122,26 @@ def part_native(data, args, card):
                          for k, (c, t) in sorted(per.items()))
         print(f"native device={device:4s} status {st} wall {wall:.3f} s "
               f"(under cProfile) | {calls} | {card}", flush=True)
+
+
+# the port's kernel of each CUDA function of csrc/, by name prefix
+KERNEL_OF = (("csr_spmv", "K1/K2/K4"), ("reduce_sum", "K2"),
+             ("cr_step", "K3"), ("csr_spmm", "K5/K6"), ("lane_sum", "K6"),
+             ("bcr_", "K7"), ("step_", "K8"), ("muaff", "K8"),
+             ("ipm_update", "K9"), ("prologue_", "K10"), ("mu_", "K10"),
+             ("newton_rhs", "K11"), ("normal_rhs", "K11"),
+             ("newton_dx", "K12"), ("recover_", "K12"), ("start_", "K13"))
+
+
+def kernel_label(key: str) -> str:
+    """'K10 prologue_reduce_kernel...' for a CUDA function of the port, the
+    profiler's key as it is otherwise."""
+    name = key.removeprefix("void ").removeprefix("ipxt::").removeprefix(
+        "(anonymous namespace)::")
+    for prefix, label in KERNEL_OF:
+        if name.startswith(prefix):
+            return f"{label} {name}"
+    return key
 
 
 def _device_us(prof):
@@ -275,6 +301,45 @@ def part_batched(data, args, card):
         ("K9 update f64", lambda: batch.ipm_update(*upd),
          lambda: batch.ipm_update_plain(*upd), 20)]
     profile_cases(cases, card)
+    del cases, cr, sargs, upd, U64, V32, W32, n32
+    profile_cases(step_cases(blp, n64, st, finl, finu, t, rng), card)
+
+
+def step_cases(blp, n64, st, finl, finu, t, rng):
+    """K10-K13 and their plain versions on an iterate-like float64 state
+    (the XL, XU, ZL, ZU of `st`) at the batch's shapes."""
+    m, n = blp.A.shape
+    B = blp.batch
+    lb, ub = t(blp.lb), t(blp.ub)
+    X, Y = t(rng.standard_normal((n + m, B))), t(rng.standard_normal((m, B)))
+    bT, cT = t(np.ascontiguousarray(blp.b.T)), t(np.ascontiguousarray(
+        blp.c.T))
+    done = torch.zeros(B, dtype=torch.bool, device=X.device)
+    num_fin = int(finl.sum() + finu.sum())
+    pro = (kernels.csr_spmm(n64.op_A, X[:n]),
+           kernels.csr_spmm(n64.op_At, Y), X, st["XL"], st["XU"], Y,
+           st["ZL"], st["ZU"], done, bT, cT, lb, ub, finl, finu, 1e-6, 1e-6,
+           1e-8, 0.3, num_fin)
+    P = batch.ipm_prologue(*pro)
+    rhs = (n64.op_A, P.RC, P.RL, P.RU, st["XL"], st["XU"], st["ZL"],
+           st["ZU"], P.W, P.RB, finl, finu, t(rng.uniform(0.0, 1.0, B)),
+           P.mu, st["DXL"], st["DZL"], st["DXU"], st["DZU"])
+    SL, SU, RHS1, _ = batch.newton_rhs(*rhs)
+    rec = (n64.op_A, kernels.csr_spmm(n64.op_At, Y), Y, RHS1, P.W, P.RB,
+           P.RC, P.RL, P.RU, SL, SU, st["XL"], st["XU"], st["ZL"],
+           st["ZU"], finl, finu)
+    X0 = torch.clamp(torch.zeros_like(X), lb[:, None], ub[:, None])
+    ATY = kernels.csr_spmm(n64.op_At, Y)
+    sp = (X0, ATY, Y, ATY, Y, cT, lb, ub, finl, finu)
+    return [
+        ("K10 prologue f64", lambda: batch.ipm_prologue(*pro),
+         lambda: batch.ipm_prologue_plain(*pro), 20),
+        ("K11 corrector f64", lambda: batch.newton_rhs(*rhs),
+         lambda: batch.newton_rhs_plain(*rhs), 20),
+        ("K12 recover f64", lambda: batch.newton_recover(*rec),
+         lambda: batch.newton_recover_plain(*rec), 20),
+        ("K13 start f64", lambda: batch.starting_point(*sp),
+         lambda: batch.starting_point_plain(*sp), 10)]
 
 
 def part_stage(data, args, card):
@@ -299,22 +364,74 @@ def part_stage(data, args, card):
         print(f"stage {label} B={blp.batch} steps {int(out['iters'].max())} "
               f"CR trips {int(out['cr'])} wall {wall:.3f} s | {card}",
               flush=True)
+    top_items("stage", prof, wall, card)
+
+
+def top_items(part, prof, wall, card, k=10):
+    """The device busy share of a profiled window and its k largest
+    device items."""
     dev_us, events = _device_us(prof)
-    print(f"stage device {dev_us / 1e6:.4f} s = {dev_us / 1e6 / wall:.2%} "
+    print(f"{part} device {dev_us / 1e6:.4f} s = {dev_us / 1e6 / wall:.2%} "
           f"of the profiled wall | {card}", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"stage   {e.key[:60]:60s} count {e.count:7d} total "
-              f"{e.self_device_time_total / 1e3:9.3f} ms, mean "
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:k]:
+        print(f"{part}   {kernel_label(e.key)[:64]:64s} count {e.count:7d} "
+              f"total {e.self_device_time_total / 1e3:9.3f} ms, mean "
               f"{e.self_device_time_total / e.count:8.2f} us", flush=True)
 
 
+def part_polish(data, args, card):
+    from torch.profiler import ProfilerActivity, profile
+    from ipx_tpu_torch.parallel import batch2
+    backend.cuda_device()
+    sv = batch.BatchedScenarioSolver(
+        data, scenarios(data, 4),
+        parameters=Parameters(display=0, device="cuda"))
+    state = batch.BatchedPhase1Solver(
+        sv.blp, feasibility_tol=sv.phase1_tol, optimality_tol=sv.phase1_tol,
+        device="cuda").solve(handoff="auto")
+    # the mean-scenario basis, as BatchedScenarioSolver._polish builds it
+    p = sv._params()
+    p.dualize, p.scale, p.crossover, p.display = 0, 0, 0, 0
+    s = sv._load(p)
+    if s.solve() != 1000 or s.basis.factorize() != 0:
+        raise RuntimeError("the mean-scenario solve or its basis failed")
+    pol = batch2.SharedBasisBatchedPolish(sv.blp, s.basis, maxiter=40,
+                                          device="cuda")
+    cr_solve, cr_wall = pol._ph1._cr_solve, [0.0]
+
+    def timed_cr(*a):
+        t0 = time.perf_counter()
+        out = cr_solve(*a)
+        cr_wall[0] += time.perf_counter() - t0
+        return out
+
+    pol._ph1._cr_solve = timed_cr
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = pol.run(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"polish B=4 m={sv.m} n={sv.n}: {len(pol.step_cr)} steps, "
+          f"{pol.total_cr_iters} shared-basis CR iterations (per step "
+          f"{pol.step_cr}), {int(out['done'].sum())} lanes done, corrected "
+          f"solves {pol.corrected_solves}, basis updates "
+          f"{pol.basis_updates}, failures {pol.correction_failures}/"
+          f"{pol.refresh_failures}; wall {wall:.3f} s, host CR "
+          f"{cr_wall[0]:.3f} s ({cr_wall[0] / wall:.1%}); final mu "
+          f"{' '.join(f'{v:.3e}' for v in out['mu'])} | {card}", flush=True)
+    top_items("polish", prof, wall, card)
+
+
 PARTS = {"e2e": part_e2e, "native": part_native, "kernels": part_kernels,
-         "busy": part_busy, "batched": part_batched, "stage": part_stage}
+         "busy": part_busy, "batched": part_batched, "stage": part_stage,
+         "polish": part_polish}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--what", default="e2e,native,kernels,busy,batched,stage",
+    ap.add_argument("--what",
+                    default="e2e,native,kernels,busy,batched,stage,polish",
                     help="comma-separated parts: " + ", ".join(PARTS))
     ap.add_argument("--turns", type=int, default=2,
                     help="solves per path in the e2e part")
