@@ -3,13 +3,15 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, nvcc and g++. It imports torch and ipx_tpu_torch
-only: no jax, and no module of ipx_tpu except through ipx_tpu_torch.
+only: no jax, and no module of ipx_tpu.
 
   0. the card (nvidia-smi name and power limit) and the versions;
-  1. builds the CUDA kernels (nvcc) and the native host library (g++);
+  1. builds the CUDA kernels (nvcc) and the port's native host library
+     (g++, ipx_tpu_torch/native/ipxlu.cc);
   2. holds each kernel against its plain PyTorch version on the card, at
      the shapes of the 20k-row transportation LP after presolve, and times
-     both (median of CUDA-event timings after warm-up);
+     both (median of CUDA-event timings after warm-up), with one PyTorch
+     sparse product beside K1 and K4 as a yardstick;
   3. solves afiro through ipx_tpu_torch.LpSolver(device="cuda");
   4. solves transportation(8000, 12000, 0.001, seed=1) through
      ipx_tpu_torch.LpSolver(device="cuda") with every launch counter set to
@@ -18,7 +20,8 @@ only: no jax, and no module of ipx_tpu except through ipx_tpu_torch.
   5. holds the batched kernels K5-K9 against their plain versions at the
      shapes of that LP as a batch of B = 256 scenarios (m = 20 000,
      n + m = 116 002), in float64 and float32, and K10-K13, the rest of the
-     batched IPM step, in float64, and times both;
+     batched IPM step, in float64, and times both (K5 beside a PyTorch
+     sparse product);
   6. runs BatchedPhase1Solver(device="cuda") over those 256 scenarios to
      the handoff (tolerance 1e-4), with the counters set to 0 just before,
      and checks a small stage against the same solver with the plain
@@ -32,11 +35,21 @@ only: no jax, and no module of ipx_tpu except through ipx_tpu_torch.
      the counters set to 0 just before, and through the plain versions on
      the card with the kernel run's shared-basis CR solutions; then
      BatchedScenarioSolver(phase2_polish=True) end to end on a small LP.
-    The plain run replays the kernel run's host CR solutions.
+     The plain run replays the kernel run's host CR solutions.
+  9. the sharded solves (parallel/sharding.py, 4 row blocks on the card):
+     K14-K16 against their plain versions at the phase-2 LP (B = 256 for
+     K16), trip by trip; LpSolver(shards=4) with device "cuda" and "auto"
+     on the phase-4 LP, each with the counters set to 0 just before,
+     against the host path's objval; sharded_batched_cr_solve at B = 256.
 
 It stops with a non-zero exit at the first failure. The line before the
-last is a JSON object with one entry per kernel, whose launch counts are
-those of phase 7; the last line is {"ok": true, "device": {...}}.
+last is a JSON object with one entry per kernel: its launches on its main
+path (phase 4 for K1-K4, phase 7 for K5-K13, the "cuda" solve of phase 9
+for K14 and K15, the batched solve of phase 9 for K16), its error against
+its plain version, the times of both, the least time the card could take
+(`bound_ms`, computed from the run's inputs) and a PyTorch call computing
+the same function where there is one (`library_ms`). The last line is
+{"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -85,6 +98,42 @@ def max_abs(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
+# The least time the card could take for a kernel's work (PERF.md): the
+# larger of its bytes (each input read once, each output written once) over
+# the memory rate and its operations over the peak rate of their type.
+# NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM3; 67 TFLOP/s in float32 and
+# 34 TFLOP/s in float64 outside the tensor cores (these kernels use none).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+
+
+def bound(nbytes, flops, dtype):
+    """{"bound_ms", "bound_by"} of work moving `nbytes` and doing `flops`
+    operations of `dtype` ("f32" or "f64")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def op_bytes(op):
+    """Bytes of a CSR operand of ops/spmv.py: indptr, indices, values."""
+    return nbytes(op.indptr, op.indices, op.vals)
+
+
+def library_csr(op):
+    """The same CSR matrix as a torch sparse tensor, for the library
+    yardstick (`library_ms`); the port never calls it."""
+    import torch
+    return torch.sparse_csr_tensor(op.indptr.to(torch.int32),
+                                   op.indices, op.vals,
+                                   size=(op.rows, op.cols))
+
+
 def rel_err(got, want):
     want = want.double()
     return max_abs(got, want) / max(float(want.abs().max()), 1e-300)
@@ -106,21 +155,25 @@ def main():
           f"{sys.version.split()[0]}", flush=True)
 
     # -- phase 1: builds ------------------------------------------------------
-    from ipx_tpu_torch import LpSolver, Parameters, backend, build, kernels
-    from ipx_tpu_torch.host import (SplittedNormalMatrix, build_native,
-                                    normal_diag, testgen as tg)
+    # importing the port builds its native host library (the IPM's module
+    # binds its vector kernels at import)
+    t0 = time.perf_counter()
+    from ipx_tpu_torch import (LpSolver, Parameters, backend, build,
+                               kernels, testgen as tg)
+    from ipx_tpu_torch.kkt.splitted_normal import SplittedNormalMatrix
+    from ipx_tpu_torch.sparse import normal_diag
     from ipx_tpu_torch.ops import device_cr, device_cr2, spmv
     from ipx_tpu_torch.parallel import batch
+    native = build.build_native()
+    t_gxx = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     build.build(force=True)
     dev = backend.cuda_device()
     t_nvcc = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    build_native()
-    t_gxx = time.perf_counter() - t0
     print(f"phase 1: CUDA kernels built by nvcc for sm_90a in {t_nvcc:.2f} s;"
-          f" native host library by g++ in {t_gxx:.2f} s", flush=True)
+          f" the port imported, with its native host library {native} "
+          f"built by g++, in {t_gxx:.2f} s", flush=True)
 
     # -- phase 2: kernels against their plain versions -------------------------
     data = tg.transportation(8000, 12000, 0.001, seed=1)
@@ -156,16 +209,24 @@ def main():
                                                      dtype))):
             y = kernels.csr_spmv(op, x)
             y_p = spmv.csr_spmv_plain(op, x)
+            A_lib = library_csr(op)
+            y_l = A_lib @ x
             torch.cuda.synchronize()
             err = rel_err(y, y_p)
             ms = cuda_ms(lambda: kernels.csr_spmv(op, x))
             pms = cuda_ms(lambda: spmv.csr_spmv_plain(op, x))
+            lms = cuda_ms(lambda: A_lib @ x)
             report("K1 csr_spmv", f"{opname} {dn} (vec {op.vec})", err,
                    RTOL[dn], ms, pms)
+            print(f"  {'':15s} library sparse_csr_tensor @ x: {lms:.4f} ms "
+                  f"(rel diff {rel_err(y_l, y_p):.1e}) | {card}", flush=True)
+            check(rel_err(y_l, y_p) <= RTOL[dn], "K1: the library differs")
             if opname == "A u" and dtype == torch.float64:
                 rows["csr_spmv"] = dict(
                     case="A u, f64", max_abs_err=max_abs(y, y_p), ms=ms,
-                    plain_ms=pms)
+                    plain_ms=pms, library_ms=lms,
+                    **bound(op_bytes(op) + nbytes(x, y),
+                            2 * op.vals.numel(), "f64"))
 
         # K2 (Cv, v.Cv)
         W = t(10.0 ** rng.uniform(-2, 2, n + m), dtype)
@@ -179,9 +240,12 @@ def main():
         pms = cuda_ms(lambda: spmv.normal_apply_plain(nmd, W, v))
         report("K2 normal_apply", f"(Cv, v.Cv) {dn}", err, RTOL[dn], ms, pms)
         if dtype == torch.float32:
+            nnz = nmd.op_A.vals.numel()
             rows["normal_apply"] = dict(
                 case="(Cv, v.Cv), f32", max_abs_err=max_abs(Cv, Cv_p),
-                ms=ms, plain_ms=pms)
+                ms=ms, plain_ms=pms, library_ms=None,
+                **bound(op_bytes(nmd.op_A) + op_bytes(nmd.op_At)
+                        + nbytes(W, v, Cv) + 4, 4 * nnz + n + 4 * m, "f32"))
 
     # K3: whole CR solves against the plain-torch CR on the card
     Wh = 10.0 ** rng.uniform(-2, 2, n + m)
@@ -234,9 +298,16 @@ def main():
             report("K3 cr_step", f"{label} solve", rel_err(yt, ypt), 1e-8,
                    ms, pms)
         if mixed:
-            rows["cr_step"] = dict(case="MixedPrecisionDeviceCR solve",
-                                   max_abs_err=max_abs(yt, ypt), ms=ms,
-                                   plain_ms=pms)
+            nmd32 = kern._nmd
+            # inputs once (the f32 operands, W, 1/diag, resscale, the f64
+            # rhs), y once; per CR iteration K2's flops and ~20 per row
+            rows["cr_step"] = dict(
+                case=f"MixedPrecisionDeviceCR solve, {it} iterations",
+                max_abs_err=max_abs(yt, ypt), ms=ms, plain_ms=pms,
+                library_ms=None,
+                **bound(op_bytes(nmd32.op_A) + op_bytes(nmd32.op_At)
+                        + 4 * (n + m) + 4 * m * 2 + 8 * m * 2,
+                        it * (4 * md.A.nnz + n + 20 * m), "f32"))
 
     # K4 on a prepared SplittedNormalMatrix
     sn = SplittedNormalMatrix(md)
@@ -246,13 +317,21 @@ def main():
     w = t(rng.standard_normal(m), torch.float64)
     z = kernels.nnt(dsc._Nt, dsc._N, w)
     z_p = device_cr2.nnt_plain(dsc._Nt, dsc._N, w)
+    Nt_lib, N_lib = library_csr(dsc._Nt), library_csr(dsc._N)
+    z_l = N_lib @ (Nt_lib @ w)
     torch.cuda.synchronize()
     ms = cuda_ms(lambda: kernels.nnt(dsc._Nt, dsc._N, w))
     pms = cuda_ms(lambda: device_cr2.nnt_plain(dsc._Nt, dsc._N, w))
+    lms = cuda_ms(lambda: N_lib @ (Nt_lib @ w))
     report("K4 nnt", f"N (N' w) f64, nnz(N)={sn.N.nnz}", rel_err(z, z_p),
            1e-12, ms, pms)
+    print(f"  {'':15s} library N_csr @ (Nt_csr @ w): {lms:.4f} ms (rel diff "
+          f"{rel_err(z_l, z_p):.1e}) | {card}", flush=True)
+    check(rel_err(z_l, z_p) <= 1e-12, "K4: the library differs")
     rows["nnt"] = dict(case="N (N' w), f64", max_abs_err=max_abs(z, z_p),
-                       ms=ms, plain_ms=pms)
+                       ms=ms, plain_ms=pms, library_ms=lms,
+                       **bound(op_bytes(dsc._Nt) + op_bytes(dsc._N)
+                               + nbytes(w, z), 4 * sn.N.nnz, "f64"))
     del host
 
     # -- phase 3: afiro ----------------------------------------------------------
@@ -318,18 +397,30 @@ def main():
         check(launches[name] > 0, f"kernel {name} was not launched in "
               "phase 4")
     check("jax" not in sys.modules, "jax was imported")
+    # the launches of K1-K4 on their main path, the single LP
+    path_launches = {k: launches[k] for k in SINGLE}
+    host_objval = ri.objval
 
     del port, ref
     t_batched = time.perf_counter()
     batched_rows, launches = batched_phases(card, data, dev, rng)
     rows.update(batched_rows)
+    path_launches.update({k: launches[k] for k in BATCHED})
     print(f"phases 5-8 took {time.perf_counter() - t_batched:.1f} s; the "
+          f"script {time.perf_counter() - T_START:.1f} s", flush=True)
+
+    t_sharded = time.perf_counter()
+    sharded_rows, launches = sharded_phase(card, data, md, host_objval, dev)
+    rows.update(sharded_rows)
+    path_launches.update({k: launches[k] for k in SHARDED})
+    print(f"phase 9 took {time.perf_counter() - t_sharded:.1f} s; the "
           f"script {time.perf_counter() - T_START:.1f} s", flush=True)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCE[name],
-             replaces=REPLACES[name], launches=launches[name], **rows[name])
+             replaces=REPLACES[name], launches=path_launches[name],
+             **rows[name])
         for name in SOURCE]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -348,7 +439,10 @@ SOURCE = {"csr_spmv": "ipx_tpu_torch/csrc/spmv.cu",
           "ipm_prologue": "ipx_tpu_torch/csrc/ipm_prologue.cu",
           "newton_rhs": "ipx_tpu_torch/csrc/newton.cu",
           "newton_recover": "ipx_tpu_torch/csrc/newton.cu",
-          "starting_point": "ipx_tpu_torch/csrc/start.cu"}
+          "starting_point": "ipx_tpu_torch/csrc/start.cu",
+          "block_sum": "ipx_tpu_torch/csrc/sharded.cu",
+          "sharded_cr_step": "ipx_tpu_torch/csrc/sharded.cu",
+          "sharded_batched_cr_step": "ipx_tpu_torch/csrc/sharded.cu"}
 REPLACES = {"csr_spmv": "ipx_tpu/ops/spmv.py:93",
             "normal_apply": "ipx_tpu/ops/spmv.py:226",
             "cr_step": "ipx_tpu/ops/device_cr.py:85",
@@ -361,10 +455,17 @@ REPLACES = {"csr_spmv": "ipx_tpu/ops/spmv.py:93",
             "ipm_prologue": "ipx_tpu/parallel/batch.py:411",
             "newton_rhs": "ipx_tpu/parallel/batch.py:465",
             "newton_recover": "ipx_tpu/parallel/batch.py:473",
-            "starting_point": "ipx_tpu/parallel/batch.py:331"}
+            "starting_point": "ipx_tpu/parallel/batch.py:331",
+            "block_sum": "ipx_tpu/parallel/sharding.py:132",
+            "sharded_cr_step": "ipx_tpu/parallel/sharding.py:221",
+            "sharded_batched_cr_step": "ipx_tpu/parallel/sharding.py:429"}
+SINGLE = ("csr_spmv", "normal_apply", "cr_step", "nnt")
 BATCHED = ("csr_spmm", "normal_apply_batched", "batched_cr_step",
            "step_batch", "ipm_update", "ipm_prologue", "newton_rhs",
            "newton_recover", "starting_point")
+# the kernels of the sharded solves (phase 9)
+SHARDED = ("block_sum", "sharded_cr_step", "sharded_batched_cr_step")
+P_SHARDS = 4
 # the kernels of a polish step: its CR runs on the host
 POLISH = ("csr_spmm", "step_batch", "ipm_update", "ipm_prologue",
           "newton_rhs", "newton_recover")
@@ -389,7 +490,7 @@ def batched_phases(card, data, dev, rng):
     of phase 7."""
     import torch
     from ipx_tpu_torch import LpSolver, Parameters, kernels
-    from ipx_tpu_torch.host import testgen as tg
+    from ipx_tpu_torch import testgen as tg
     from ipx_tpu_torch.ops import spmv
     from ipx_tpu_torch.parallel import batch
 
@@ -423,15 +524,24 @@ def batched_phases(card, data, dev, rng):
                 ("A' V", nmd.op_At, t(rng.standard_normal((m, B)), dtype))):
             Y = kernels.csr_spmm(op, X)
             Y_p = spmv.csr_spmm_plain(op, X)
+            A_lib = library_csr(op)
+            Y_l = A_lib @ X
             torch.cuda.synchronize()
             ms = cuda_ms(lambda: kernels.csr_spmm(op, X))
             pms = cuda_ms(lambda: spmv.csr_spmm_plain(op, X))
+            lms = cuda_ms(lambda: A_lib @ X)
             report("K5 csr_spmm", f"{opname} {dn}", rel_err(Y, Y_p),
                    RTOL[dn], ms, pms)
+            print(f"  {'':22s} library sparse_csr_tensor @ U: {lms:.4f} ms "
+                  f"(rel diff {rel_err(Y_l, Y_p):.1e}) | {card}", flush=True)
+            check(rel_err(Y_l, Y_p) <= RTOL[dn], "K5: the library differs")
+            del A_lib, Y_l
             if opname == "A' V" and dtype == torch.float32:
-                rows["csr_spmm"] = dict(case="A' V, f32, B=256",
-                                        max_abs_err=max_abs(Y, Y_p), ms=ms,
-                                        plain_ms=pms)
+                rows["csr_spmm"] = dict(
+                    case="A' V, f32, B=256", max_abs_err=max_abs(Y, Y_p),
+                    ms=ms, plain_ms=pms, library_ms=lms,
+                    **bound(op_bytes(op) + nbytes(X, Y),
+                            2 * op.vals.numel() * B, "f32"))
         W = t(10.0 ** rng.uniform(-2, 2, (nm, B)), dtype)
         V = t(rng.standard_normal((m, B)), dtype)
         out, dots = spmv.normal_apply_batched(nmd, W, V)
@@ -450,7 +560,11 @@ def batched_phases(card, data, dev, rng):
         if dtype == torch.float32:
             rows["normal_apply_batched"] = dict(
                 case="(CV, V.CV), f32, B=256",
-                max_abs_err=max_abs(out, out_p), ms=ms, plain_ms=pms)
+                max_abs_err=max_abs(out, out_p), ms=ms, plain_ms=pms,
+                library_ms=None,
+                **bound(op_bytes(nmd.op_A) + op_bytes(nmd.op_At)
+                        + nbytes(W, V, out, dots),
+                        (4 * blp.A.nnz + n + 4 * m) * B, "f32"))
 
         # K7: whole batched CR solves, lanes with different tolerances
         Wc = 10.0 ** rng.uniform(-1, 1, (nm, B))
@@ -484,9 +598,14 @@ def batched_phases(card, data, dev, rng):
                   "K7 f32 trips beyond 10%")
             report("K7 batched_cr_step", f"solve {dn} ({trips} trips)",
                    rel_err(Yc, Yc_p), 1e-3, ms, pms)
+            # inputs once: operands, W, 1/diag, resscale, rhs, tol; Y once
             rows["batched_cr_step"] = dict(
                 case=f"batched CR solve, f32, B=256, {trips} trips",
-                max_abs_err=max_abs(Yc, Yc_p), ms=ms, plain_ms=pms)
+                max_abs_err=max_abs(Yc, Yc_p), ms=ms, plain_ms=pms,
+                library_ms=None,
+                **bound(op_bytes(nmd.op_A) + op_bytes(nmd.op_At)
+                        + 4 * (nm + 5 * m + 1) * B,
+                        trips * (4 * blp.A.nnz + n + 20 * m) * B, "f32"))
 
         # K8 and K9 on an iterate-like state
         finl = torch.from_numpy(np.isfinite(blp.lb)).to(dev)
@@ -518,7 +637,9 @@ def batched_phases(card, data, dev, rng):
             rows["step_batch"] = dict(
                 case="(maxp, maxd), f64, B=256",
                 max_abs_err=max(max_abs(maxp, maxp_p),
-                                max_abs(maxd, maxd_p)), ms=ms, plain_ms=pms)
+                                max_abs(maxd, maxd_p)), ms=ms, plain_ms=pms,
+                library_ms=None,
+                **bound(nbytes(*sargs, maxp, maxd), 8 * nm * B, "f64"))
         X, DX = t(rng.standard_normal((nm, B)), dtype), \
             t(rng.standard_normal((nm, B)), dtype)
         Yv, DY = t(rng.standard_normal((m, B)), dtype), \
@@ -543,8 +664,11 @@ def batched_phases(card, data, dev, rng):
         report("K9 ipm_update", f"6 arrays {dn}, exact {exact}",
                0.0 if exact else 1.0, 0.0, ms, pms)
         if dtype == torch.float64:
-            rows["ipm_update"] = dict(case="in place, f64, B=256",
-                                      max_abs_err=err, ms=ms, plain_ms=pms)
+            rows["ipm_update"] = dict(
+                case="in place, f64, B=256", max_abs_err=err, ms=ms,
+                plain_ms=pms, library_ms=None,
+                **bound(nbytes(*state, *dirs) + nbytes(*state),
+                        2 * (5 * nm + m) * B, "f64"))
         del nmd, W, V, out, out2, out_p, st, sargs, state, dirs, got, want
         torch.cuda.empty_cache()
     rows.update(step_kernels(blp, dev, rng, report, t))
@@ -644,8 +768,9 @@ def batched_phases(card, data, dev, rng):
           f"{k4} scenarios: wall {t_e2e:.3f} s (batched phase 1, mean-basis "
           f"solve, {k4} finishes); launches {launches}; {card}\n  "
           + "\n  ".join(lines), flush=True)
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched in phase 7")
+    for name in SINGLE + BATCHED:
+        check(launches[name] > 0, f"kernel {name} was not launched in "
+              "phase 7")
     check("jax" not in sys.modules, "jax was imported")
 
     polish_phase(card, data, b_batch[:4], handoff, "cuda")
@@ -739,7 +864,10 @@ def step_kernels(blp, dev, rng, report, t):
           "two runs differ")
     rows["ipm_prologue"] = dict(case="f64, B=256; max_abs_err of pobj, dobj"
                                 ", mu (the rest bit for bit)",
-                                max_abs_err=err, ms=ms, plain_ms=pms)
+                                max_abs_err=err, ms=ms, plain_ms=pms,
+                                library_ms=None,
+                                **bound(nbytes(*args) + nbytes(*got[:7])
+                                        + B, 20 * nm * B, "f64"))
 
     # K11 (corrector form) and K12 on the prologue's outputs
     sig = t(rng.uniform(0.0, 1.0, B), f64)
@@ -758,7 +886,9 @@ def step_kernels(blp, dev, rng, report, t):
     rows["newton_rhs"] = dict(
         case="corrector, f64, B=256, K5 products shared",
         max_abs_err=max(max_abs(a, b) for a, b in zip(r_got, r_want)),
-        ms=ms, plain_ms=pms)
+        ms=ms, plain_ms=pms, library_ms=None,
+        **bound(op_bytes(nmd.op_A) + nbytes(*rhs_in[1:]) + nbytes(*r_got),
+                (2 * blp.A.nnz + 20 * nm) * B, "f64"))
     SL, SU, RHS1, _ = r_got
     del dirs, r_want
     DY = t(rng.standard_normal((m, B)), f64)
@@ -777,7 +907,9 @@ def step_kernels(blp, dev, rng, report, t):
     rows["newton_recover"] = dict(
         case="f64, B=256, K5 products shared",
         max_abs_err=max(max_abs(a, b) for a, b in zip(d_got, d_want)),
-        ms=ms, plain_ms=pms)
+        ms=ms, plain_ms=pms, library_ms=None,
+        **bound(op_bytes(nmd.op_A) + nbytes(*rec_in[1:]) + nbytes(*d_got),
+                (2 * blp.A.nnz + 20 * nm) * B, "f64"))
     del rec_in, d_got, d_want, r_got, rhs_in, got, want, probe, args
 
     # K13 from the clamped zero point and two seeded CR solutions
@@ -792,6 +924,7 @@ def step_kernels(blp, dev, rng, report, t):
     sp_in = (X0, kernels.csr_spmm(nmd.op_At, DY), DY, ATY, Y, cT, lb, ub,
              finl, finu)
     *k_got, lane = kernels.starting_point(*sp_in, batch.RHO)
+    k13_bytes = nbytes(*sp_in, *k_got, lane)
     k_lane = batch.starting_point_plain(*sp_in, lane=lane)
     torch.cuda.synchronize()
     exact = all(torch.equal(a, b) for a, b in zip(k_got, k_lane))
@@ -813,7 +946,9 @@ def step_kernels(blp, dev, rng, report, t):
            1e-12, ms, pms)
     check(exact, "K13: an output differs given the kernel's scalars")
     rows["starting_point"] = dict(case="f64, B=256, against the plain sums",
-                                  max_abs_err=abs_err, ms=ms, plain_ms=pms)
+                                  max_abs_err=abs_err, ms=ms, plain_ms=pms,
+                                  library_ms=None,
+                                  **bound(k13_bytes, 20 * nm * B, "f64"))
     return rows
 
 
@@ -825,7 +960,7 @@ def polish_phase(card, data, b4, handoff, device):
     The plain run replays the kernel run's host CR solutions."""
     import torch
     from ipx_tpu_torch import LpSolver, Parameters, kernels
-    from ipx_tpu_torch.host import testgen as tg
+    from ipx_tpu_torch import testgen as tg
     from ipx_tpu_torch.parallel import batch, batch2
 
     sv = batch.BatchedScenarioSolver(
@@ -939,6 +1074,211 @@ def polish_phase(card, data, b4, handoff, device):
           flush=True)
     for name in POLISH:
         check(launched[name] > 0, f"phase 8 e2e: {name} not launched")
+
+
+def sharded_phase(card, data, md, host_objval, dev):
+    """Phase 9, the sharded solves (parallel/sharding.py) with P_SHARDS row
+    blocks on the card: K14-K16 against their plain versions at the
+    presolved LP `md` of phase 2; LpSolver(shards=4) with device "cuda" and
+    "auto" on `data`, with the counters set to 0 just before each, against
+    the host path's objval; sharded_batched_cr_solve at B = B_FULL. Returns
+    the kernel rows of K14-K16 and the launch counts of their main paths:
+    the "cuda" solve for K14 and K15, the batched solve for K16."""
+    import torch
+    from ipx_tpu_torch import LpSolver, Parameters, kernels
+    from ipx_tpu_torch import testgen as tg
+    from ipx_tpu_torch.parallel import sharding
+
+    A = md.A
+    m, n = A.shape
+    P, B = P_SHARDS, B_FULL
+    rows, launches = {}, {}
+    rng = np.random.default_rng(9)
+    f64 = torch.float64
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, dtype=np.float64)).to(dev)
+
+    def report(name, case, err, tol, ms, plain_ms):
+        print(f"  {name:26s} {case:34s} err {err:.3e} (tol {tol:.0e}) "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms | {card}",
+              flush=True)
+        check(err <= tol, f"{name} {case}: error {err:.3e} > {tol:.0e}")
+
+    snm = sharding.ShardedNormalMatrix(A, P, dev)
+    ops = sum(op_bytes(op) for op in snm.op_A + snm.op_At)
+    print(f"phase 9: sharded solves, P={P} row blocks {snm.rows} of m={m} "
+          f"n={n} nnz(A)={A.nnz}; {card}", flush=True)
+
+    # K14 at the main path's three shapes, bit for bit: (P, m) unscaled (the
+    # N N' psum), (P, n) and (P, n, B) scaled (the single and batched
+    # applies). The row is the unscaled case, which one library call,
+    # torch.sum(parts, 0), also computes.
+    for shape, scaled in (((m,), False), ((n,), True), ((n, B), True)):
+        parts = t(rng.standard_normal((P,) + shape))
+        scale = t(rng.uniform(0.5, 2.0, shape)) if scaled else None
+        got = sharding.block_sum(parts, scale)
+        want = sharding.block_sum_plain(parts, scale)
+        torch.cuda.synchronize()
+        exact = torch.equal(got, want)
+        ms = cuda_ms(lambda: sharding.block_sum(parts, scale))
+        pms = cuda_ms(lambda: sharding.block_sum_plain(parts, scale))
+        case = (f"{'scale * ' if scaled else ''}sum of P={P} parts of "
+                f"{shape} f64")
+        report("K14 block_sum", f"{case}, exact {exact}",
+               0.0 if exact else 1.0, 0.0, ms, pms)
+        if not scaled:
+            lms = cuda_ms(lambda: torch.sum(parts, 0))
+            print(f"  K14 library torch.sum(parts, 0) on the same parts: "
+                  f"{lms:.4f} ms, max abs diff "
+                  f"{max_abs(torch.sum(parts, 0), want):.3e} | {card}",
+                  flush=True)
+            rows["block_sum"] = dict(
+                case=case, max_abs_err=max_abs(got, want), ms=ms,
+                plain_ms=pms, library_ms=lms,
+                **bound(nbytes(parts, got), P * m, "f64"))
+        del parts, scale, got, want
+    torch.cuda.empty_cache()
+
+    # K15: five trips against the plain version, trip by trip, then a
+    # fixed number of trips timed
+    W = 10.0 ** rng.uniform(-2, 2, n + m)
+    A2 = A.copy()
+    A2.data **= 2
+    diag = A2 @ W[:n] + W[n:]
+    Ws, Wl, invd, rs = t(W[:n]), t(W[n:]), t(1.0 / diag), t(1.0 / np.sqrt(
+        W[n:]))
+    rhs = t(rng.standard_normal(m))
+    worst = 0.0
+    for trips in range(1, 6):
+        y, it, err, _ = sharding.sharded_cr(snm, Ws, Wl, invd, rs, rhs,
+                                            0.0, trips)
+        y_p, it_p, err_p, _ = sharding.sharded_cr_plain(
+            snm, Ws, Wl, invd, rs, rhs, 0.0, trips)
+        check(it == it_p == trips and err == err_p == 0,
+              f"K15 trip {trips}: {it}/{err} against plain {it_p}/{err_p}")
+        worst = max(worst, rel_err(y, y_p))
+    timed = 20
+    y, it, _, _ = sharding.sharded_cr(snm, Ws, Wl, invd, rs, rhs, 0.0, timed)
+    y_p, _, _, _ = sharding.sharded_cr_plain(snm, Ws, Wl, invd, rs, rhs, 0.0,
+                                             timed)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: sharding.sharded_cr(snm, Ws, Wl, invd, rs, rhs, 0.0,
+                                             timed), reps=5, warm=1)
+    pms = cuda_ms(lambda: sharding.sharded_cr_plain(
+        snm, Ws, Wl, invd, rs, rhs, 0.0, timed), reps=5, warm=1)
+    report("K15 sharded_cr_step", f"trips 1-5 and {timed}, f64",
+           max(worst, rel_err(y, y_p)), 1e-12, ms, pms)
+    rows["sharded_cr_step"] = dict(
+        case=f"ShardedDiagCR recurrence, P={P}, {timed} trips, f64",
+        max_abs_err=max_abs(y, y_p), ms=ms, plain_ms=pms, library_ms=None,
+        **bound(ops + 8 * (n + 5 * m), timed * (4 * A.nnz + n + 20 * m),
+                "f64"))
+
+    # K16: five trips against the plain version, then a fixed number timed
+    Wb = t(rng.uniform(0.5, 2.0, (n + m, B)))
+    diag_b = A2 @ Wb[:n].cpu().numpy() + Wb[n:].cpu().numpy()
+    Wbs, Wbl, invd_b = Wb[:n].contiguous(), Wb[n:].contiguous(), t(
+        1.0 / diag_b)
+    R = t(rng.standard_normal((m, B)))
+    worst = 0.0
+    for trips in range(1, 6):
+        Y, it = sharding.sharded_batched_cr(snm, Wbs, Wbl, invd_b, R, 0.0,
+                                            trips)
+        Y_p, it_p = sharding.sharded_batched_cr_plain(snm, Wbs, Wbl, invd_b,
+                                                      R, 0.0, trips)
+        check(it == it_p == trips, f"K16 trip {trips}: {it} / plain {it_p}")
+        worst = max(worst, rel_err(Y, Y_p))
+    del Y_p
+    timed = 10
+    Y, _ = sharding.sharded_batched_cr(snm, Wbs, Wbl, invd_b, R, 0.0, timed)
+    Y_p, _ = sharding.sharded_batched_cr_plain(snm, Wbs, Wbl, invd_b, R, 0.0,
+                                               timed)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: sharding.sharded_batched_cr(
+        snm, Wbs, Wbl, invd_b, R, 0.0, timed), reps=3, warm=1)
+    pms = cuda_ms(lambda: sharding.sharded_batched_cr_plain(
+        snm, Wbs, Wbl, invd_b, R, 0.0, timed), reps=3, warm=1)
+    report("K16 sharded_batched_cr", f"trips 1-5 and {timed}, f64, B={B}",
+           max(worst, rel_err(Y, Y_p)), 1e-12, ms, pms)
+    rows["sharded_batched_cr_step"] = dict(
+        case=f"batched recurrence, P={P}, B={B}, {timed} trips, f64",
+        max_abs_err=max_abs(Y, Y_p), ms=ms, plain_ms=pms, library_ms=None,
+        **bound(ops + 8 * (n + 4 * m) * B,
+                timed * (4 * A.nnz + n + 20 * m) * B, "f64"))
+    del Y, Y_p, Wb, Wbs, Wbl, invd_b, R
+    torch.cuda.empty_cache()
+
+    # the main path: LpSolver(shards=4), device "cuda" then "auto"
+    for device in ("cuda", "auto"):
+        s = LpSolver(Parameters(display=0, device=device, shards=P))
+        check(tg.load_into_solver(data, s) == 0, "load_model failed")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        st = s.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = dict(kernels.LAUNCHES)
+        if device == "cuda":
+            launches.update(launched)
+        i = s.get_info()
+        e = abs(i.objval - host_objval) / abs(host_objval)
+        cr = s.model._sharded_cr[1]
+        nnt = getattr(s.model, "_sharded_nnt", None)
+        applies = nnt[1].applies if nnt is not None else 0
+        print(f"  LpSolver(shards={P}, device={device!r}) on transportation"
+              f"(8000, 12000, 0.001, 1): status {st}, objval {i.objval!r} "
+              f"(host {host_objval!r}, rel {e:.1e}), wall {wall:.3f} s, IPM "
+              f"iters {i.iter}, CR iters {i.kktiter1}+{i.kktiter2}, sharded "
+              f"CR solves {cr.solves} on {cr.device}, sharded N N' applies "
+              f"{applies}; ipm1 {i.time_ipm1:.3f} s, ipm2 {i.time_ipm2:.3f} "
+              f"s, cr1 {i.time_cr1:.3f} s, cr2 {i.time_cr2:.3f} s (NNt "
+              f"{i.time_cr2_NNt:.3f} s); launches "
+              f"{ {k: v for k, v in launched.items() if v} }; {card}",
+              flush=True)
+        check(st == 1000, f"shards={P} {device}: status {st}")
+        check(e <= 1e-8, f"shards={P} {device}: objval differs by {e:.1e}")
+        check(i.kktiter1 > 0 and cr.solves > 0 and cr.device.type == "cuda",
+              f"shards={P} {device}: the sharded CR did not run on the card")
+        for name in ("block_sum", "sharded_cr_step"):
+            check(launched[name] > 0, f"shards={P} {device}: {name} was not "
+                  "launched")
+        if device == "auto":
+            check(applies > 0 and nnt[1].device.type == "cuda",
+                  "shards=4 auto: the sharded N N' did not run on the card")
+        del s
+
+    # sharded_batched_cr_solve at full width, weights as in
+    # tests/test_sharded.py
+    brng = np.random.default_rng(1)
+    W = brng.uniform(0.5, 2.0, size=(n + m, B))
+    diag = A2 @ W[:n] + W[n:]
+    RHS = brng.standard_normal((m, B))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    Y, iters = sharding.sharded_batched_cr_solve(snm, W[:n], W[n:], diag,
+                                                 RHS, 1e-10, 2000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["sharded_batched_cr_step"] = kernels.LAUNCHES[
+        "sharded_batched_cr_step"]
+    Wt, Yt = t(W), t(Y)
+    res = (t(RHS) - snm.apply(Wt[:n].contiguous(), Wt[n:].contiguous(), Yt)
+           ).abs().amax(0).cpu().numpy()
+    worst = float(np.max(res / np.abs(RHS).max(axis=0)))
+    print(f"  sharded_batched_cr_solve P={P} B={B}: {iters} trips, wall "
+          f"{wall:.3f} s, worst lane residual / max|rhs| {worst:.2e} (tol "
+          f"1e-9); launches "
+          f"{ {k: v for k, v in kernels.LAUNCHES.items() if v} }; {card}",
+          flush=True)
+    check(worst <= 1e-9, f"sharded batched CR: residual {worst:.2e}")
+    check(launches["sharded_batched_cr_step"] > 0, "K16 was not launched")
+    bad = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("ipx_tpu", "jax", "jaxlib"))
+    check(not bad, f"modules of ipx_tpu or jax were imported: {bad[:5]}")
+    return rows, launches
 
 
 if __name__ == "__main__":

@@ -5,7 +5,9 @@ when the kernel library does not build or load; ``"torch_cpu"`` runs the
 same device path on the CPU with the kernels' plain PyTorch versions;
 ``"cpu"`` is the reference's host path. ``"auto"`` picks ``"cuda"`` when a
 card is present and A has at least MIN_NNZ_AUTO nonzeros, and the host path
-otherwise (the contract of ipx_tpu's DeviceNormalCR.worthwhile).
+otherwise (the contract of ipx_tpu's DeviceNormalCR.worthwhile). The
+batched and the sharded solves, which have no host path, resolve with
+their own rules (resolve_batched, resolve_sharded).
 """
 from __future__ import annotations
 
@@ -62,5 +64,21 @@ def resolve_batched(device: str) -> torch.device:
     if device == "cuda":
         return cuda_device()
     if device in ("torch_cpu", "cpu"):
+        return torch.device("cpu")
+    raise ValueError(f"unknown device {device!r}; expected one of {DEVICES}")
+
+
+def resolve_sharded(device: str) -> torch.device:
+    """The torch device of the row blocks of the sharded solves
+    (Parameters.shards > 1, parallel/sharding.py), which have no host path
+    of their own: "cuda" is the card or raises, "torch_cpu" the CPU with
+    the plain versions, and "auto" and "cpu" the card when one is present,
+    else the CPU (the reference's mesh is jax's default platform, whatever
+    Parameters.device says)."""
+    if device in ("auto", "cpu"):
+        device = "cuda" if torch.cuda.is_available() else "torch_cpu"
+    if device == "cuda":
+        return cuda_device()
+    if device == "torch_cpu":
         return torch.device("cpu")
     raise ValueError(f"unknown device {device!r}; expected one of {DEVICES}")

@@ -17,7 +17,9 @@ phase 1, K5 ``csr_spmm``, K6 ``normal_apply_batched`` (csrc/spmm.cu), K7
 ``ipm_update`` (csrc/ipm_step.cu); for the rest of the batched IPM step, in
 float64, K10 ``ipm_prologue`` (csrc/ipm_prologue.cu), K11 ``newton_rhs``
 and K12 ``newton_recover`` (csrc/newton.cu) and K13 ``starting_point``
-(csrc/start.cu). Batched arrays are (rows, B) with the B lanes contiguous.
+(csrc/start.cu); for the sharded solves, in float64, K14 ``block_sum``, K15
+``sharded_cr_step`` and K16 ``sharded_batched_cr_step`` (csrc/sharded.cu).
+Batched arrays are (rows, B) with the B lanes contiguous.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ LAUNCHES = dict.fromkeys(("csr_spmv", "normal_apply", "cr_step", "nnt",
                           "csr_spmm", "normal_apply_batched",
                           "batched_cr_step", "step_batch", "ipm_update",
                           "ipm_prologue", "newton_rhs", "newton_recover",
-                          "starting_point"), 0)
+                          "starting_point", "block_sum", "sharded_cr_step",
+                          "sharded_batched_cr_step"), 0)
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _lib = None
@@ -92,7 +95,12 @@ def _declare(lib: ctypes.CDLL) -> None:
            "ipxt_newton_dx_f64": [I64] * 3 + [P] * 5,
            "ipxt_newton_recover_f64": [I64] * 3 + [P] * 22,
            "ipxt_starting_point_f64": [I64] * 3 + [P] * 17 + [I64, P, D, D,
-                                                               P]}
+                                                               P],
+           "ipxt_block_sum_f64": [I64, I64] + [P] * 5,
+           "ipxt_scr_step_f64": [I, I64, I64, I64, I64, D, I] + [P] * 12
+           + [I64, P, P, P],
+           "ipxt_sbcr_step_f64": [I, I64, I64, I64, I64, I64, D] + [P] * 11
+           + [I64, P, P, P]}
     for name, argtypes in f64.items():
         f = getattr(lib, name)
         f.argtypes = argtypes
@@ -107,6 +115,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ipxt_spmv_blocks.restype = I64
     lib.ipxt_cr_blocks.argtypes = [I64]
     lib.ipxt_cr_blocks.restype = I64
+    lib.ipxt_scr_blocks.argtypes = [I64]
+    lib.ipxt_scr_blocks.restype = I64
+    lib.ipxt_sbcr_state_len.argtypes = [I64]
+    lib.ipxt_sbcr_state_len.restype = I64
     lib.ipxt_cr_state_len.argtypes = []
     lib.ipxt_cr_state_len.restype = I64
     lib.ipxt_error_string.argtypes = [I]
@@ -206,11 +218,16 @@ def _spmv(op, x, y, rowscale=None, addw=None, addv=None, partials=None,
     _raise_if(err, "csr_spmv")
 
 
-def csr_spmv(op, x: torch.Tensor) -> torch.Tensor:
-    """K1: y = op @ x on the card."""
+def csr_spmv(op, x: torch.Tensor, out=None, addw=None, addv=None,
+             partials=None, state=None) -> torch.Tensor:
+    """K1: y = op @ x on the card, into `out` if given; with addw and addv,
+    y = op @ x + addw * addv and, with `partials`, the block partials of
+    addv.y (a block product of the sharded solves). `state` is a CR loop's:
+    once it says done, the launch returns at once."""
     device = _device_of(x)
-    y = torch.empty(op.rows, dtype=x.dtype, device=device)
-    _spmv(op, x, y)
+    y = torch.empty(op.rows, dtype=x.dtype, device=device) \
+        if out is None else out
+    _spmv(op, x, y, addw=addw, addv=addv, partials=partials, state=state)
     LAUNCHES["csr_spmv"] += 1
     return y
 
@@ -240,9 +257,10 @@ def normal_apply(At, A, W: torch.Tensor, v: torch.Tensor, out=None,
     return out
 
 
-def nnt(Nt, N, w: torch.Tensor) -> torch.Tensor:
-    """K4: z = N (N' w) as two K1 launches; `Nt` is N' as a CSR operand."""
-    z = csr_spmv(N, csr_spmv(Nt, w))
+def nnt(Nt, N, w: torch.Tensor, out=None) -> torch.Tensor:
+    """K4: z = N (N' w) as two K1 launches, into `out` if given; `Nt` is N'
+    as a CSR operand."""
+    z = csr_spmv(N, csr_spmv(Nt, w), out=out)
     LAUNCHES["nnt"] += 1
     return z
 
@@ -349,11 +367,17 @@ def _spmm(op, U, Y, rowscale=None, addw=None, addv=None, partials=None,
     _raise_if(err, "csr_spmm")
 
 
-def csr_spmm(op, U: torch.Tensor) -> torch.Tensor:
-    """K5: Y = op @ U for U of shape (op.cols, B), on the card."""
+def csr_spmm(op, U: torch.Tensor, out=None, addw=None, addv=None,
+             partials=None, state=None) -> torch.Tensor:
+    """K5: Y = op @ U for U of shape (op.cols, B), on the card, into `out`
+    if given; with addw and addv, Y = op @ U + addw * addv and, with
+    `partials`, the per-block partials of the column dots addv.Y (a block
+    product of the sharded solves). `state` is a CR loop's: once it says
+    done, the launch returns at once."""
     device = _device_of(U)
-    Y = torch.empty((op.rows, _lanes(U, "U")), dtype=U.dtype, device=device)
-    _spmm(op, U, Y)
+    Y = torch.empty((op.rows, _lanes(U, "U")), dtype=U.dtype,
+                    device=device) if out is None else out
+    _spmm(op, U, Y, addw=addw, addv=addv, partials=partials, state=state)
     LAUNCHES["csr_spmm"] += 1
     return Y
 
@@ -535,7 +559,7 @@ def ipm_update(X, XL, XU, Y, ZL, ZU, DX, DXL, DXU, DY, DZL, DZU, alphap,
     LAUNCHES["ipm_update"] += 1
 
 
-# -- K10-K13: the rest of the batched IPM step, float64 ---------------------------
+# -- K10-K13: the rest of the batched IPM step, float64 -----------------------
 F64 = torch.float64
 # rows of the per-lane outputs of K10 and K13
 PROLOGUE_ROWS = ("mu", "pobj", "dobj", "gap", "pres", "dres", "regval", "tol")
@@ -711,3 +735,216 @@ def starting_point(X0, ATDY, DY, ATY, Y, cT, lb, ub, finl, finu, rho):
     _raise_if(err, "starting_point")
     LAUNCHES["starting_point"] += 1
     return X, XL, XU, Yo, ZL, ZU, lane
+
+
+# -- K14-K16: the sharded solves, float64 -------------------------------------
+def block_sum(parts: torch.Tensor, scale=None, out=None, state=None):
+    """K14: out = scale * (((parts[0] + parts[1]) + parts[2]) + ...), the
+    blocks summed in order, for parts of shape (P, *shape) and scale and
+    out of `shape`; without scale, the plain sum. `state` is a CR loop's:
+    once it says done, the launch returns at once."""
+    device = _device_of(parts)
+    shape = tuple(parts.shape[1:])
+    _check(parts, "parts", device, F64, (parts.shape[0],) + shape)
+    if scale is not None:
+        _check(scale, "scale", device, F64, shape)
+    out = torch.empty(shape, dtype=F64, device=device) if out is None else out
+    _check(out, "out", device, F64, shape)
+    if state is not None:
+        _check_state(state, device)
+    err = load().ipxt_block_sum_f64(
+        parts.shape[0], out.numel(), parts.data_ptr(), _ptr(scale),
+        out.data_ptr(), _ptr(state), _stream(device))
+    _raise_if(err, "block_sum")
+    LAUNCHES["block_sum"] += 1
+    return out
+
+
+def _check_state(state, device) -> None:
+    """A CR loop's state as the block products read it: float64, at least
+    the scalar slots of common.cuh."""
+    n = int(_lib.ipxt_cr_state_len())
+    if state.device != device or state.dtype != F64 or state.numel() < n \
+            or not state.is_contiguous():
+        raise ValueError("state is not a float64 CR state on " + str(device))
+
+
+def _offsets(values, device) -> torch.Tensor:
+    """(P + 1) int64 prefix offsets of `values`, on the card."""
+    off = [0]
+    for v in values:
+        off.append(off[-1] + int(v))
+    return torch.tensor(off, dtype=torch.int64).to(device)
+
+
+def _slices(t: torch.Tensor, sizes) -> list:
+    """Consecutive slices of `t` along its first axis, of the given sizes."""
+    out, r0 = [], 0
+    for k in sizes:
+        out.append(t[r0:r0 + k])
+        r0 += k
+    return out
+
+
+def block_normal_apply(At, A, W_struct, W_slack, v, out=None, parts=None,
+                       u=None, partials=None, state=None):
+    """out = C v over row blocks for v of shape (m,) or (m, B): A_p' v_p by
+    K1 or K5 into parts[p], their ordered sum scaled by W_struct by K14 into
+    u, then A_p u + W_slack_p v_p by K1 or K5 into the block's rows of out,
+    with the block's partials of v.out into partials[p] if given. `At` and
+    `A` are the blocks' operands (A_p' with n rows, A_p with the block's
+    rows); scratch not given is allocated here."""
+    prod = csr_spmm if v.dim() == 2 else csr_spmv
+    rows = [op.rows for op in A]
+    n, lanes = W_struct.shape[0], tuple(v.shape[1:])
+    e = lambda *s: torch.empty(s, dtype=F64, device=v.device)  # noqa: E731
+    out = e(*v.shape) if out is None else out
+    parts = e(len(A), n, *lanes) if parts is None else parts
+    partials = [None] * len(A) if partials is None else partials
+    for op, v_p, part in zip(At, _slices(v, rows), parts):
+        prod(op, v_p, out=part, state=state)
+    u = block_sum(parts, W_struct, out=u, state=state)
+    for op, o_p, w_p, v_p, pc in zip(A, _slices(out, rows),
+                                     _slices(W_slack, rows),
+                                     _slices(v, rows), partials):
+        prod(op, u, out=o_p, addw=w_p, addv=v_p, partials=pc, state=state)
+    return out
+
+
+class _ShardedStep:
+    """What the step objects of K15 and K16 share, allocated once per solve
+    on the card of `rhs`: the row blocks' operands (`At`: A_p' with n rows,
+    `A`: A_p with the block's rows), the loop's vectors of rhs's shape (`r`
+    starts as a copy of rhs), the block products' scratch, the partials
+    (`pa` of shape `pa_shape`, one partial block per K14-K16 reduction
+    block `nblk[p]` of each row block; `pc`, the block products' partials,
+    `npc[p]` rows per row block), the prefix offsets of the rows and of
+    both partials, and the state, zeros of `state_len`.
+
+    A solve is driven by INIT, the normal apply, START, then TRIP (the
+    passes of one trip, the normal apply where APPLY stands) until done()."""
+
+    APPLY = -1
+    IT, DONE = 3, 5                 # state slots (csrc/common.cuh)
+
+    def __init__(self, At, A, W_struct, W_slack, rhs, nblk, npc, pa_shape,
+                 state_len):
+        device = _device_of(rhs)
+        rows = [op.rows for op in A]
+        m, n, P, lanes = rhs.shape[0], W_struct.shape[0], len(rows), \
+            tuple(rhs.shape[1:])
+        if sum(rows) != m or len(At) != P:
+            raise ValueError("row blocks do not cover the m rows")
+        e = lambda *s: torch.empty(s, dtype=F64, device=device)  # noqa: E731
+        self.At, self.A, self.P, self.m = At, A, P, m
+        self.W_struct, self.W_slack = W_struct, W_slack
+        self.r = rhs.clone()
+        self.y, self.s, self.cs, self.d, self.cd = (e(m, *lanes)
+                                                    for _ in range(5))
+        self.parts, self.u = e(P, n, *lanes), e(n, *lanes)
+        self.nblk = sum(nblk)
+        self.pa, self.pc = e(*pa_shape), e(sum(npc), *lanes)
+        self.pc_slices = _slices(self.pc, npc)
+        self._off = (_offsets(rows, device), _offsets(nblk, device),
+                     _offsets(npc, device))
+        # zeros made on the host: the state is copied up, not filled by a
+        # device kernel
+        self.state = torch.zeros(state_len, dtype=F64).to(device)
+        self._tail = (self.y.data_ptr(), self.r.data_ptr(),
+                      self.s.data_ptr(), self.cs.data_ptr(),
+                      self.d.data_ptr(), self.cd.data_ptr(),
+                      self.pa.data_ptr(), self.nblk, self.pc.data_ptr(),
+                      self.state.data_ptr(), _stream(device))
+
+    def normal_apply(self) -> None:
+        """cs = C s over the row blocks, with the block products' partials
+        of the dots s.cs per block (block_normal_apply)."""
+        block_normal_apply(self.At, self.A, self.W_struct, self.W_slack,
+                           self.s, out=self.cs, parts=self.parts, u=self.u,
+                           partials=self.pc_slices, state=self.state)
+
+    def done(self) -> bool:
+        return bool(self.state[self.DONE].item())
+
+
+class ShardedCrStep(_ShardedStep):
+    """K15: the passes of one row-blocked CR solve (csrc/sharded.cu) on one
+    card, for ShardedDiagCR (`ladder`, the scaled norm with `resscale`) and
+    sharded_cr_solve (no ladder, resscale None: the unscaled norm).
+    W_struct (n,), W_slack, invd, resscale and rhs (m,), float64 on the
+    card."""
+
+    INIT, START, PASS_A, PASS_B, PASS_C = range(5)
+    TRIP = (PASS_A, PASS_B, _ShardedStep.APPLY, PASS_C)
+    ERR, RESNORM = 4, 7             # state slots (csrc/sharded.cu)
+
+    def __init__(self, At, A, W_struct, W_slack, invd, resscale, rhs,
+                 ladder: bool):
+        device = _device_of(rhs)
+        lib = load()
+        m, n = rhs.numel(), W_struct.numel()
+        shapes = dict(W_struct=(W_struct, n), W_slack=(W_slack, m),
+                      invd=(invd, m), rhs=(rhs, m))
+        if resscale is not None:
+            shapes["resscale"] = (resscale, m)
+        _check_f64(device, shapes)
+        nblk = [int(lib.ipxt_scr_blocks(op.rows)) for op in A]
+        super().__init__(At, A, W_struct, W_slack, rhs, nblk,
+                         [spmv_blocks(op) for op in A], (2 * sum(nblk),),
+                         int(lib.ipxt_cr_state_len()))
+        self._keep = (invd, resscale)     # alive while the loop runs
+        self._args = (*(t.data_ptr() for t in self._off), invd.data_ptr(),
+                      _ptr(resscale), *self._tail)
+        self._ladder = int(bool(ladder))
+
+    def launch(self, phase: int, k: int, maxiter: int, tol: float) -> None:
+        err = _lib.ipxt_scr_step_f64(phase, self.m, self.P, k, maxiter,
+                                     float(tol), self._ladder, *self._args)
+        _raise_if(err, f"sharded_cr_step phase {phase}")
+        LAUNCHES["sharded_cr_step"] += 1
+
+    def result(self):
+        """(y on the card, iterations, error code, residual norm)."""
+        st = self.state.cpu()
+        return (self.y, int(st[self.IT]), int(st[self.ERR]),
+                float(st[self.RESNORM]))
+
+
+class ShardedBatchedCrStep(_ShardedStep):
+    """K16: the passes of one row-blocked, lane-masked batched CR solve
+    (csrc/sharded.cu) on one card, for sharded_batched_cr_solve.
+    W_struct (n, B), W_slack, invd and rhs (m, B), float64 on the card; tol
+    a number. On one card the reference's batch mesh axis is the column
+    range of these arrays, so it needs nothing here."""
+
+    INIT, START, PASS_A, LANE, PASS_B, BETA = range(6)
+    TRIP = (PASS_A, LANE, PASS_B, _ShardedStep.APPLY, BETA)
+
+    def __init__(self, At, A, W_struct, W_slack, invd, rhs):
+        device = _device_of(rhs)
+        lib = load()
+        m, B = rhs.shape[0], _lanes(rhs, "rhs")
+        n = W_struct.shape[0]
+        _check_f64(device, dict(W_struct=(W_struct, (n, B)),
+                                W_slack=(W_slack, (m, B)),
+                                invd=(invd, (m, B)), rhs=(rhs, (m, B))))
+        nblk = [red_blocks(op.rows, B) for op in A]
+        vw = spmm_width(B, F64)
+        # the state's length is K7's, which K5 checks
+        super().__init__(At, A, W_struct, W_slack, rhs, nblk,
+                         [lane_blocks(op.rows, B // vw) for op in A],
+                         (2, B, sum(nblk)), int(lib.ipxt_sbcr_state_len(B)))
+        self.B = B
+        self._keep = invd
+        self._args = (*(t.data_ptr() for t in self._off), invd.data_ptr(),
+                      *self._tail)
+
+    def launch(self, phase: int, k: int, maxiter: int, tol: float) -> None:
+        err = _lib.ipxt_sbcr_step_f64(phase, self.m, self.B, self.P, k,
+                                      maxiter, float(tol), *self._args)
+        _raise_if(err, f"sharded_batched_cr_step phase {phase}")
+        LAUNCHES["sharded_batched_cr_step"] += 1
+
+    def result(self):
+        """(Y on the card, trips)."""
+        return self.y, int(self.state[self.IT].item())

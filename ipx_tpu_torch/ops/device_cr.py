@@ -24,10 +24,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ipx_tpu.model import Model
-from ipx_tpu.status import Errflag
-
 from .. import kernels
+from ..model import Model
+from ..status import Errflag
 from .spmv import NP_DTYPE, NormalMatrixDevice, normal_apply_plain
 
 # error codes inside the device loop (ipx_tpu/ops/device_cr.py:51-66)

@@ -91,17 +91,7 @@ class DeviceSplittedCR:
         (inf-norm termination, 201 iter limit, 202 not posdef, 205 nan,
         999 past `deadline` in time.monotonic() seconds). `warm` optionally
         starts from a slot-space solution of the SAME prepared operator,
-        kept only when its residual beats the zero start. An exception is
-        kept in `error` before it propagates, so that a caller whose own
-        handler swallows it can still raise it."""
-        self.error = None
-        try:
-            return self._solve(rhs, tol, maxiter, deadline, warm)
-        except Exception as e:
-            self.error = e
-            raise
-
-    def _solve(self, rhs, tol, maxiter, deadline, warm):
+        kept only when its residual beats the zero start."""
         m = self.m
         if maxiter < 0:
             maxiter = m + 100

@@ -100,9 +100,9 @@ class NormalMatrixDevice:
     def from_model(cls, model, device: torch.device,
                    dtype: torch.dtype = torch.float64) -> "NormalMatrixDevice":
         """The operands of `model.A`, built once per (device, dtype) and kept
-        on the model. An entry is tied to the matrix object it was built
-        from: Model.clear() leaves unknown attributes in place, and a solver
-        that loads another LP presolves it into a new matrix."""
+        on the model (Model.clear drops them). An entry is tied to the
+        matrix object it was built from, for a caller that sets model.A
+        itself."""
         cache = model.__dict__.setdefault("_torch_normal", {})
         key = (str(device), dtype)
         entry = cache.get(key)

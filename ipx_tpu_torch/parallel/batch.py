@@ -41,15 +41,14 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ipx_tpu.parallel.batch import BatchedLp
-from ipx_tpu.status import SolveStatus
-
 from .. import backend, kernels
 from ..ops import spmv
 from ..ops.spmv import CsrOperand, NormalMatrixDevice
+from ..status import SolveStatus
 
-__all__ = ["BatchedLp", "BatchedPhase1Solver", "PlainBatchedPhase1Solver",
-           "BatchedScenarioSolver", "batched_cr", "step_batch", "muaff",
+__all__ = ["BatchedLp", "as_batched_lp", "BatchedPhase1Solver",
+           "PlainBatchedPhase1Solver", "BatchedScenarioSolver",
+           "batched_cr", "step_batch", "muaff",
            "ipm_update", "ipm_prologue", "lane_mu", "newton_rhs",
            "newton_recover", "starting_point"]
 
@@ -58,6 +57,30 @@ BARRIER_MIN = 1e-30
 POLL = 5            # trips between host reads of K7's stop flag
 F64, F32 = torch.float64, torch.float32
 RHO = 0.05          # the starting point's dual fix-up (reference batch.py:369)
+
+
+@dataclasses.dataclass
+class BatchedLp:
+    """B scenario LPs min c_k'x st A x + slack = b_k, lb <= x <= ub
+    (shared A and bounds, per-scenario b and c over structural part).
+    The port's copy of ipx_tpu/parallel/batch.py:BatchedLp."""
+    A: sp.csc_matrix
+    b: np.ndarray          # (B, m)
+    c: np.ndarray          # (B, n+m)
+    lb: np.ndarray         # (n+m,)
+    ub: np.ndarray         # (n+m,)
+
+    @property
+    def batch(self) -> int:
+        return self.b.shape[0]
+
+
+def as_batched_lp(lp) -> BatchedLp:
+    """The port's BatchedLp holding the data of `lp`: ipx_tpu's BatchedLp,
+    or any object with the attributes A, b, c, lb and ub."""
+    return BatchedLp(A=sp.csc_matrix(lp.A), b=np.asarray(lp.b),
+                     c=np.asarray(lp.c), lb=np.asarray(lp.lb),
+                     ub=np.asarray(lp.ub))
 
 
 # -- K7: the lane-masked batched CR ----------------------------------------------

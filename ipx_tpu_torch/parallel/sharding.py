@@ -1,0 +1,518 @@
+"""Row-blocked and column-blocked KKT solves on one torch device (port of
+ipx_tpu/parallel/sharding.py).
+
+The reference partitions A's rows into P contiguous blocks over a jax
+device mesh. Each device holds its block's CSR and CSC arrays, and one
+normal-matrix apply is
+
+    u_p   = A_p' v_p                    (local)
+    u     = psum(u_p)                   (all-reduce over the row blocks)
+    out_p = A_p (W_struct u) + W_slack_p v_p      (local)
+
+with the CR's dots psum-reduced and its residual norm pmax-reduced. Phase 2
+splits N into P column blocks and sums N_p (N_p' w) the same way.
+
+Here the P blocks live on the one device that backend.resolve_sharded picks
+for Parameters.device. The program is single-controller, as the
+reference's is; each psum becomes an ordered sum over the P block results
+and each pmax a max. A solve gives what P ranks would, with every sum taken
+in block order p = 0..P-1. Spreading the blocks over several cards waits for
+a four-chip cell. The reference's second mesh axis ("batch") is the column
+range of the (m, B) arrays here and needs nothing.
+
+Kernels, each wrapper with its plain PyTorch version beside it:
+
+* the block products: K1 ``csr_spmv`` and K5 ``csr_spmm`` (csrc/spmv.cu,
+  csrc/spmm.cu) on each block's CSR operands of A_p and A_p', and K4
+  ``nnt`` on each column block of N;
+* K14 ``block_sum`` (csrc/sharded.cu): the psum, out = scale * sum_p
+  part_p in block order;
+* K15 ``sharded_cr_step``: the passes of ShardedDiagCR and
+  sharded_cr_solve (``sharded_cr``);
+* K16 ``sharded_batched_cr_step``: the passes of sharded_batched_cr_solve
+  (``sharded_batched_cr``).
+
+Not carried over: make_row_mesh and its fallback to the CPU's virtual
+devices (the device rule is backend.resolve_sharded's, and a failure
+raises); the padding of the blocks to m_block rows and to a common nonzero
+capacity, LANES and flat_cumsum, which existed for XLA's static shapes
+(blocks here are ragged: the last holds what is left); the static capacity
+of ShardedSplittedNNt, its overflow return and its mode="fill" padding
+(each epoch's blocks are packed as they are).
+"""
+from __future__ import annotations
+
+from time import perf_counter
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from .. import backend, kernels
+from ..ops.device_cr2 import nnt_plain
+from ..ops.spmv import CsrOperand, csr_spmm_plain, csr_spmv_plain
+
+F64 = torch.float64
+POLL = 5            # trips between host reads of K15's and K16's stop flag
+
+__all__ = ["ShardedNormalMatrix", "ShardedDiagCR", "sharded_cr_solve",
+           "sharded_batched_cr_solve", "ShardedSplittedNNt",
+           "ShardedPhase2CR", "block_sum", "block_normal_apply",
+           "sharded_cr", "sharded_batched_cr", "block_nnt"]
+
+
+def block_sizes(total: int, num_blocks: int) -> list:
+    """Sizes of `num_blocks` contiguous blocks of ceil(total / num_blocks),
+    the last holding what is left (possibly none), as the reference cuts
+    rows and columns."""
+    per = -(-total // num_blocks) if total else 1
+    return [max(0, min(per, total - p * per)) for p in range(num_blocks)]
+
+
+def _bounds(sizes) -> list:
+    out, r0 = [], 0
+    for k in sizes:
+        out.append((r0, r0 + k))
+        r0 += k
+    return out
+
+
+def _where(device):
+    """`device`, or by default where backend.resolve_sharded("auto") puts
+    the blocks: the card when one is present, else the CPU."""
+    return backend.resolve_sharded("auto") if device is None else device
+
+
+def _t(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float64)).to(
+        device)
+
+
+# -- K14: the ordered sum over the blocks -------------------------------------
+def block_sum_plain(parts: torch.Tensor, scale=None) -> torch.Tensor:
+    """Plain version of K14: parts[0] + parts[1] + ... in order, times
+    scale."""
+    s = parts[0].clone()
+    for p in range(1, parts.shape[0]):
+        s = s + parts[p]
+    return s * scale if scale is not None else s
+
+
+def block_sum(parts: torch.Tensor, scale=None) -> torch.Tensor:
+    """K14: scale * (((parts[0] + parts[1]) + parts[2]) + ...) for parts of
+    shape (P, *shape); the reference's psum over the mesh axis."""
+    if parts.device.type == "cpu":
+        return block_sum_plain(parts, scale)
+    return kernels.block_sum(parts, scale)
+
+
+# -- the row-blocked normal matrix --------------------------------------------
+class ShardedNormalMatrix:
+    """Row-blocked AI W AI' apply.
+
+    A's rows in num_blocks contiguous blocks (block_sizes); each block holds
+    the CSR operand of A_p (its rows, n columns) for A_p u and that of A_p'
+    (n rows) for A_p' v_p, on `device`, in the format K1 and K5 take.
+    `device` None means the card when one is present, else the CPU."""
+
+    def __init__(self, A: sp.csc_matrix, num_blocks: int,
+                 device: torch.device = None):
+        A = sp.csc_matrix(A)
+        m, n = A.shape
+        self.m, self.n = m, n
+        self.num_blocks = num_blocks
+        self.device = device = _where(device)
+        self.rows = block_sizes(m, num_blocks)
+        self.bounds = _bounds(self.rows)
+        A_csr = A.tocsr()
+        A_csr.sort_indices()
+        self.op_A, self.op_At = [], []
+        for r0, r1 in self.bounds:
+            Ab = A_csr[r0:r1]
+            Abc = Ab.tocsc()
+            Abc.sort_indices()
+            self.op_A.append(CsrOperand(Ab.indptr, Ab.indices, Ab.data, n,
+                                        device, F64))
+            # the CSC arrays of A_p are the CSR arrays of A_p'
+            self.op_At.append(CsrOperand(Abc.indptr, Abc.indices, Abc.data,
+                                         r1 - r0, device, F64))
+
+    def apply(self, W_struct, W_slack, v):
+        """C v for v (m,) or (m, B) with W_struct (n,) or (n, B) and W_slack
+        of v's shape: the reference's block_normal_apply(_batched) on every
+        block with its psum."""
+        return block_normal_apply(self, W_struct, W_slack, v)
+
+
+def _block_apply_plain(snm, W_struct, W_slack, v, prod):
+    parts = torch.stack([prod(op, v[r0:r1])
+                         for op, (r0, r1) in zip(snm.op_At, snm.bounds)])
+    u = block_sum_plain(parts, W_struct)
+    return torch.cat([prod(op, u) + W_slack[r0:r1] * v[r0:r1]
+                      for op, (r0, r1) in zip(snm.op_A, snm.bounds)])
+
+
+def block_normal_apply(snm: ShardedNormalMatrix, W_struct, W_slack, v):
+    """C v over the row blocks: per block A_p' v_p (K1 or K5), their ordered
+    sum scaled by W_struct (K14), per block A_p u + W_slack_p v_p (K1 or
+    K5). v is (m,) or (m, B)."""
+    if v.device.type == "cpu":
+        return _block_apply_plain(snm, W_struct, W_slack, v,
+                                  csr_spmm_plain if v.dim() == 2
+                                  else csr_spmv_plain)
+    return kernels.block_normal_apply(snm.op_At, snm.op_A, W_struct, W_slack,
+                                      v)
+
+
+# -- K15: the row-blocked CR --------------------------------------------------
+def sharded_cr_plain(snm, W_struct, W_slack, invd, resscale, rhs, tol: float,
+                     maxiter: int, ladder: bool = True):
+    """Plain version of K15: the reference's cr_local loop of ShardedDiagCR
+    (`ladder`, with the scaled norm) or of sharded_cr_solve (resscale None),
+    each dot the ordered sum of the block dots, the loop test on the host.
+    Returns (y, iterations, error code, residual norm at the stop)."""
+    bounds = snm.bounds
+
+    def dot(a, b):          # the psum of the block dots
+        total = None
+        for r0, r1 in bounds:
+            d = torch.dot(a[r0:r1], b[r0:r1])
+            total = d if total is None else total + d
+        return total
+
+    def C(v):
+        out = _block_apply_plain(snm, W_struct, W_slack, v, csr_spmv_plain)
+        return out, dot(v, out)
+
+    def resnorm_of(r):      # the pmax of the block maxima
+        return torch.max(torch.abs(resscale * r if resscale is not None
+                                   else r))
+
+    zero = torch.zeros((), dtype=F64, device=rhs.device)
+    y = torch.zeros_like(rhs)
+    r = rhs.clone()
+    s = r * invd
+    cs, cdot = C(s)
+    d, cd = s, cs
+    it, err = 0, 0
+    while bool(resnorm_of(r) > tol) and it < maxiter and err == 0:
+        pcd = cd * invd
+        pdot = dot(cd, pcd)
+        alpha = cdot / pdot
+        ok = True
+        if ladder:
+            if cdot <= 0.0:
+                err = 202
+            if pdot <= 0.0:
+                err = 203
+            if not bool(torch.isfinite(alpha)):
+                err = 205
+            ok = err == 0
+            if not ok:
+                alpha = zero
+        y = y + alpha * d
+        r = r - alpha * cd
+        s = s - alpha * pcd
+        cs, cdot_new = C(s)
+        if ladder and ok and not bool(torch.isfinite(cdot_new)):
+            err = 205
+        beta = cdot_new / cdot if ok else zero
+        d = s + beta * d
+        cd = cs + beta * cd
+        cdot = cdot_new
+        it += 1
+    return y, it, err, float(resnorm_of(r))
+
+
+def _run_on_card(cr, maxiter: int, tol: float):
+    """Drives a K15 or K16 step object (kernels.ShardedCrStep or
+    ShardedBatchedCrStep) on the card: its INIT pass, the normal apply with
+    the block products, its START pass, then its TRIP until the stop flag,
+    which the host reads every POLL trips. Returns cr.result()."""
+    cr.launch(cr.INIT, 0, maxiter, tol)
+    cr.normal_apply()
+    cr.launch(cr.START, 0, maxiter, tol)
+    k = 0
+    while True:
+        for phase in cr.TRIP:
+            if phase == cr.APPLY:
+                cr.normal_apply()
+            else:
+                cr.launch(phase, k, maxiter, tol)
+        k += 1
+        # trip `maxiter` always stops, so the loop ends by trip maxiter + 1
+        if (k % POLL == 0 or k > maxiter) and cr.done():
+            return cr.result()
+
+
+def sharded_cr(snm, W_struct, W_slack, invd, resscale, rhs, tol: float,
+               maxiter: int, ladder: bool = True):
+    """K15: CR on (A W A') y = rhs over the row blocks with preconditioner
+    1/invd, on the device of `rhs`; float64 tensors. Returns (y,
+    iterations, error code, residual norm at the stop)."""
+    if rhs.device.type == "cpu":
+        return sharded_cr_plain(snm, W_struct, W_slack, invd, resscale, rhs,
+                                tol, maxiter, ladder)
+    return _run_on_card(kernels.ShardedCrStep(
+        snm.op_At, snm.op_A, W_struct, W_slack, invd, resscale, rhs, ladder),
+        maxiter, tol)
+
+
+class ShardedDiagCR:
+    """Phase-1 KKT CR with A's rows in blocks, reachable from LpSolver via
+    Parameters.shards (SURVEY §2.3: the model-parallel axis). Diagonally
+    preconditioned, in float64 (no mixed precision, as in the reference).
+    The operands are built once per model; weights, diagonal, residual
+    scaling and right-hand side are uploaded per solve.
+
+    Termination matches the KKT-solver contract: scaled inf-norm
+    ||resscale . r||_inf <= tol (reference: src/kkt_solver.h:11-27), with
+    the error ladder 202 (cdot <= 0), 203 (pdot <= 0), 205 (alpha or the
+    next cdot not finite), the iterate frozen after an error. Counters:
+    solves and iterations. `device` as for ShardedNormalMatrix."""
+
+    def __init__(self, A: sp.csc_matrix, num_blocks: int,
+                 device: torch.device = None):
+        self.snm = ShardedNormalMatrix(A, num_blocks, device)
+        self.device = self.snm.device
+        self.solves = 0
+        self.iterations = 0
+
+    def solve(self, W_struct, W_slack, diag, resscale, rhs, tol: float,
+              maxiter: int):
+        """Returns (y (m,), iters, errflag), errflag 201 on the iteration
+        limit; maxiter < 0 means m + 100."""
+        snm = self.snm
+        if maxiter < 0:
+            maxiter = snm.m + 100
+        dev = self.device
+        y, iters, err, resnorm = sharded_cr(
+            snm, _t(W_struct, dev), _t(W_slack, dev),
+            _t(1.0 / np.asarray(diag, dtype=np.float64), dev),
+            _t(resscale, dev), _t(rhs, dev), tol, maxiter, ladder=True)
+        # success only on a finite residual within tolerance; a NaN residual
+        # must never read as converged (errflag policy per ADVICE r3)
+        if err == 0 and not (np.isfinite(resnorm) and resnorm <= tol):
+            err = 205 if not np.isfinite(resnorm) else 201
+        self.solves += 1
+        self.iterations += iters
+        return y.cpu().numpy(), iters, err
+
+
+def sharded_cr_solve(snm: ShardedNormalMatrix, W_struct, W_slack, diag, rhs,
+                     tol: float, maxiter: int):
+    """Diagonal-preconditioned CR on the normal equations over the row
+    blocks, stopping on the unscaled ||r||_inf, with no error ladder.
+    Returns (y, iters) with y on the host."""
+    dev = snm.device
+    y, iters, _, _ = sharded_cr(
+        snm, _t(W_struct, dev), _t(W_slack, dev),
+        _t(1.0 / np.asarray(diag, dtype=np.float64), dev), None,
+        _t(rhs, dev), tol, maxiter, ladder=False)
+    return y.cpu().numpy(), iters
+
+
+# -- K16: the row-blocked batched CR ------------------------------------------
+def sharded_batched_cr_plain(snm, W_struct, W_slack, invd, RHS, tol: float,
+                             maxiter: int):
+    """Plain version of K16: the reference's lane-masked cr_local of
+    sharded_batched_cr_solve, each column dot the ordered sum of the block
+    column sums, the loop test on the host. Returns (Y, trips)."""
+    bounds = snm.bounds
+
+    def dots(X, Z):         # the psum of the block column dots
+        total = None
+        for r0, r1 in bounds:
+            d = torch.sum(X[r0:r1] * Z[r0:r1], dim=0)
+            total = d if total is None else total + d
+        return total
+
+    def C(V):
+        out = _block_apply_plain(snm, W_struct, W_slack, V, csr_spmm_plain)
+        return out, dots(V, out)
+
+    Y = torch.zeros_like(RHS)
+    R = RHS.clone()
+    S = R * invd
+    CS, cdot = C(S)
+    D, CD = S, CS
+    done = torch.zeros(RHS.shape[1], dtype=torch.bool, device=RHS.device)
+    it = 0
+    while not bool(done.all()) and it < maxiter:
+        done = done | (torch.amax(torch.abs(R), dim=0) <= tol)
+        PCD = CD * invd
+        pdot = dots(CD, PCD)
+        alpha = torch.where(done, 0.0,
+                            cdot / torch.where(pdot == 0.0, 1.0, pdot))
+        Y = Y + alpha * D
+        R = R - alpha * CD
+        S = S - alpha * PCD
+        CS, cdot_new = C(S)
+        beta = torch.where(done, 0.0,
+                           cdot_new / torch.where(cdot == 0.0, 1.0, cdot))
+        D = torch.where(done, D, S + beta * D)
+        CD = torch.where(done, CD, CS + beta * CD)
+        cdot = torch.where(done, cdot, cdot_new)
+        it += 1
+    return Y, it
+
+
+def sharded_batched_cr(snm, W_struct, W_slack, invd, RHS, tol: float,
+                       maxiter: int):
+    """K16: the lane-masked CR over the row blocks for RHS (m, B), with
+    per-scenario W_struct (n, B), W_slack and invd (m, B), float64 on the
+    device of RHS. Returns (Y, trips)."""
+    if RHS.device.type == "cpu":
+        return sharded_batched_cr_plain(snm, W_struct, W_slack, invd, RHS,
+                                        tol, maxiter)
+    return _run_on_card(kernels.ShardedBatchedCrStep(
+        snm.op_At, snm.op_A, W_struct, W_slack, invd, RHS), maxiter, tol)
+
+
+def sharded_batched_cr_solve(snm: ShardedNormalMatrix, W_struct, W_slack,
+                             diag, RHS, tol: float, maxiter: int):
+    """Scenario-batched, row-blocked CR (the composition of the
+    data-parallel and model-parallel axes, SURVEY §2.3) with per-scenario
+    weights W_struct (n, B), W_slack, diag and RHS (m, B). Converged
+    scenarios freeze while the rest keep iterating. On one device the
+    reference's batch axis is the column range of the (m, B) arrays, so it
+    takes no mesh. Returns (Y (m, B) on the host, iters)."""
+    dev = snm.device
+    Y, iters = sharded_batched_cr(
+        snm, _t(W_struct, dev), _t(W_slack, dev),
+        _t(1.0 / np.asarray(diag, dtype=np.float64), dev), _t(RHS, dev),
+        tol, maxiter)
+    return Y.cpu().numpy(), iters
+
+
+# -- phase 2: the column-blocked N N' -----------------------------------------
+def block_nnt_plain(blocks, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the column-blocked N N': K4's plain version per
+    block and K14's over the blocks."""
+    return block_sum_plain(torch.stack([nnt_plain(Nt, N, w)
+                                        for Nt, N in blocks]))
+
+
+def block_nnt(blocks, w: torch.Tensor) -> torch.Tensor:
+    """sum_p N_p (N_p' w) in block order: K4 per column block (N_p' as the
+    CSR operand Nt) and K14 over the blocks."""
+    if w.device.type == "cpu":
+        return block_nnt_plain(blocks, w)
+    parts = torch.empty((len(blocks), w.numel()), dtype=F64, device=w.device)
+    for (Nt, N), part in zip(blocks, parts):
+        kernels.nnt(Nt, N, w, out=part)
+    return kernels.block_sum(parts)
+
+
+class ShardedSplittedNNt:
+    """Column-blocked N N' apply for the PHASE-2 splitted operator
+    (counterpart of the NNt pass in reference: src/splitted_normal_matrix.cc
+    :90-117): N's columns in num_blocks contiguous blocks (block_sizes),
+    each with the CSR operands of N_p' and N_p on `device`, and apply(w) =
+    sum_p N_p (N_p' w) in block order. The B / B' triangular solves stay
+    on the host (sequential by nature), so the phase-2 CR is host solve ->
+    device N N' -> host solve per iteration. `applies` counts the applies.
+    `device` as for ShardedNormalMatrix.
+    """
+
+    def __init__(self, m: int, n: int, num_blocks: int,
+                 device: torch.device = None):
+        self.m = m
+        self.n = n
+        self.num_blocks = num_blocks
+        self.device = _where(device)
+        self._blocks = None
+        self.applies = 0
+
+    def set_operand(self, N) -> None:
+        """Packs a fresh epoch's N (m x n) into its column blocks, as they
+        are: there is no static capacity to overflow."""
+        N = sp.csc_matrix(N)
+        N.sort_indices()
+        blocks = []
+        for c0, c1 in _bounds(block_sizes(N.shape[1], self.num_blocks)):
+            Nb = N[:, c0:c1]
+            Nr = Nb.tocsr()
+            # the CSC arrays of N_p are the CSR arrays of N_p'
+            blocks.append((CsrOperand(Nb.indptr, Nb.indices, Nb.data, self.m,
+                                      self.device, F64),
+                           CsrOperand(Nr.indptr, Nr.indices, Nr.data,
+                                      c1 - c0, self.device, F64)))
+        self._blocks = blocks
+
+    def apply(self, w: np.ndarray) -> np.ndarray:
+        self.applies += 1
+        return block_nnt(self._blocks, _t(w, self.device)).cpu().numpy()
+
+
+class ShardedPhase2CR:
+    """Phase-2 CR with the NNt product over the column blocks and the B/B'
+    solves on host. Same contract as the native phase-2 engine
+    (inf-norm termination, breakdown codes 201/202/205); slot space with
+    BASIC_FREE zeroed. The port's copy of ipx_tpu/parallel/sharding.py:
+    ShardedPhase2CR."""
+
+    def __init__(self, nnt: ShardedSplittedNNt):
+        self.nnt = nnt
+        self.time_B = 0.0
+        self.time_Bt = 0.0
+        self.time_NNt = 0.0
+
+    def _apply(self, splitted, v):
+        s = splitted.uscale
+        t0 = perf_counter()
+        w = splitted._basis.solve_dense(v / s, "T")
+        self.time_Bt += perf_counter() - t0
+        t0 = perf_counter()
+        nn = self.nnt.apply(w)
+        self.time_NNt += perf_counter() - t0
+        t0 = perf_counter()
+        lhs = splitted._basis.solve_dense(nn, "N") / s
+        self.time_B += perf_counter() - t0
+        lhs = lhs + v
+        if splitted.free_positions.size:
+            lhs[splitted.free_positions] = 0.0
+        return lhs
+
+    def solve(self, splitted, rhs: np.ndarray, tol: float, maxiter: int):
+        """Returns (lhs, iters, errflag)."""
+        m = rhs.size
+        if maxiter < 0:
+            maxiter = m + 100
+        lhs = np.zeros(m)
+        r = rhs.copy()
+        Cr = self._apply(splitted, r)
+        cdot = float(r @ Cr)
+        step = r.copy()
+        Cstep = Cr.copy()
+        denom = float(Cr @ Cr)
+        it = 0
+        err = 0
+        while True:
+            resnorm = float(np.max(np.abs(r))) if m else 0.0
+            if np.isfinite(resnorm) and resnorm <= tol:
+                break
+            if it >= maxiter:
+                err = 201
+                break
+            if not np.isfinite(resnorm):
+                err = 205
+                break
+            if cdot <= 0.0:
+                err = 202
+                break
+            alpha = cdot / denom
+            if not np.isfinite(alpha):
+                err = 205
+                break
+            lhs += alpha * step
+            r -= alpha * Cstep
+            Cr = self._apply(splitted, r)
+            cdot_new = float(r @ Cr)
+            beta = cdot_new / cdot
+            step = r + beta * step
+            Cstep = Cr + beta * Cstep
+            denom = float(Cstep @ Cstep)
+            cdot = cdot_new
+            it += 1
+        return lhs, it, err

@@ -33,7 +33,8 @@ from ipx_tpu_torch.ops import spmv
 from ipx_tpu_torch.parallel import batch as port
 
 from lp_fixtures import random_lp
-from test_batched import make_batch
+from test_batched import make_batch    # ipx_tpu's BatchedLp: the port
+                                        # gets port.as_batched_lp of it
 
 CPU = torch.device("cpu")
 RTOL = {"float64": 1e-12, "float32": 1e-5}
@@ -147,7 +148,8 @@ def test_cr_solve_f64_matches_reference():
     r = ref.BatchedPhase1Solver(blp, cr_dtype="f64")
     Y_r, t_r = r._cr_solve(*(jnp.asarray(x) for x in
                              (W, diag, resscale, rhs, tol)))
-    p = port.BatchedPhase1Solver(blp, cr_dtype="f64", device="torch_cpu")
+    p = port.BatchedPhase1Solver(port.as_batched_lp(blp), cr_dtype="f64",
+                                 device="torch_cpu")
     Y_p, t_p = p._cr_solve(*(_t(x) for x in (W, diag, resscale, rhs, tol)))
     assert t_p > 0 and abs(t_p - int(t_r)) <= 2
     assert np.all(_rel(Y_p, Y_r, axis=0) <= 1e-8)
@@ -170,7 +172,8 @@ def test_cr_solve_f32_matches_reference_f32():
                                  (W, diag, resscale, rhs, tol)))
     finally:
         r._ops = None
-    p = port.BatchedPhase1Solver(blp, cr_dtype="f32", device="torch_cpu")
+    p = port.BatchedPhase1Solver(port.as_batched_lp(blp), cr_dtype="f32",
+                                 device="torch_cpu")
     Y_p, t_p = p._cr_solve(*(_t(x) for x in (W, diag, resscale, rhs, tol)))
     assert Y_p.dtype == torch.float64
     for Y in (np.asarray(Y_r), _np(Y_p)):
@@ -315,7 +318,8 @@ def test_starting_point_and_one_step():
     within 1e-8 of each array's largest entry (measured: 1e-15)."""
     _, blp = make_batch(B=4)
     r = ref.BatchedPhase1Solver(blp, maxiter=60)
-    p = port.BatchedPhase1Solver(blp, maxiter=60, device="torch_cpu")
+    p = port.BatchedPhase1Solver(port.as_batched_lp(blp), maxiter=60,
+                                 device="torch_cpu")
     S_r = r._start_fn(r._ops_tree, 0)
     S_p = p._starting_point()
     assert S_p["cr"] == int(S_r["cr"])
@@ -338,8 +342,8 @@ def test_batched_matches_reference():
     differ by up to 3)."""
     _, blp = make_batch(B=4)
     want = ref.BatchedPhase1Solver(blp, maxiter=60).solve()
-    got = port.BatchedPhase1Solver(blp, maxiter=60, device="torch_cpu"
-                                   ).solve()
+    got = port.BatchedPhase1Solver(port.as_batched_lp(blp), maxiter=60,
+                                   device="torch_cpu").solve()
     assert np.all(got["done"])
     assert np.all(np.abs(got["pobj"] - want["pobj"])
                   <= 1e-8 * np.abs(want["pobj"]))
@@ -427,7 +431,7 @@ def test_batched_device_choice(monkeypatch):
     """"cuda" raises without a card, "cpu" and "torch_cpu" are the plain
     versions on the CPU, "auto" is the CPU without a card; cr_dtype "auto"
     is float64 there; phase2_polish=True is accepted, "auto" is off."""
-    _, blp = make_batch(B=2)
+    blp = port.as_batched_lp(make_batch(B=2)[1])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         port.BatchedPhase1Solver(blp, device="cuda")
@@ -493,7 +497,7 @@ def test_batch_module_imports_no_jax():
 def test_plain_solver_is_the_cpu_path():
     """PlainBatchedPhase1Solver, the reference of the card tests, computes
     on the CPU exactly what BatchedPhase1Solver does there."""
-    _, blp = make_batch(B=2)
+    blp = port.as_batched_lp(make_batch(B=2)[1])
     got = port.PlainBatchedPhase1Solver(blp, maxiter=5, device="cpu").solve()
     want = port.BatchedPhase1Solver(blp, maxiter=5, device="cpu").solve()
     for k in ("X", "Y", "ZL", "ZU", "iters", "pobj"):

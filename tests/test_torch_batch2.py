@@ -3,9 +3,9 @@ the CPU, with the plain versions of the step's kernels, against ipx_tpu:
 test_batch2.py's polish tests ported to the port, at their tolerances.
 
 The polish's CR (SharedBasisBatchedCR, with the low-rank correction) is
-ipx_tpu's, imported; its step is the port's, so its iterates follow the
-reference's up to the rounding of the step's sums, which the inexact CR
-lets grow. The objectives are compared as test_batch2.py compares them:
+the port's copy of ipx_tpu's host code; its step is the port's, so its
+iterates follow the reference's up to the rounding of the step's sums,
+which the inexact CR lets grow. The objectives are compared as test_batch2.py compares them:
 the polish pipeline to 1e-5 of the per-scenario solves' objectives, the
 scenario solver's vertices to 1e-6.
 """
@@ -17,7 +17,7 @@ import torch
 import ipx_tpu
 import ipx_tpu_torch
 from ipx_tpu.parallel import batch as ref
-from ipx_tpu.testgen import load_into_solver, transportation
+from ipx_tpu_torch.testgen import load_into_solver, transportation
 from ipx_tpu_torch.parallel import batch as port
 from ipx_tpu_torch.parallel import batch2 as port2
 
@@ -146,7 +146,6 @@ def test_polish_counts_what_the_reference_let_pass(monkeypatch, fault):
     reference: the port counts them (correction_failures,
     refresh_failures) and the polish goes on without the correction or
     with the previous basis."""
-    from ipx_tpu.parallel import batch2 as ref2
     data = transportation(20, 30, 0.2, seed=4)
     blp = _transport_batch(data, 2, 0.98, 1.03, seed=5)
     state = port.BatchedPhase1Solver(
@@ -162,7 +161,7 @@ def test_polish_counts_what_the_reference_let_pass(monkeypatch, fault):
     if fault == "cholesky":
         def singular(G):
             raise np.linalg.LinAlgError("not positive definite")
-        monkeypatch.setattr(ref2.np.linalg, "cholesky", singular)
+        monkeypatch.setattr(port2.np.linalg, "cholesky", singular)
         polish._use_correction = True
         # a nonbasic weight far above the rest makes its column an outlier
         m, n = blp.A.shape

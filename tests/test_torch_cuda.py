@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K13 against their plain PyTorch versions on the card,
+"""The CUDA kernels K1-K16 against their plain PyTorch versions on the card,
 at small shapes with the edge cases the main path's shapes do not show
 (empty rows, rows longer than a warp, partial blocks, lane counts that
 allow no vector loads, lanes past one block).
@@ -183,7 +183,7 @@ def test_refused_launch_raises(dev):
         kernels._raise_if(err, "csr_spmv")
 
 
-# -- the batched kernels K5-K9 --------------------------------------------------
+# -- the batched kernels K5-K9 ------------------------------------------------
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B", [1, 3, 4, 300])
 def test_csr_spmm(dev, dtype, B):
@@ -338,7 +338,7 @@ def test_batched_stage_matches_plain(dev):
     rounding difference that moves its last trip moves the trajectory, and
     per-lane step counts differ by up to 8 between ipx_tpu's and the
     port's runs of one batch on the CPU."""
-    from ipx_tpu_torch.host import testgen as tg
+    from ipx_tpu_torch import testgen as tg
 
     data = tg.transportation(30, 45, 0.1, seed=3)
     rng = np.random.default_rng(0)
@@ -383,7 +383,7 @@ def test_batched_launcher_checks_raise(dev):
                                        device=dev).t(), finl, finu)
 
 
-# -- the rest of the batched step, K10-K13 (float64) ------------------------------
+# -- the rest of the batched step, K10-K13 (float64) --------------------------
 def _iterate(dev, B, n=400, m=150, seed=13):
     """A seeded batched iterate over a random A: bounds finite below only,
     above only, both and neither, XL / XU infinite where the bound is, two
@@ -550,12 +550,12 @@ def test_starting_point(dev):
     assert bool(L["fixup"][3] != 0)
 
 
-# -- the shared-basis polish (parallel/batch2.py) -------------------------------------
+# -- the shared-basis polish (parallel/batch2.py) -----------------------------
 def _polish_setup(B=4):
     """test_batch2.py's pipeline LP: a loose batched phase 1 on the CPU and
     the factorized mean-scenario basis."""
     from ipx_tpu_torch import LpSolver, Parameters
-    from ipx_tpu_torch.host import testgen as tg
+    from ipx_tpu_torch import testgen as tg
     data = tg.transportation(50, 100, 0.06, seed=12)
     m = data["num_constr"]
     rng = np.random.default_rng(6)
@@ -623,7 +623,7 @@ def test_scenario_solver_polish_on_the_card(dev):
     """BatchedScenarioSolver(phase2_polish=True) on device="cuda": every
     scenario at status 1000 with the host solve's objective to 1e-8."""
     from ipx_tpu_torch import LpSolver, Parameters
-    from ipx_tpu_torch.host import testgen as tg
+    from ipx_tpu_torch import testgen as tg
     data = tg.transportation(40, 80, 0.08, seed=2)
     m = data["num_constr"]
     rng = np.random.default_rng(7)
@@ -641,3 +641,178 @@ def test_scenario_solver_polish_on_the_card(dev):
         assert host.solve() == 1000 and st == 1000, k
         want = host.get_info().objval
         assert abs(info.objval - want) <= 1e-8 * max(1.0, abs(want)), k
+
+
+# -- the sharded solves (parallel/sharding.py): K14-K16 -----------------------
+def _sharded_inputs(dev, m, n, seed, B=None, P=4):
+    """A row-blocked operator on the card and seeded float64 inputs, as
+    tests/test_sharded.py makes them."""
+    from ipx_tpu_torch.parallel import sharding
+    A, rng = _matrix(m, n, 0.05, seed)
+    shape = (n + m,) if B is None else (n + m, B)
+    W = rng.uniform(0.5, 2.0, size=shape)
+    A2 = A.copy()
+    A2.data **= 2
+    diag = np.asarray(A2 @ W[:n]) + W[n:]
+    rhs = rng.standard_normal((m,) + shape[1:])
+    t = lambda x: torch.from_numpy(np.asarray(x, dtype=np.float64)).to(dev)
+    snm = sharding.ShardedNormalMatrix(A, P, dev)
+    return (A, snm, t(W[:n]), t(W[n:]), t(1.0 / diag),
+            t(1.0 / np.sqrt(W[n:])), t(rhs))
+
+
+@pytest.mark.parametrize("P", [1, 3, 4])
+def test_block_sum_bit_for_bit(dev, P):
+    """K14 equals the plain ordered sum bit for bit, scaled or not, and
+    counts its launches."""
+    from ipx_tpu_torch.parallel import sharding
+    rng = np.random.default_rng(P)
+    parts = torch.from_numpy(rng.standard_normal((P, 1001, 3))).to(dev)
+    scale = torch.from_numpy(rng.standard_normal((1001, 3))).to(dev)
+    before = kernels.LAUNCHES["block_sum"]
+    for s in (scale, None):
+        got = sharding.block_sum(parts, s)
+        assert torch.equal(got, sharding.block_sum_plain(parts, s))
+    assert kernels.LAUNCHES["block_sum"] == before + 2
+
+
+@pytest.mark.parametrize("m, B", [(613, None), (613, 5), (5, None), (5, 4)])
+def test_block_normal_apply_on_card(dev, m, B):
+    """K1 or K5 per row block and K14: 1e-12 of the plain version, a
+    ragged last block and (m = 5 over 4 blocks) an empty one."""
+    from ipx_tpu_torch.parallel import sharding
+    _, snm, Ws, Wl, _, _, v = _sharded_inputs(dev, m, 300, seed=7, B=B)
+    got = sharding.block_normal_apply(snm, Ws, Wl, v)
+    want = sharding._block_apply_plain(
+        snm, Ws, Wl, v, spmv.csr_spmm_plain if B else spmv.csr_spmv_plain)
+    assert _rel(got, want) <= 1e-12
+
+
+@pytest.mark.parametrize("ladder", [True, False])
+def test_sharded_cr_per_trip_and_converged(dev, ladder):
+    """K15 against its plain version on the card: after each of trips 1-5
+    the iterate within 1e-12, the same trip count and error code; solved to
+    1e-10, the same stop within 2 trips; two runs agree bit for bit."""
+    from ipx_tpu_torch.parallel import sharding
+    _, snm, Ws, Wl, invd, rs, rhs = _sharded_inputs(dev, 613, 900, seed=8)
+    rs = rs if ladder else None
+    before = kernels.LAUNCHES["sharded_cr_step"]
+    for trips in range(1, 6):
+        y, it, err, _ = sharding.sharded_cr(snm, Ws, Wl, invd, rs, rhs,
+                                            1e-14, trips, ladder)
+        y_p, it_p, err_p, _ = sharding.sharded_cr_plain(
+            snm, Ws, Wl, invd, rs, rhs, 1e-14, trips, ladder)
+        assert it == it_p == trips and err == err_p == 0
+        assert _rel(y, y_p) <= 1e-12, trips
+    assert kernels.LAUNCHES["sharded_cr_step"] > before
+    y, it, err, res = sharding.sharded_cr(snm, Ws, Wl, invd, rs, rhs, 1e-10,
+                                          2000, ladder)
+    y2, _, _, _ = sharding.sharded_cr(snm, Ws, Wl, invd, rs, rhs, 1e-10,
+                                      2000, ladder)
+    _, it_p, err_p, _ = sharding.sharded_cr_plain(snm, Ws, Wl, invd, rs, rhs,
+                                                  1e-10, 2000, ladder)
+    assert err == err_p == 0 and abs(it - it_p) <= 2 and res <= 1e-10
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.parametrize("case, errflag", [("negative_weight", 203),
+                                           ("nan_rhs", 0)])
+def test_sharded_cr_ladder_on_card(dev, case, errflag):
+    """K15's ladder: negative weights stop the first trip with 203 and y
+    unchanged; a NaN residual stops the loop before it (the post-check of
+    ShardedDiagCR then gives 205), as the plain version does."""
+    from ipx_tpu_torch.parallel import sharding
+    _, snm, Ws, Wl, invd, rs, rhs = _sharded_inputs(dev, 613, 900, seed=9)
+    if case == "negative_weight":
+        Ws, Wl, invd = -Ws, -Wl, -invd
+    else:
+        rhs[7] = float("nan")
+    got = sharding.sharded_cr(snm, Ws, Wl, invd, rs, rhs, 1e-10, 100)
+    want = sharding.sharded_cr_plain(snm, Ws, Wl, invd, rs, rhs, 1e-10, 100)
+    assert got[1:3] == want[1:3] == ((1, errflag) if errflag else (0, 0))
+    assert torch.equal(got[0], want[0])
+
+
+def test_sharded_batched_cr_per_trip_and_converged(dev):
+    """K16 against its plain version on the card, B = 5 with a lane that is
+    done at once: after each of trips 1-5 Y within 1e-12 and the same trip
+    count; solved to 1e-10, every lane's normal-equation residual within
+    1e-9, the same stop within 2 trips, bit for bit from run to run."""
+    from ipx_tpu_torch.parallel import sharding
+    A, snm, Ws, Wl, invd, _, R = _sharded_inputs(dev, 613, 900, seed=10, B=5)
+    R[:, 2] = 0.0
+    before = kernels.LAUNCHES["sharded_batched_cr_step"]
+    for trips in range(1, 6):
+        Y, it = sharding.sharded_batched_cr(snm, Ws, Wl, invd, R, 1e-14,
+                                            trips)
+        Y_p, it_p = sharding.sharded_batched_cr_plain(snm, Ws, Wl, invd, R,
+                                                      1e-14, trips)
+        assert it == it_p == trips
+        assert _rel(Y, Y_p) <= 1e-12, trips
+        assert bool((Y[:, 2] == 0).all())
+    assert kernels.LAUNCHES["sharded_batched_cr_step"] > before
+    Y, it = sharding.sharded_batched_cr(snm, Ws, Wl, invd, R, 1e-10, 2000)
+    Y2, _ = sharding.sharded_batched_cr(snm, Ws, Wl, invd, R, 1e-10, 2000)
+    _, it_p = sharding.sharded_batched_cr_plain(snm, Ws, Wl, invd, R, 1e-10,
+                                                2000)
+    assert abs(it - it_p) <= 2 and torch.equal(Y, Y2)
+    res = R - sharding._block_apply_plain(snm, Ws, Wl, Y,
+                                          spmv.csr_spmm_plain)
+    assert float(res.abs().max()) <= 1e-9 * max(1.0, float(R.abs().max()))
+
+
+def test_sharded_nnt_on_card(dev):
+    """K4 per column block and K14 against the plain version: 1e-12."""
+    from ipx_tpu_torch.parallel import sharding
+    A, rng = _matrix(400, 1001, 0.02, seed=11)
+    nnt = sharding.ShardedSplittedNNt(400, 1001, 4, dev)
+    nnt.set_operand(A)
+    w = rng.standard_normal(400)
+    before = kernels.LAUNCHES["nnt"]
+    got = nnt.apply(w)
+    assert kernels.LAUNCHES["nnt"] == before + 4
+    want = sharding.block_nnt_plain(nnt._blocks, torch.from_numpy(w).to(dev))
+    assert _rel(torch.from_numpy(got), want) <= 1e-12
+
+
+def test_sharded_blocks_default_to_the_card(dev):
+    """With no device given, ShardedDiagCR and ShardedSplittedNNt put their
+    blocks on the card, and a ShardedDiagCR solve launches K15."""
+    from ipx_tpu_torch.parallel import sharding
+    A, rng = _matrix(613, 900, 0.05, seed=12)
+    cr = sharding.ShardedDiagCR(A, 4)
+    assert cr.device.type == "cuda" and cr.snm.device.type == "cuda"
+    assert sharding.ShardedSplittedNNt(613, 900, 4).device.type == "cuda"
+    W = rng.uniform(0.5, 2.0, 900 + 613)
+    A2 = A.copy()
+    A2.data **= 2
+    before = kernels.LAUNCHES["sharded_cr_step"]
+    _, it, err = cr.solve(W[:900], W[900:], A2 @ W[:900] + W[900:],
+                          1.0 / np.sqrt(W[900:]), rng.standard_normal(613),
+                          1e-10, 2000)
+    assert err == 0 and it > 0
+    assert kernels.LAUNCHES["sharded_cr_step"] > before
+
+
+@pytest.mark.parametrize("device", ["cuda", "auto"])
+def test_sharded_lp_solve_on_card(dev, device):
+    """LpSolver(shards=4) with device "cuda" (row-blocked phase 1, K4 phase
+    2) and "auto" (row-blocked phase 1 and column-blocked N N' on the
+    card): status 1000, the host solve's objective to 1e-8, K14 and K15
+    launched."""
+    from ipx_tpu_torch import LpSolver, Parameters
+    from ipx_tpu_torch import testgen as tg
+    data = tg.transportation(60, 90, 0.05, seed=3)
+    host = LpSolver(Parameters(display=0, device="cpu"))
+    assert tg.load_into_solver(data, host) == 0 and host.solve() == 1000
+    s = LpSolver(Parameters(display=0, device=device, shards=4))
+    assert tg.load_into_solver(data, s) == 0
+    kernels.reset_launches()
+    assert s.solve() == 1000
+    want = host.get_info().objval
+    assert abs(s.get_info().objval - want) <= 1e-8 * abs(want)
+    assert kernels.LAUNCHES["block_sum"] > 0
+    assert kernels.LAUNCHES["sharded_cr_step"] > 0
+    assert s.model._sharded_cr[1].device.type == "cuda"
+    if device == "auto":
+        assert s.model._sharded_nnt[1].applies > 0

@@ -7,42 +7,55 @@ solutions within 1e-8 relative (the SpMVs sum in another order, which moves
 the last CR iterations); with mixed precision both meet the f64 residual
 tolerance and the total iteration counts agree within 10%, because float32
 rounding moves the refinement passes.
+
+Each package gets its own presolved Model of the same LP, built from the
+same numpy arrays.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from ipx_tpu.control import Control
-from ipx_tpu.model import Model
 from ipx_tpu.ops import device_cr as ref
-from ipx_tpu.presolve import Presolver
-from ipx_tpu.sparse import normal_diag
-from ipx_tpu.status import Errflag
-from ipx_tpu.user_model import UserModel
 from ipx_tpu_torch.ops import device_cr as port
+from ipx_tpu_torch.sparse import normal_diag
+from ipx_tpu_torch.status import Errflag
 
 from lp_fixtures import random_lp
 
 CPU = torch.device("cpu")
 
 
-def _system(m=50, n=70, seed=5):
-    a = random_lp(m, n, density=0.2, seed=seed)
-    um = UserModel()
+def presolved_model(pkg: str, a: dict):
+    """The presolved Model of LP data `a` (random_lp's dict), built by the
+    host modules of package `pkg` ("ipx_tpu" or "ipx_tpu_torch")."""
+    mod = {name: importlib.import_module(f"{pkg}.{name}")
+           for name in ("control", "model", "presolve", "user_model")}
+    um = mod["user_model"].UserModel()
     assert um.load(a["num_constr"], a["num_var"], a["Ap"], a["Ai"], a["Ax"],
                    a["rhs"], a["constr_type"], a["obj"], a["lb"],
                    a["ub"]) == 0
-    md = Model()
-    ctrl = Control()
+    md = mod["model"].Model()
+    ctrl = mod["control"].Control()
     ctrl.parameters.display = 0
-    Presolver(um, md).presolve_model(ctrl)
+    mod["presolve"].Presolver(um, md).presolve_model(ctrl)
+    return md
+
+
+def _system(m=50, n=70, seed=5):
+    """(the reference's model, the port's, W, diag, resscale, rhs)."""
+    a = random_lp(m, n, density=0.2, seed=seed)
+    md_ref = presolved_model("ipx_tpu", a)
+    md = presolved_model("ipx_tpu_torch", a)
+    assert (md.A != md_ref.A).nnz == 0
     m, n = md.num_rows, md.num_cols
     rng = np.random.default_rng(0)
     W = rng.uniform(0.5, 2.0, size=n + m)
     diag = normal_diag(md.A, W)
     resscale = 1.0 / np.sqrt(W[n:])
     rhs = rng.standard_normal(m)
-    return md, W, diag, resscale, rhs
+    return md_ref, md, W, diag, resscale, rhs
 
 
 def _scaled_residual(md, W, resscale, rhs, y):
@@ -52,9 +65,9 @@ def _scaled_residual(md, W, resscale, rhs, y):
 
 
 def test_device_cr_direct():
-    md, W, diag, resscale, rhs = _system()
+    md_ref, md, W, diag, resscale, rhs = _system()
     y_r, it_r, err_r, _, _ = ref.DeviceNormalCR(
-        md, W, diag, resscale).solve(rhs, 1e-10, -1)
+        md_ref, W, diag, resscale).solve(rhs, 1e-10, -1)
     y, it, err, _, _ = port.DeviceNormalCR(
         md, W, diag, resscale, CPU).solve(rhs, 1e-10, -1)
     assert err == err_r == 0
@@ -64,9 +77,9 @@ def test_device_cr_direct():
 
 
 def test_mixed_precision_cr_reaches_f64_tolerance():
-    md, W, diag, resscale, rhs = _system()
+    md_ref, md, W, diag, resscale, rhs = _system()
     _, it_r, err_r, _, _ = ref.MixedPrecisionDeviceCR(
-        md, W, diag, resscale).solve(rhs, 1e-11, -1)
+        md_ref, W, diag, resscale).solve(rhs, 1e-11, -1)
     y, it, err, _, _ = port.MixedPrecisionDeviceCR(
         md, W, diag, resscale, device=CPU).solve(rhs, 1e-11, -1)
     assert err == err_r == 0
@@ -114,7 +127,7 @@ def test_mixed_precision_cr_in_full_solve():
 def test_error_priority_and_keep_on_stop(case):
     """Same error code and the same kept state as the reference when the
     loop stops before its update."""
-    md, W, diag, resscale, rhs = _system()
+    md_ref, md, W, diag, resscale, rhs = _system()
     tol, maxiter = 1e-14, -1
     if case == "iter_limit":
         maxiter = 3
@@ -131,7 +144,7 @@ def test_error_priority_and_keep_on_stop(case):
         rhs = np.zeros_like(rhs)
         maxiter = 0
     y_r, it_r, err_r, _, _ = ref.DeviceNormalCR(
-        md, W, diag, resscale).solve(rhs, tol, maxiter)
+        md_ref, W, diag, resscale).solve(rhs, tol, maxiter)
     y, it, err, _, _ = port.DeviceNormalCR(
         md, W, diag, resscale, CPU).solve(rhs, tol, maxiter)
     want = {"iter_limit": Errflag.CR_ITER_LIMIT,

@@ -1,0 +1,121 @@
+"""The port owns its host pipeline: no module of ipx_tpu_torch, and neither
+chip_smoke.py nor tools/torch_profile.py, imports ipx_tpu, jax or jaxlib,
+and a whole run of the port's paths on the CPU loads none of them and uses
+the native library built from ipx_tpu_torch/native/ipxlu.cc into
+ipx_tpu_torch/_build/."""
+import ast
+import glob
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BANNED = {"ipx_tpu", "jax", "jaxlib"}
+
+
+def _absolute_import_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_module_of_the_port_imports_the_reference_or_jax():
+    """Every import statement, at any depth, of every .py under
+    ipx_tpu_torch/ and of the two card scripts."""
+    paths = sorted(glob.glob(os.path.join(REPO, "ipx_tpu_torch", "**",
+                                          "*.py"), recursive=True))
+    paths += [os.path.join(REPO, "chip_smoke.py"),
+              os.path.join(REPO, "tools", "torch_profile.py")]
+    assert len(paths) > 40
+    bad = {os.path.relpath(p, REPO): sorted(_absolute_import_roots(p)
+                                            & BANNED)
+           for p in paths}
+    assert not {p: r for p, r in bad.items() if r}
+
+
+RUN = r'''
+import importlib, os, pkgutil, sys, tempfile
+sys.path.insert(0, "tests")
+import numpy as np
+import ipx_tpu_torch
+for info in pkgutil.walk_packages(ipx_tpu_torch.__path__, "ipx_tpu_torch."):
+    importlib.import_module(info.name)
+from ipx_tpu_torch import LpSolver, Parameters, testgen
+from ipx_tpu_torch.basis import lu
+from ipx_tpu_torch.parallel import batch
+from lp_fixtures import afiro
+
+p = Parameters(display=0, device="torch_cpu")
+s = LpSolver(p)
+assert afiro().load_into(s) == 0 and s.solve() == 1000
+info = s.get_info()
+assert info.status_crossover == 1 and info.kktiter1 > 0
+path = os.path.join(tempfile.mkdtemp(), "afiro.npz")
+assert s.save_checkpoint(path) == 0
+s2 = LpSolver(p)
+assert afiro().load_into(s2) == 0 and s2.load_checkpoint(path) == 0
+assert s2.solve() == 1000
+assert abs(s2.get_info().objval - info.objval) <= 1e-9 * abs(info.objval)
+
+data = testgen.transportation(10, 15, 0.3, seed=3)
+b = data["rhs"][None, :] * np.array([[1.0], [1.02]])
+sv = batch.BatchedScenarioSolver(data, b, parameters=p, phase2_polish=True)
+assert [r[0] for r in sv.solve()] == [1000, 1000]
+assert sv.polish is not None and sv.polish.total_cr_iters > 0
+
+s3 = LpSolver(Parameters(display=0, device="torch_cpu", shards=2))
+assert testgen.load_into_solver(testgen.transportation(20, 30, 0.2, 4),
+                                s3) == 0
+assert s3.solve() == 1000 and s3.model._sharded_cr[1].solves > 0
+
+print("LOADED", sorted(m for m in sys.modules
+                       if m.split(".")[0] in ("ipx_tpu", "jax", "jaxlib")))
+print("LIB", lu._lib._name)
+'''
+
+
+def test_port_run_loads_no_reference_module():
+    """In a fresh process: every module of the port imported, then afiro
+    through crossover and a checkpoint round trip, a small batched stage
+    with the polish and a shards=2 solve, all on torch_cpu. No module of
+    ipx_tpu or jax is loaded, and the native library in use lies under
+    ipx_tpu_torch/_build/."""
+    out = subprocess.run([sys.executable, "-c", RUN], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
+                 if line.startswith(("LOADED", "LIB")))
+    assert lines["LOADED"] == "[]"
+    assert lines["LIB"] == os.path.join(REPO, "ipx_tpu_torch", "_build",
+                                        "libipxlu.so")
+
+
+def test_both_native_libraries_in_one_process():
+    """A process that imports both packages loads two distinct libipxlu.so
+    files, each package its own, and each solves afiro to the same vertex."""
+    import ipx_tpu
+    import ipx_tpu_torch
+    from ipx_tpu.basis import lu as ref_lu
+    from ipx_tpu_torch.basis import lu as port_lu
+
+    from lp_fixtures import afiro
+    objvals = []
+    for pkg in (ipx_tpu, ipx_tpu_torch):
+        s = pkg.LpSolver(pkg.Parameters(display=0, device="cpu"))
+        assert afiro().load_into(s) == 0 and s.solve() == 1000
+        objvals.append(s.get_info().objval)
+    ref_path, port_path = ref_lu._load_lib()._name, port_lu._load_lib()._name
+    assert ref_path != port_path
+    assert port_path == os.path.join(REPO, "ipx_tpu_torch", "_build",
+                                     "libipxlu.so")
+    assert os.path.dirname(ref_path) == os.path.join(REPO, "ipx_tpu",
+                                                     "native")
+    assert objvals[1] == pytest.approx(objvals[0], rel=1e-12)

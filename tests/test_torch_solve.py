@@ -1,6 +1,7 @@
 """The slice end to end: ipx_tpu_torch.LpSolver with device="torch_cpu"
 (the device path with the kernels' plain versions) against ipx_tpu, and the
-device contract: no jax in the port, and no silent fallback from "cuda"."""
+device contract: no jax and no ipx_tpu in the port, and no silent fallback
+from "cuda"."""
 import ast
 import os
 import subprocess
@@ -12,10 +13,10 @@ import torch
 import ipx_tpu
 import ipx_tpu.testgen as tg
 import ipx_tpu_torch
-from ipx_tpu.status import SolveStatus, Status
 from ipx_tpu_torch import backend, kernels
 from ipx_tpu_torch.ops.device_cr import MixedPrecisionDeviceCR
 from ipx_tpu_torch.ops.device_cr2 import DeviceSplittedCR
+from ipx_tpu_torch.status import SolveStatus, Status
 
 from lp_fixtures import afiro
 
@@ -100,7 +101,6 @@ def test_port_imports_no_jax():
         "import sys\n"
         "sys.path.insert(0, 'tests')\n"
         "import ipx_tpu_torch\n"
-        "import ipx_tpu_torch.host\n"
         "import ipx_tpu_torch.parallel.batch\n"
         "import ipx_tpu_torch.parallel.batch2\n"
         "from lp_fixtures import afiro\n"
@@ -110,6 +110,7 @@ def test_port_imports_no_jax():
         "assert s.solve() == 1000\n"
         "assert s.get_info().kktiter1 > 0\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert 'ipx_tpu' not in sys.modules, 'ipx_tpu was imported'\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
@@ -117,24 +118,31 @@ def test_port_imports_no_jax():
     assert out.stdout.strip().endswith("ok")
 
 
-@pytest.mark.parametrize("device", ["cpu", "torch_cpu"])
-def test_second_lp_on_one_solver(device):
+@pytest.mark.parametrize("device, shards", [
+    pytest.param("cpu", 0, id="cpu"),
+    pytest.param("torch_cpu", 0, id="torch_cpu"),
+    pytest.param("torch_cpu", 2, id="torch_cpu-shards2")])
+def test_second_lp_on_one_solver(device, shards):
     """afiro, then grid_flow(8, 8, 1) on the same LpSolver: the second solve
     reaches the objective of a fresh solver. It runs in a subprocess, so
-    that a crash in a native kernel (rc -11 before clear_model built a fresh
-    Model) fails this test and not the worker."""
+    that a crash in a native kernel (rc -11 while Model.clear kept the
+    native handles of the LP before) fails this test and not the worker.
+    With shards, the row-blocked CR cached on the model is rebuilt for the
+    second LP."""
     code = (
         "import sys\n"
         "sys.path.insert(0, 'tests')\n"
         "import ipx_tpu_torch\n"
-        "from ipx_tpu_torch.host import testgen as tg\n"
+        "from ipx_tpu_torch import testgen as tg\n"
         "from lp_fixtures import afiro\n"
-        f"p = ipx_tpu_torch.Parameters(display=0, device={device!r})\n"
+        f"p = ipx_tpu_torch.Parameters(display=0, device={device!r}, "
+        f"shards={shards})\n"
         "s = ipx_tpu_torch.LpSolver(p)\n"
         "assert afiro().load_into(s) == 0 and s.solve() == 1000\n"
         "data = tg.grid_flow(8, 8, 1)\n"
         "assert tg.load_into_solver(data, s) == 0\n"
         "st = s.solve()\n"
+        f"assert not {shards} or s.model._sharded_cr[1].solves > 0\n"
         "fresh = ipx_tpu_torch.LpSolver(p)\n"
         "assert tg.load_into_solver(data, fresh) == 0\n"
         "assert fresh.solve() == 1000\n"
@@ -198,10 +206,10 @@ def test_cuda_with_a_failed_build_raises(monkeypatch):
 def test_failed_phase2_device_solve_raises(monkeypatch):
     """ipx_tpu's KKTSolverBasis catches a failed device solve and finishes
     on the host; the port's raises instead."""
-    def broken(self, *args):
+    def broken(self, *args, **kw):
         raise RuntimeError("device solve failed")
 
-    monkeypatch.setattr(DeviceSplittedCR, "_solve", broken)
+    monkeypatch.setattr(DeviceSplittedCR, "solve", broken)
     s = ipx_tpu_torch.LpSolver(_params(ipx_tpu_torch, "torch_cpu"))
     tg.load_into_solver(tg.transportation(40, 60, 0.1, seed=3), s)
     assert s.solve() == int(Status.INTERNAL_ERROR)

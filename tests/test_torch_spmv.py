@@ -78,7 +78,7 @@ def test_normal_apply_matches_normal_apply_tree(dtype):
 def test_device_operands_follow_the_model_matrix():
     """The operands cached on a Model belong to the matrix they were built
     from; a model cleared and refilled with another LP gets new ones."""
-    from ipx_tpu.model import Model
+    from ipx_tpu_torch.model import Model
     md = Model()
     md.A, _ = _matrix(6, 9, seed=4)
     first = port.NormalMatrixDevice.from_model(md, CPU)

@@ -57,7 +57,8 @@ def _start(blp, **kw):
     """The reference's starting point of blp as numpy, with lanes 1 and 3
     marked done; the reference and port solvers."""
     r = ref.BatchedPhase1Solver(blp, **kw)
-    p = port.BatchedPhase1Solver(blp, device="torch_cpu", **kw)
+    p = port.BatchedPhase1Solver(port.as_batched_lp(blp), device="torch_cpu",
+                                 **kw)
     S = {k: np.array(v) for k, v in r._start_fn(r._ops_tree, 0).items()}
     S["done"][[1, 3]] = True
     return r, p, S
@@ -119,7 +120,8 @@ def test_kkt_weights_match_reference_polish():
     r, p, S = _start(blp)
     want = ref2.SharedBasisBatchedPolish._weights_of(
         types.SimpleNamespace(_ph1=r), S)
-    pol = port2.SharedBasisBatchedPolish(blp, None, device="torch_cpu")
+    pol = port2.SharedBasisBatchedPolish(port.as_batched_lp(blp), None,
+                                         device="torch_cpu")
     got = pol._weights_of(_torch(S)).numpy()
     fl, fu = np.isfinite(blp.lb)[:, None], np.isfinite(blp.ub)[:, None]
     with np.errstate(divide="ignore", invalid="ignore"):
@@ -142,11 +144,12 @@ def test_starting_point_mixed_bounds(cr_dtype):
     largest entry; infinities where the bounds are."""
     blp = _mixed_batch(B=4, seed=22)
     r = ref.BatchedPhase1Solver(blp, cr_dtype="f64")
-    p = port.BatchedPhase1Solver(blp, device="torch_cpu", cr_dtype="f64")
+    p = port.BatchedPhase1Solver(port.as_batched_lp(blp), device="torch_cpu",
+                                 cr_dtype="f64")
     if cr_dtype == "f32":   # the reference's f32 path needs the operands
         r = ref.BatchedPhase1Solver(blp, cr_dtype="f32")
-        p = port.BatchedPhase1Solver(blp, device="torch_cpu",
-                                     cr_dtype="f32")
+        p = port.BatchedPhase1Solver(port.as_batched_lp(blp),
+                                     device="torch_cpu", cr_dtype="f32")
     S_r = r._start_fn(r._ops_tree, 0)
     S_p = p._starting_point()
     for k in ("X", "XL", "XU", "Y", "ZL", "ZU"):

@@ -2,7 +2,7 @@
 
 Usage, from the repository root on a machine with the card:
 
-    python tools/torch_profile.py [--what e2e,native,kernels,busy]
+    python tools/torch_profile.py [--what e2e,native,kernels,busy,...]
                                   [--turns 2] [--seed 0]
 
 OpenMP reads its environment once, at start-up, so a thread setting is
@@ -20,7 +20,7 @@ with the card's nvidia-smi name and power limit:
            turns, `--turns` solves each: wall time, Info's phase times and
            the iteration counts, with the OpenMP settings in force;
   native   milliseconds per call of the native vector kernels of
-           ipx_tpu/native (ipxlu.cc) inside one port solve and one host
+           ipx_tpu_torch/native (ipxlu.cc) inside one port solve and one host
            solve, from cProfile;
   kernels  K1-K4 and their plain versions at the shapes of the presolved
            LP: host wall time per call and device time per call from
@@ -38,7 +38,12 @@ with the card's nvidia-smi name and power limit:
            device="cuda", 40 steps at most, as BatchedScenarioSolver runs
            it) of 4 scenarios from their batched phase-1 handoff: steps,
            shared-basis CR iterations, wall time, the host CR's share,
-           device time and busy share, and the largest device items.
+           device time and busy share, and the largest device items;
+  sharded  K14-K16 and their plain versions at the shapes of chip_smoke.py
+           phase 9 (4 row blocks of the presolved LP, B = 256 for K14 and
+           K16): host wall time and device time per call; then
+           LpSolver(shards=4) with device "cuda" and "auto": wall time, and
+           for "cuda" the device busy share and the largest device items.
 
 It imports torch and ipx_tpu_torch only, and no jax.
 """
@@ -56,9 +61,11 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from ipx_tpu_torch import LpSolver, Parameters, backend, kernels  # noqa: E402
-from ipx_tpu_torch.host import (SplittedNormalMatrix,  # noqa: E402
-                                normal_diag, testgen)
+from ipx_tpu_torch import (LpSolver, Parameters, backend,  # noqa: E402
+                           kernels, testgen)
+from ipx_tpu_torch.kkt.splitted_normal import (  # noqa: E402
+    SplittedNormalMatrix)
+from ipx_tpu_torch.sparse import normal_diag  # noqa: E402
 from ipx_tpu_torch.ops import device_cr, device_cr2, spmv  # noqa: E402
 from ipx_tpu_torch.parallel import batch  # noqa: E402
 
@@ -130,7 +137,8 @@ KERNEL_OF = (("csr_spmv", "K1/K2/K4"), ("reduce_sum", "K2"),
              ("bcr_", "K7"), ("step_", "K8"), ("muaff", "K8"),
              ("ipm_update", "K9"), ("prologue_", "K10"), ("mu_", "K10"),
              ("newton_rhs", "K11"), ("normal_rhs", "K11"),
-             ("newton_dx", "K12"), ("recover_", "K12"), ("start_", "K13"))
+             ("newton_dx", "K12"), ("recover_", "K12"), ("start_", "K13"),
+             ("block_sum", "K14"), ("scr_", "K15"), ("sbcr_", "K16"))
 
 
 def kernel_label(key: str) -> str:
@@ -423,9 +431,59 @@ def part_polish(data, args, card):
     top_items("polish", prof, wall, card)
 
 
+def part_sharded(data, args, card):
+    from torch.profiler import ProfilerActivity, profile
+    from ipx_tpu_torch.parallel import sharding
+    dev = backend.cuda_device()
+    host, _, _ = solve(data, "cpu", stop_at_switch=1)
+    A = host.basis.model.A
+    m, n = A.shape
+    B, P = 256, 4
+    rng = np.random.default_rng(args.seed)
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, dtype=np.float64)).to(dev)
+
+    snm = sharding.ShardedNormalMatrix(A, P, dev)
+    parts, scale = t(rng.standard_normal((P, n, B))), t(
+        rng.uniform(0.5, 2.0, (n, B)))
+    parts1, scale1 = t(rng.standard_normal((P, n))), t(
+        rng.uniform(0.5, 2.0, n))
+    A2 = A.copy()
+    A2.data **= 2
+    W = 10.0 ** rng.uniform(-2, 2, n + m)
+    cr = (snm, t(W[:n]), t(W[n:]), t(1.0 / (A2 @ W[:n] + W[n:])),
+          t(1.0 / np.sqrt(W[n:])), t(rng.standard_normal(m)), 0.0, 20)
+    Wb = rng.uniform(0.5, 2.0, (n + m, B))
+    bcr = (snm, t(Wb[:n]), t(Wb[n:]), t(1.0 / (A2 @ Wb[:n] + Wb[n:])),
+           t(rng.standard_normal((m, B))), 0.0, 10)
+    cases = [
+        ("K14 (4, n, 256)", lambda: sharding.block_sum(parts, scale),
+         lambda: sharding.block_sum_plain(parts, scale), 20),
+        ("K14 (4, n)", lambda: sharding.block_sum(parts1, scale1),
+         lambda: sharding.block_sum_plain(parts1, scale1), 100),
+        ("K15 20 trips", lambda: sharding.sharded_cr(*cr),
+         lambda: sharding.sharded_cr_plain(*cr), 5),
+        ("K16 10 trips", lambda: sharding.sharded_batched_cr(*bcr),
+         lambda: sharding.sharded_batched_cr_plain(*bcr), 3)]
+    profile_cases(cases, card)
+    del cases, parts, scale, cr, bcr
+    for device in ("cuda", "auto"):
+        prof = (profile(activities=[ProfilerActivity.CUDA])
+                if device == "cuda" else None)
+        s, st, wall = solve(data, device, profiler=prof, shards=P)
+        i = s.get_info()
+        times = " ".join(f"{f[5:]} {getattr(i, f):.3f}" for f in PHASES)
+        print(f"sharded shards={P} device={device:4s} status {st} wall "
+              f"{wall:.3f} s{' (profiled)' if prof else ''} | {times} | IPM "
+              f"{i.iter} CR {i.kktiter1}+{i.kktiter2} | {card}", flush=True)
+        if prof is not None:
+            top_items("sharded", prof, wall, card)
+
+
 PARTS = {"e2e": part_e2e, "native": part_native, "kernels": part_kernels,
          "busy": part_busy, "batched": part_batched, "stage": part_stage,
-         "polish": part_polish}
+         "polish": part_polish, "sharded": part_sharded}
 
 
 def main():
