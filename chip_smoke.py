@@ -39,13 +39,23 @@ only: no jax, and no module of ipx_tpu.
   9. the sharded solves (parallel/sharding.py, 4 row blocks on the card):
      K14-K16 against their plain versions at the phase-2 LP (B = 256 for
      K16), trip by trip; LpSolver(shards=4) with device "cuda" and "auto"
-     on the phase-4 LP, each with the counters set to 0 just before,
-     against the host path's objval; sharded_batched_cr_solve at B = 256.
+     on the phase-4 LP (row blocks in phase 1, column blocks in phase 2,
+     on the card), each with the counters set to 0 just before, against
+     the host path's objval; sharded_batched_cr_solve at B = 256;
+ 10. the level-scheduled triangular solves of tools/torch_trisolve_proto.py
+     (ops/trisolve.py) on L and U of splu of the final basis of phase 4's
+     host solve: full solves (the L sweep, then the U sweep) through K17
+     at B = 1, 256 and 1024 with the counters set to 0 just before, each
+     sweep against its plain version and scipy's spsolve_triangular, and
+     timed beside torch.triangular_solve on the same factors; one step of
+     ipx_tpu_torch.entry.entry() on the card; afiro through the port's C
+     API (capi.py) with its default device, the card.
 
 It stops with a non-zero exit at the first failure. The line before the
 last is a JSON object with one entry per kernel: its launches on its main
 path (phase 4 for K1-K4, phase 7 for K5-K13, the "cuda" solve of phase 9
-for K14 and K15, the batched solve of phase 9 for K16), its error against
+for K14 and K15, the batched solve of phase 9 for K16, the full solves of
+phase 10 for K17), its error against
 its plain version, the times of both, the least time the card could take
 (`bound_ms`, computed from the run's inputs) and a PyTorch call computing
 the same function where there is one (`library_ms`). The last line is
@@ -162,7 +172,7 @@ def main():
                                kernels, testgen as tg)
     from ipx_tpu_torch.kkt.splitted_normal import SplittedNormalMatrix
     from ipx_tpu_torch.sparse import normal_diag
-    from ipx_tpu_torch.ops import device_cr, device_cr2, spmv
+    from ipx_tpu_torch.ops import device_cr, device_cr2, spmv, trisolve
     from ipx_tpu_torch.parallel import batch
     native = build.build_native()
     t_gxx = time.perf_counter() - t0
@@ -373,6 +383,8 @@ def main():
     t_ref = time.perf_counter() - t0
     check(kernels.LAUNCHES == launches, "the host path launched a kernel")
     ri = ref.get_info()
+    # the factors of phase 10: splu of the host solve's final basis
+    factors = trisolve.basis_factors(ref.basis)
     e_obj = abs(pi.objval - ri.objval) / abs(ri.objval)
     def times(i):
         return (f"ipm1 {i.time_ipm1:.3f} s, ipm2 {i.time_ipm2:.3f} s, maxvol "
@@ -416,6 +428,12 @@ def main():
     print(f"phase 9 took {time.perf_counter() - t_sharded:.1f} s; the "
           f"script {time.perf_counter() - T_START:.1f} s", flush=True)
 
+    t_tri = time.perf_counter()
+    rows["level_solve"], launches = trisolve_phase(card, *factors, dev)
+    path_launches["level_solve"] = launches["level_solve"]
+    print(f"phase 10 took {time.perf_counter() - t_tri:.1f} s; the "
+          f"script {time.perf_counter() - T_START:.1f} s", flush=True)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCE[name],
@@ -442,7 +460,8 @@ SOURCE = {"csr_spmv": "ipx_tpu_torch/csrc/spmv.cu",
           "starting_point": "ipx_tpu_torch/csrc/start.cu",
           "block_sum": "ipx_tpu_torch/csrc/sharded.cu",
           "sharded_cr_step": "ipx_tpu_torch/csrc/sharded.cu",
-          "sharded_batched_cr_step": "ipx_tpu_torch/csrc/sharded.cu"}
+          "sharded_batched_cr_step": "ipx_tpu_torch/csrc/sharded.cu",
+          "level_solve": "ipx_tpu_torch/csrc/trisolve.cu"}
 REPLACES = {"csr_spmv": "ipx_tpu/ops/spmv.py:93",
             "normal_apply": "ipx_tpu/ops/spmv.py:226",
             "cr_step": "ipx_tpu/ops/device_cr.py:85",
@@ -458,7 +477,8 @@ REPLACES = {"csr_spmv": "ipx_tpu/ops/spmv.py:93",
             "starting_point": "ipx_tpu/parallel/batch.py:331",
             "block_sum": "ipx_tpu/parallel/sharding.py:132",
             "sharded_cr_step": "ipx_tpu/parallel/sharding.py:221",
-            "sharded_batched_cr_step": "ipx_tpu/parallel/sharding.py:429"}
+            "sharded_batched_cr_step": "ipx_tpu/parallel/sharding.py:429",
+            "level_solve": "tools/device_trisolve_proto.py:118"}
 SINGLE = ("csr_spmv", "normal_apply", "cr_step", "nnt")
 BATCHED = ("csr_spmm", "normal_apply_batched", "batched_cr_step",
            "step_batch", "ipm_update", "ipm_prologue", "newton_rhs",
@@ -1244,9 +1264,9 @@ def sharded_phase(card, data, md, host_objval, dev):
         for name in ("block_sum", "sharded_cr_step"):
             check(launched[name] > 0, f"shards={P} {device}: {name} was not "
                   "launched")
-        if device == "auto":
-            check(applies > 0 and nnt[1].device.type == "cuda",
-                  "shards=4 auto: the sharded N N' did not run on the card")
+        check(applies > 0 and nnt[1].device.type == "cuda",
+              f"shards={P} {device}: the sharded N N' did not run on the "
+              "card")
         del s
 
     # sharded_batched_cr_solve at full width, weights as in
@@ -1279,6 +1299,191 @@ def sharded_phase(card, data, md, host_objval, dev):
                  if k.split(".")[0] in ("ipx_tpu", "jax", "jaxlib"))
     check(not bad, f"modules of ipx_tpu or jax were imported: {bad[:5]}")
     return rows, launches
+
+
+TRI_B = (1, 256, 1024)
+TRI_ROW_B = 256       # the case of K17's row in the kernels line
+
+
+def library_solve(L_lib, U_lib, V):
+    """L U X = V by torch.triangular_solve on sparse CSR factors (cuSPARSE
+    on the card), the yardstick of K17; the port never calls it."""
+    import torch
+    Y = torch.triangular_solve(V, L_lib, upper=False)[0]
+    return torch.triangular_solve(Y, U_lib, upper=True)[0]
+
+
+def trisolve_phase(card, L, U, dev):
+    """Phase 10: K17 on the factors L and U (scipy CSR) of phase 4's host
+    basis, entry()'s step and the C API on afiro. Returns K17's kernel row
+    (full solves at B = TRI_ROW_B) and the launch counts of the main path,
+    the full solves at every B of TRI_B."""
+    import scipy.sparse.linalg as spla
+    import torch
+    from ipx_tpu_torch import capi, entry, kernels
+    from ipx_tpu_torch.ops import spmv, trisolve
+    from ipx_tpu_torch.parallel import batch
+    from lp_fixtures import afiro
+
+    m = L.shape[0]
+    t0 = time.perf_counter()
+    sL = trisolve.level_schedule(L, True, dev)
+    sU = trisolve.level_schedule(U, False, dev)
+    t_sched = time.perf_counter() - t0
+    print(f"phase 10: level-scheduled solves with splu's L and U of phase "
+          f"4's host basis, m={m}, nnz(L)={L.nnz}, nnz(U)={U.nnz}: "
+          f"{sL.nlev} L levels, {sU.nlev} U levels, Rmax {sL.Rmax}, Emax "
+          f"{sL.Emax}; schedules built in {t_sched:.2f} s; {card}",
+          flush=True)
+    rng = np.random.default_rng(10)
+    Vs = {B: torch.from_numpy(rng.standard_normal((m, B))).to(dev)
+          for B in TRI_B}
+
+    def full(V):
+        return trisolve.level_solve(sU, trisolve.level_solve(sL, V))
+
+    def full_plain(V):
+        return trisolve.level_solve_plain(
+            sU, trisolve.level_solve_plain(sL, V))
+
+    # the main path: a full solve at every B
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    X = {B: full(V) for B, V in Vs.items()}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check(launches["level_solve"] == len(TRI_B) * (sL.nlev + sU.nlev),
+          f"K17 launched {launches['level_solve']} times, not once per "
+          "level of each sweep")
+
+    L_lib, U_lib = (library_csr(spmv.CsrOperand(T.indptr, T.indices, T.data,
+                                                m, dev, torch.float64))
+                    for T in (L, U))
+    lib_error = None
+    row = None
+    for B, V in Vs.items():
+        Y = trisolve.level_solve(sL, V)
+        again = trisolve.level_solve(sL, V)
+        Xk = trisolve.level_solve(sU, Y)
+        errs = [rel_err(Y, trisolve.level_solve_plain(sL, V)),
+                rel_err(Xk, trisolve.level_solve_plain(sU, Y))]
+        k = min(B, 8)
+        Yh, Vh = Y[:, :k].cpu(), V[:, :k].cpu().numpy()
+        errs.append(rel_err(Yh, torch.from_numpy(
+            spla.spsolve_triangular(L, Vh, lower=True))))
+        errs.append(rel_err(Xk[:, :k].cpu(), torch.from_numpy(
+            spla.spsolve_triangular(U, Yh.numpy(), lower=False))))
+        torch.cuda.synchronize()
+        check(torch.equal(Y, again), f"K17 B={B}: two runs differ")
+        check(torch.equal(Xk, X[B]), f"K17 B={B}: the main path's full "
+              "solve differs from this one")
+        X_p = full_plain(V)
+        ms = cuda_ms(lambda: full(V))
+        pms = cuda_ms(lambda: full_plain(V))
+        lms = None
+        if lib_error is None:
+            try:
+                X_l = library_solve(L_lib, U_lib, V)
+                torch.cuda.synchronize()
+                lms = cuda_ms(lambda: library_solve(L_lib, U_lib, V))
+                lib = (f"torch.triangular_solve L then U: {lms:.4f} ms "
+                       f"(rel diff {rel_err(X_l, X_p):.1e})")
+            except Exception as e:   # the yardstick only: say why
+                lib_error = f"{type(e).__name__}: {e}"
+        if lib_error is not None:
+            lib = f"torch.triangular_solve refused: {lib_error[:300]}"
+        err = max(errs)
+        print(f"  K17 level_solve  full solve B={B:<5d} rel_err {err:.3e} "
+              f"(tol 1e-12; L sweep and U sweep against plain and "
+              f"spsolve_triangular) kernel {ms:.4f} ms  plain {pms:.4f} "
+              f"ms | {lib} | {card}", flush=True)
+        check(err <= 1e-12, f"K17 B={B}: relative error {err:.3e} > 1e-12")
+        if B == TRI_ROW_B:
+            e_off = sL.cols.numel() + sU.cols.numel()
+            sched_bytes = sum(nbytes(s.rows, s.entry_ptr, s.cols, s.vals,
+                                     s.inv_diag) for s in (sL, sU))
+            row = dict(case=f"full solve (L then U sweep), f64, B={B}, "
+                       f"{sL.nlev}+{sU.nlev} levels",
+                       max_abs_err=max_abs(X[B], X_p), ms=ms, plain_ms=pms,
+                       library_ms=lms,
+                       **bound(sched_bytes + 2 * 2 * m * B * 8,
+                               2 * (e_off + 2 * m) * B, "f64"))
+        del Y, again, Xk, X_p
+    del Vs, X
+    torch.cuda.empty_cache()
+    check(launches["level_solve"] > 0, "K17 was not launched")
+
+    # entry(): one batched IPM step with the default device, the card, then
+    # timed from copies of the same state, beside the plain versions' step
+    step, (S,) = entry.entry()
+    solver = step.__self__
+    start = {k: v.clone() if torch.is_tensor(v) else v for k, v in S.items()}
+
+    def fresh():
+        return {k: v.clone() if torch.is_tensor(v) else v
+                for k, v in start.items()}
+
+    mu0 = solver._mu_of(S).clone()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = step(S)
+    torch.cuda.synchronize()
+    stepped = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    mu1 = solver._mu_of(out)
+    ok = all(bool(torch.isfinite(out[k]).all()) for k in ("X", "Y", "mu"))
+    plain = batch.PlainBatchedPhase1Solver(solver.lp, maxiter=50,
+                                           device=dev.type,
+                                           cr_dtype=solver.cr_dtype)
+    ms = cuda_ms(lambda: step(fresh()))
+    pms = cuda_ms(lambda: plain._ipm_step(fresh()))
+    nm, B = start["X"].shape
+    trips = int(out["cr"]) - int(start["cr"])
+    A_ops = solver.nmd.op_A, solver.nmd.op_At
+    b = bound(sum(op_bytes(op) for op in A_ops)
+              + 2 * nbytes(*(start[k] for k in ("X", "XL", "XU", "Y", "ZL",
+                                                "ZU")))
+              + nbytes(solver.bT, solver.cT, solver.static["lb"],
+                       solver.static["ub"]),
+              trips * (4 * solver.lp.A.nnz + nm + 20 * solver.m) * B, "f32")
+    print(f"  entry(): state on {S['X'].device}, one batched IPM step over "
+          f"{B} scenarios ({trips} CR trips): event {ms:.4f} ms, plain "
+          f"{pms:.4f} ms, bound {b['bound_ms'] * 1e3:.3f} us "
+          f"({b['bound_by']}); finite {ok}, mu from max "
+          f"{float(mu0.max()):.3e} to max {float(mu1.max()):.3e}; launches "
+          f"{stepped} | {card}", flush=True)
+    check(S["X"].device.type == "cuda", "entry(): the state is not on the "
+          "card")
+    check(ok and bool((mu1 < mu0).all()), "entry(): the step is not finite "
+          "or mu did not fall on every lane")
+
+    # the C API on afiro, with the default device
+    h = capi.ipx_new()
+    try:
+        p = capi.ipx_get_parameters(h)
+        check(p.device == "cuda", f"capi: default device {p.device!r}")
+        p.display = 0
+        capi.ipx_set_parameters(h, p)
+        a = afiro().arrays()
+        check(capi.ipx_load_model(h, a["num_var"], a["obj"], a["lb"],
+                                  a["ub"], a["num_constr"], a["Ap"], a["Ai"],
+                                  a["Ax"], a["rhs"], a["constr_type"]) == 0,
+              "capi: load failed")
+        kernels.reset_launches()
+        st = capi.ipx_solve(h)
+        info = capi.ipx_get_info(h)
+        e = abs(info.objval - AFIRO) / abs(AFIRO)
+        used = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    finally:
+        capi.ipx_free(h)
+    print(f"  capi.ipx_solve on afiro, device \"cuda\": status {st}, objval "
+          f"{info.objval!r} (rel err {e:.1e}); launches {used}", flush=True)
+    check(st == 1000 and e <= 1e-9, f"capi afiro: status {st}, rel err "
+          f"{e:.1e}")
+    check(used.get("cr_step", 0) > 0, "capi afiro: no kernel launched")
+    bad = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("ipx_tpu", "jax", "jaxlib"))
+    check(not bad, f"modules of ipx_tpu or jax were imported: {bad[:5]}")
+    return row, launches
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Where the KKT solves run: resolves ``Parameters.device`` to a torch device.
 
-There is no silent fallback. ``"cuda"`` raises when there is no card or
-when the kernel library does not build or load; ``"torch_cpu"`` runs the
+There is no silent fallback. ``"cuda"``, the default of
+``Parameters.device``, raises when there is no card or when the kernel
+library does not build or load; ``"torch_cpu"`` runs the
 same device path on the CPU with the kernels' plain PyTorch versions;
 ``"cpu"`` is the reference's host path. ``"auto"`` picks ``"cuda"`` when a
 card is present and A has at least MIN_NNZ_AUTO nonzeros, and the host path
@@ -35,6 +36,17 @@ def cuda_device() -> torch.device:
                            'False')
     kernels.load()
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def require(device: str) -> None:
+    """Raises unless `device` is one of DEVICES and, for "cuda", the card
+    and the kernel library are there: LpSolver.solve checks this before any
+    work, so a solve that asked for the card never runs on the host."""
+    if device not in DEVICES:
+        raise ValueError(f"unknown device {device!r}; expected one of "
+                         f"{DEVICES}")
+    if device == "cuda":
+        cuda_device()
 
 
 def resolve(device: str, model=None) -> Optional[torch.device]:

@@ -18,13 +18,16 @@ phase 1, K5 ``csr_spmm``, K6 ``normal_apply_batched`` (csrc/spmm.cu), K7
 float64, K10 ``ipm_prologue`` (csrc/ipm_prologue.cu), K11 ``newton_rhs``
 and K12 ``newton_recover`` (csrc/newton.cu) and K13 ``starting_point``
 (csrc/start.cu); for the sharded solves, in float64, K14 ``block_sum``, K15
-``sharded_cr_step`` and K16 ``sharded_batched_cr_step`` (csrc/sharded.cu).
-Batched arrays are (rows, B) with the B lanes contiguous.
+``sharded_cr_step`` and K16 ``sharded_batched_cr_step`` (csrc/sharded.cu);
+for the level-scheduled triangular solve, in float64, K17 ``level_solve``
+(csrc/trisolve.cu). Batched arrays are (rows, B) with the B lanes
+contiguous.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import build as _build
@@ -35,7 +38,7 @@ LAUNCHES = dict.fromkeys(("csr_spmv", "normal_apply", "cr_step", "nnt",
                           "batched_cr_step", "step_batch", "ipm_update",
                           "ipm_prologue", "newton_rhs", "newton_recover",
                           "starting_point", "block_sum", "sharded_cr_step",
-                          "sharded_batched_cr_step"), 0)
+                          "sharded_batched_cr_step", "level_solve"), 0)
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _lib = None
@@ -100,7 +103,8 @@ def _declare(lib: ctypes.CDLL) -> None:
            "ipxt_scr_step_f64": [I, I64, I64, I64, I64, D, I] + [P] * 12
            + [I64, P, P, P],
            "ipxt_sbcr_step_f64": [I, I64, I64, I64, I64, I64, D] + [P] * 11
-           + [I64, P, P, P]}
+           + [I64, P, P, P],
+           "ipxt_level_solve_f64": [I64, P, I64] + [P] * 8}
     for name, argtypes in f64.items():
         f = getattr(lib, name)
         f.argtypes = argtypes
@@ -948,3 +952,32 @@ class ShardedBatchedCrStep(_ShardedStep):
     def result(self):
         """(Y on the card, trips)."""
         return self.y, int(self.state[self.IT].item())
+
+
+# -- K17: the level-scheduled triangular solve, float64 ---------------------
+def level_solve(sched, V: torch.Tensor) -> torch.Tensor:
+    """K17: X with T X = V for V of shape (m, B), one launch per level of
+    the LevelSchedule `sched` (ops/trisolve.py) on the current stream;
+    LAUNCHES counts the levels."""
+    device = _device_of(V)
+    m, B = sched.m, _lanes(V, "V")
+    _check(V, "V", device, F64, (m, B))
+    nnz = sched.cols.numel()
+    _check(sched.rows, "rows", device, torch.int32, m)
+    _check(sched.entry_ptr, "entry_ptr", device, torch.int64, m + 1)
+    _check(sched.cols, "cols", device, torch.int32, nnz)
+    _check(sched.vals, "vals", device, F64, nnz)
+    _check(sched.inv_diag, "inv_diag", device, F64, m)
+    lp = sched.level_ptr
+    if (lp.dtype != np.int64 or lp.shape != (sched.nlev + 1,)
+            or not lp.flags.c_contiguous or lp[-1] != m):
+        raise ValueError("level_ptr is not the host int64 (nlev + 1) "
+                         "pointer of the schedule")
+    X = torch.empty_like(V)
+    err = load().ipxt_level_solve_f64(
+        sched.nlev, lp.ctypes.data, B, *(t.data_ptr() for t in (
+            sched.rows, sched.entry_ptr, sched.cols, sched.vals,
+            sched.inv_diag, V, X)), _stream(device))
+    _raise_if(err, "level_solve")
+    LAUNCHES["level_solve"] += sched.nlev
+    return X

@@ -13,11 +13,10 @@ preconditioned normal equations, handling BASIC_FREE variables via extra
 B/B' solves (reference: src/kkt_solver_basis.cc:75-194).
 
 The port's copy of ipx_tpu/kkt/basis_precond.py. Its device branches are
-the port's: _prepare_device builds the device splitted CR
-(ops/device_cr2.py) for Parameters.device "cuda" and "torch_cpu",
-_prepare_sharded otherwise the column-blocked N N' of parallel/sharding.py
-when Parameters.shards > 1. A failure in either raises: there is no host
-fallback.
+the port's: _prepare_sharded builds the column-blocked N N' of
+parallel/sharding.py when Parameters.shards > 1, _prepare_device otherwise
+the device splitted CR (ops/device_cr2.py) for Parameters.device "cuda"
+and "torch_cpu". A failure in either raises: there is no host fallback.
 """
 from __future__ import annotations
 
@@ -160,25 +159,23 @@ class KKTSolverBasis(KKTSolver):
             if info.errflag:
                 return
         self.splitted.prepare(self.basis, self.colscale)
-        self._prepare_device()
         self._prepare_sharded()
+        self._prepare_device()
         self._epoch_lhs = None      # slot-space warm start, valid only for
                                     # this prepared operator
         self.factorized = True
 
     def _prepare_sharded(self) -> None:
-        """Phase-2 N N' over column blocks when Parameters.shards > 1 and
-        no device splitted CR runs (VERDICT r3 item 2: the splitted
-        operator was the missing mesh-parallel phase; B/B' solves stay on
-        host). The blocks live on the device of backend.resolve_sharded;
+        """Phase-2 N N' over column blocks when Parameters.shards > 1
+        (VERDICT r3 item 2: the splitted operator was the missing
+        mesh-parallel phase; B/B' solves stay on host). The blocks live on
+        the device of backend.resolve_sharded, as phase 1's row blocks do;
         the operator is built once per model and device and repacked at
         every factorization. Errors raise."""
         params = self.control.parameters
         self._sharded2 = None
         if params.shards is None or params.shards <= 1:
             return
-        if self._device_cr is not None:
-            return      # the device splitted CR takes phase 2
         md = self.model
         device = backend.resolve_sharded(params.device)
         key = (int(params.shards), str(device))
@@ -198,9 +195,13 @@ class KKTSolverBasis(KKTSolver):
         """Device phase-2 CR for Parameters.device "cuda" and "torch_cpu"
         (the reference gates on device == "tpu"): the N N' product on the
         device, host-looped recurrences and B/B' solves (ops/device_cr2.py).
-        "auto" keeps phase 2 on the host, as the reference does."""
+        "auto" keeps phase 2 on the host, as the reference does. With
+        Parameters.shards > 1 the column blocks take phase 2 instead, as
+        the row blocks take phase 1 (kkt/diag.py), so that the blocks of
+        both phases sit on the device the caller named; the reference's
+        device CR would take phase 2 there."""
         device = self.control.parameters.device
-        if device not in ("cuda", "torch_cpu"):
+        if device not in ("cuda", "torch_cpu") or self._sharded2 is not None:
             self._device_cr = None
             return
         if getattr(self, "_device_cr", None) is None:

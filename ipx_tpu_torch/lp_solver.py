@@ -7,7 +7,9 @@ policy (reference: src/lp_solver.cc:79-95) and phase-switch heuristics
 (reference: src/lp_solver.cc:388-397).
 
 The port's copy of ipx_tpu/lp_solver.py. Its KKT solvers are the port's
-(kkt/diag.py and kkt/basis_precond.py), which choose the device path; a
+(kkt/diag.py and kkt/basis_precond.py), which choose the device path;
+solve() raises before any work when Parameters.device names a device that
+is not there (backend.require: "cuda", the default, without a card); a
 second LP on one solver is safe because Model.clear drops the caches of
 the LP before.
 """
@@ -18,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 
+from . import backend
 from .control import Control
 from .info import Info
 from .ipm import IPM
@@ -170,6 +173,9 @@ class LpSolver:
         if self.user_model.empty():
             info.status = int(Status.NO_MODEL)
             return info.status
+        # the device the caller asked for ("cuda" by default), or raise
+        # before any work: no host solve stands in for it
+        backend.require(self.control.parameters.device)
         self.control.reset_timer()
         self.control.open_logfile()
         self.control.log(f"IPX version {__version__} (torch)\n")

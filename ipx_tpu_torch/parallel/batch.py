@@ -496,8 +496,9 @@ def starting_point(X0, ATDY, DY, ATY, Y, cT, lb, ub, finl, finu):
 class BatchedPhase1Solver:
     """The batched phase-1 IPM over the scenarios of a BatchedLp.
 
-    device: "cuda" (the card, or raise), "torch_cpu" or "cpu" (the plain
-    versions on the CPU), "auto" ("cuda" when a card is present).
+    device: "cuda" (the default: the card, or raise), "torch_cpu" or "cpu"
+    (the plain versions on the CPU), "auto" ("cuda" when a card is
+    present).
     cr_dtype: "f32" runs the CR in float32 chunks with float64 defect
     correction, "f64" in float64; "auto" is "f32" on the card and "f64" on
     the CPU, as the reference picks f32 on an accelerator.
@@ -520,7 +521,7 @@ class BatchedPhase1Solver:
     def __init__(self, lp: BatchedLp, feasibility_tol=1e-6,
                  optimality_tol=1e-8, kkt_tol=0.3, cr_maxiter=500,
                  maxiter=100, cr_dtype="auto", cr64_maxiter=None,
-                 device="auto"):
+                 device="cuda"):
         self.device = dev = backend.resolve_batched(device)
         self.lp = lp
         m, n = lp.A.shape

@@ -290,8 +290,8 @@ class SharedBasisBatchedPolish:
     """Batched phase-2 polish: continues a batch of scenario IPMs with
     basis-preconditioned KKT solves sharing one basis.
 
-    device: where the step runs, with BatchedPhase1Solver's rule ("cuda"
-    is the card or raises). solver_cls: the class of the inner batched
+    device: where the step runs, with BatchedPhase1Solver's rule ("cuda",
+    the default, is the card or raises). solver_cls: the class of the inner batched
     solver; PlainBatchedPhase1Solver runs the same polish through the
     kernels' plain versions, as the reference of the card checks.
 
@@ -309,7 +309,7 @@ class SharedBasisBatchedPolish:
 
     def __init__(self, blp, basis, feasibility_tol=1e-6,
                  optimality_tol=1e-8, kkt_tol=0.3, cr_maxiter=500,
-                 maxiter=60, device="auto",
+                 maxiter=60, device="cuda",
                  solver_cls=BatchedPhase1Solver):
         # cr_dtype "f64": the inner solver's own CR is never called, so no
         # float32 operands are built

@@ -78,9 +78,9 @@ def _bounds(sizes) -> list:
 
 
 def _where(device):
-    """`device`, or by default where backend.resolve_sharded("auto") puts
-    the blocks: the card when one is present, else the CPU."""
-    return backend.resolve_sharded("auto") if device is None else device
+    """`device`, or by default the card: backend.resolve_sharded("cuda"),
+    which raises when there is none."""
+    return backend.resolve_sharded("cuda") if device is None else device
 
 
 def _t(x, device) -> torch.Tensor:
@@ -113,7 +113,7 @@ class ShardedNormalMatrix:
     A's rows in num_blocks contiguous blocks (block_sizes); each block holds
     the CSR operand of A_p (its rows, n columns) for A_p u and that of A_p'
     (n rows) for A_p' v_p, on `device`, in the format K1 and K5 take.
-    `device` None means the card when one is present, else the CPU."""
+    `device` None means the card, and raises without one."""
 
     def __init__(self, A: sp.csc_matrix, num_blocks: int,
                  device: torch.device = None):

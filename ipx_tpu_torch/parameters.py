@@ -63,14 +63,15 @@ class Parameters:
 
     # --- Device-specific (no counterpart in the reference) ---
     # Where the KKT solves run (backend.py):
-    #   "cuda"      phase 1 and phase 2 on the card through the hand-written
-    #               kernels; raises if there is no card or the kernels fail
+    #   "cuda"      (the default) phase 1 and phase 2 on the card through
+    #               the hand-written kernels; LpSolver.solve raises if there
+    #               is no card or the kernels fail
     #   "torch_cpu" the same device path on the CPU, with the kernels'
     #               plain PyTorch versions (for tests)
     #   "cpu"       the reference's host path
     #   "auto"      "cuda" when a card is present and nnz(A) >= 20 000,
     #               otherwise "cpu"
-    device: str = "auto"
+    device: str = "cuda"
     precision: str = "mixed"        # KKT-solve arithmetic: "mixed" runs the
                                     # CR inner loop in f32 with f64 defect
                                     # correction (same termination contract,

@@ -439,11 +439,12 @@ def test_batched_device_choice(monkeypatch):
         p = port.BatchedPhase1Solver(blp, device=device)
         assert p.device == CPU and p.cr_dtype == "f64"
         assert p.bT.device == CPU and p.nmd32 is None
-    assert port.BatchedPhase1Solver(blp, cr_dtype="f32").nmd32 is not None
+    assert port.BatchedPhase1Solver(blp, cr_dtype="f32",
+                                    device="torch_cpu").nmd32 is not None
     with pytest.raises(ValueError, match="unknown device"):
         backend.resolve_batched("tpu")
     with pytest.raises(ValueError, match="cr_dtype"):
-        port.BatchedPhase1Solver(blp, cr_dtype="bf16")
+        port.BatchedPhase1Solver(blp, cr_dtype="bf16", device="torch_cpu")
     a = random_lp(10, 12, density=0.3, seed=1)
     for polish, want in ((True, True), ("auto", False), (False, False)):
         sv = port.BatchedScenarioSolver(a, a["rhs"][None, :],

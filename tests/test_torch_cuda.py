@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K16 against their plain PyTorch versions on the card,
+"""The CUDA kernels K1-K17 against their plain PyTorch versions on the card,
 at small shapes with the edge cases the main path's shapes do not show
 (empty rows, rows longer than a warp, partial blocks, lane counts that
 allow no vector loads, lanes past one block).
@@ -796,10 +796,9 @@ def test_sharded_blocks_default_to_the_card(dev):
 
 @pytest.mark.parametrize("device", ["cuda", "auto"])
 def test_sharded_lp_solve_on_card(dev, device):
-    """LpSolver(shards=4) with device "cuda" (row-blocked phase 1, K4 phase
-    2) and "auto" (row-blocked phase 1 and column-blocked N N' on the
-    card): status 1000, the host solve's objective to 1e-8, K14 and K15
-    launched."""
+    """LpSolver(shards=4) with device "cuda" and "auto" (row-blocked
+    phase 1 and column-blocked N N' in phase 2, both on the card): status
+    1000, the host solve's objective to 1e-8, K14 and K15 launched."""
     from ipx_tpu_torch import LpSolver, Parameters
     from ipx_tpu_torch import testgen as tg
     data = tg.transportation(60, 90, 0.05, seed=3)
@@ -814,5 +813,78 @@ def test_sharded_lp_solve_on_card(dev, device):
     assert kernels.LAUNCHES["block_sum"] > 0
     assert kernels.LAUNCHES["sharded_cr_step"] > 0
     assert s.model._sharded_cr[1].device.type == "cuda"
-    if device == "auto":
-        assert s.model._sharded_nnt[1].applies > 0
+    nnt = s.model._sharded_nnt[1]
+    assert nnt.applies > 0 and nnt.device.type == "cuda"
+
+
+# -- K17 and the entry points --------------------------------------------------
+def _triangular(lower):
+    """A factor of splu of a 1500 x 1500 matrix with one dense row and one
+    dense column (rows of the factor longer than a warp), with one stored
+    entry set to an explicit zero."""
+    import scipy.sparse.linalg as spla
+    rng = np.random.default_rng(17)
+    A = sp.random(1500, 1500, density=0.002, random_state=rng,
+                  format="lil") + sp.diags(rng.uniform(1.0, 2.0, 1500))
+    A = sp.lil_matrix(A)
+    A[1499, ::7] = rng.uniform(0.1, 0.2, len(range(0, 1500, 7)))
+    A[::7, 0] = rng.uniform(0.1, 0.2, (len(range(0, 1500, 7)), 1))
+    lu = spla.splu(sp.csc_matrix(A), permc_spec="COLAMD")
+    T = (lu.L if lower else lu.U).tocsr()
+    off = np.flatnonzero(np.repeat(np.arange(1500), np.diff(T.indptr))
+                         != T.indices)
+    T.data[off[len(off) // 2]] = 0.0
+    assert np.diff(T.indptr).max() > 32
+    return T
+
+
+@pytest.mark.parametrize("B", [1, 3, 256, 300])
+@pytest.mark.parametrize("lower", [True, False], ids=["L", "U"])
+def test_level_solve(dev, lower, B):
+    """K17 against its plain version on the card and spsolve_triangular,
+    1e-12 relative; one launch per level; two runs equal bit for bit."""
+    import scipy.sparse.linalg as spla
+    from ipx_tpu_torch.ops import trisolve
+    T = _triangular(lower)
+    sched = trisolve.level_schedule(T, lower, dev)
+    V = torch.from_numpy(np.random.default_rng(B).standard_normal(
+        (T.shape[0], B))).to(dev)
+    before = kernels.LAUNCHES["level_solve"]
+    X = trisolve.level_solve(sched, V)
+    X2 = trisolve.level_solve(sched, V)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["level_solve"] == before + 2 * sched.nlev
+    assert torch.equal(X, X2)
+    assert _rel(X, trisolve.level_solve_plain(sched, V)) <= 1e-12
+    want = spla.spsolve_triangular(T, V.cpu().numpy(), lower=lower)
+    assert _rel(X, torch.from_numpy(want)) <= 1e-12
+
+
+def test_entry_step_on_the_card(dev):
+    """entry() with its default device: the state on the card, one step
+    through K5-K13, finite, with mu down on every lane."""
+    from ipx_tpu_torch import entry
+    step, (S,) = entry.entry()
+    assert S["X"].device.type == "cuda"
+    mu_of = step.__self__._mu_of
+    mu0 = mu_of(S).clone()
+    kernels.reset_launches()
+    out = step(S)
+    torch.cuda.synchronize()
+    for k in ("X", "Y", "mu"):
+        assert bool(torch.isfinite(out[k]).all()), k
+    for name in ("csr_spmm", "batched_cr_step", "ipm_prologue",
+                 "newton_rhs", "newton_recover", "step_batch",
+                 "ipm_update"):
+        assert kernels.LAUNCHES[name] > 0, name
+    assert bool((mu_of(out) < mu0).all())
+
+
+def test_dryrun_multichip_on_the_card(dev):
+    """dryrun_multichip(4) on one card passes its asserts, through K14,
+    K15 and K16."""
+    from ipx_tpu_torch import entry
+    kernels.reset_launches()
+    entry.dryrun_multichip(4)
+    for name in ("block_sum", "sharded_cr_step", "sharded_batched_cr_step"):
+        assert kernels.LAUNCHES[name] > 0, name

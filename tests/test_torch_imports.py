@@ -1,7 +1,8 @@
-"""The port owns its host pipeline: no module of ipx_tpu_torch, and neither
-chip_smoke.py nor tools/torch_profile.py, imports ipx_tpu, jax or jaxlib,
-and a whole run of the port's paths on the CPU loads none of them and uses
-the native library built from ipx_tpu_torch/native/ipxlu.cc into
+"""The port owns its host pipeline: no module of ipx_tpu_torch, neither
+chip_smoke.py nor the port's tools (tools/torch_*.py), and no example of
+the port (examples/torch_*.py) imports ipx_tpu, jax or jaxlib, and a whole
+run of the port's paths on the CPU loads none of them and uses the native
+library built from ipx_tpu_torch/native/ipxlu.cc into
 ipx_tpu_torch/_build/."""
 import ast
 import glob
@@ -29,12 +30,18 @@ def _absolute_import_roots(path):
 
 def test_no_module_of_the_port_imports_the_reference_or_jax():
     """Every import statement, at any depth, of every .py under
-    ipx_tpu_torch/ and of the two card scripts."""
+    ipx_tpu_torch/, of chip_smoke.py, of the port's tools and of its
+    examples."""
     paths = sorted(glob.glob(os.path.join(REPO, "ipx_tpu_torch", "**",
                                           "*.py"), recursive=True))
-    paths += [os.path.join(REPO, "chip_smoke.py"),
-              os.path.join(REPO, "tools", "torch_profile.py")]
-    assert len(paths) > 40
+    for new in ("entry.py", "capi.py", "mps.py", "ops/trisolve.py"):
+        assert os.path.join(REPO, "ipx_tpu_torch", new) in paths, new
+    tools = sorted(glob.glob(os.path.join(REPO, "tools", "torch_*.py")))
+    examples = sorted(glob.glob(os.path.join(REPO, "examples",
+                                             "torch_*.py")))
+    assert len(tools) == 2 and len(examples) == 7
+    paths += [os.path.join(REPO, "chip_smoke.py")] + tools + examples
+    assert len(paths) > 50
     bad = {os.path.relpath(p, REPO): sorted(_absolute_import_roots(p)
                                             & BANNED)
            for p in paths}
@@ -45,6 +52,7 @@ RUN = r'''
 import importlib, os, pkgutil, sys, tempfile
 sys.path.insert(0, "tests")
 import numpy as np
+import torch
 import ipx_tpu_torch
 for info in pkgutil.walk_packages(ipx_tpu_torch.__path__, "ipx_tpu_torch."):
     importlib.import_module(info.name)
@@ -76,6 +84,26 @@ assert testgen.load_into_solver(testgen.transportation(20, 30, 0.2, 4),
                                 s3) == 0
 assert s3.solve() == 1000 and s3.model._sharded_cr[1].solves > 0
 
+from ipx_tpu_torch import capi, entry, mps
+from ipx_tpu_torch.ops import trisolve
+step, (S,) = entry.entry(device="torch_cpu")
+assert bool(torch.isfinite(step(S)["X"]).all())
+T = trisolve.level_schedule(np.tril(np.ones((5, 5))) + 4 * np.eye(5), True)
+X = trisolve.level_solve(T, torch.ones((5, 3), dtype=torch.float64))
+assert X.shape == (5, 3) and T.nlev == 5
+h = capi.ipx_new()
+capi.ipx_set_parameters(h, p)
+a = afiro().arrays()
+assert capi.ipx_load_model(h, a["num_var"], a["obj"], a["lb"], a["ub"],
+                           a["num_constr"], a["Ap"], a["Ai"], a["Ax"],
+                           a["rhs"], a["constr_type"]) == 0
+assert capi.ipx_solve(h) == 1000
+path = os.path.join(tempfile.mkdtemp(), "lp.mps")
+with open(path, "w") as f:
+    f.write("NAME T\nROWS\n N C\n L R\nCOLUMNS\n    X C 1.0 R 1.0\n"
+            "RHS\n    B R 4.0\nENDATA\n")
+assert mps.read_mps(path).num_var == 1
+
 print("LOADED", sorted(m for m in sys.modules
                        if m.split(".")[0] in ("ipx_tpu", "jax", "jaxlib")))
 print("LIB", lu._lib._name)
@@ -85,7 +113,9 @@ print("LIB", lu._lib._name)
 def test_port_run_loads_no_reference_module():
     """In a fresh process: every module of the port imported, then afiro
     through crossover and a checkpoint round trip, a small batched stage
-    with the polish and a shards=2 solve, all on torch_cpu. No module of
+    with the polish, a shards=2 solve, entry()'s step, a level-scheduled
+    sweep, afiro through the C API and an MPS file read, all on torch_cpu
+    where there is a device. No module of
     ipx_tpu or jax is loaded, and the native library in use lies under
     ipx_tpu_torch/_build/."""
     out = subprocess.run([sys.executable, "-c", RUN], cwd=REPO,

@@ -107,7 +107,7 @@ def test_block_sizes_are_the_references():
     assert port.block_sizes(5, 4) == [2, 2, 1, 0]
     snm = port.ShardedNormalMatrix(sp.random(61, 9, density=0.3,
                                              format="csc", random_state=1),
-                                   NB)
+                                   NB, CPU)
     assert snm.bounds == [(0, 16), (16, 32), (32, 48), (48, 61)]
 
 
@@ -118,7 +118,7 @@ def test_block_normal_apply_matches_reference(m, n, seed, batched):
     the reference's block_normal_apply(_batched) under shard_map: 1e-12."""
     A, W, _, v = _system(m, n, seed, B=6 if batched else None)
     want = _ref_apply(A, W, v)
-    snm = port.ShardedNormalMatrix(A, NB)
+    snm = port.ShardedNormalMatrix(A, NB, CPU)
     got = snm.apply(_t(W[:n]), _t(W[n:]), _t(v)).numpy()
     assert got.shape == v.shape
     assert _rel(got, want) <= 1e-12
@@ -131,7 +131,7 @@ def test_block_apply_with_an_empty_block():
     A = sp.random(5, 7, density=0.5, format="csc", random_state=rng)
     W = rng.uniform(0.5, 2.0, 12)
     v = rng.standard_normal(5)
-    snm = port.ShardedNormalMatrix(A, NB)
+    snm = port.ShardedNormalMatrix(A, NB, CPU)
     assert snm.rows == [2, 2, 1, 0]
     got = snm.apply(_t(W[:7]), _t(W[7:]), _t(v)).numpy()
     assert _rel(got, A @ (W[:7] * (A.T @ v)) + W[7:] * v) <= 1e-14
@@ -152,7 +152,7 @@ def _diag_cr(A, W, diag, rhs, tol, maxiter, which):
     n = A.shape[1]
     resscale = 1.0 / np.sqrt(np.abs(W[n:]))
     cr = (ref.ShardedDiagCR(A, NB, mesh=_mesh()) if which == "ref"
-          else port.ShardedDiagCR(A, NB))
+          else port.ShardedDiagCR(A, NB, CPU))
     return cr.solve(W[:n], W[n:], diag, resscale, rhs, tol, maxiter)
 
 
@@ -163,8 +163,8 @@ def _cr_solve(A, W, diag, rhs, tol, maxiter, which):
         return ref.sharded_cr_solve(ref.ShardedNormalMatrix(A, NB), W[:n],
                                     W[n:], diag, rhs, tol, maxiter,
                                     mesh=_mesh())
-    return port.sharded_cr_solve(port.ShardedNormalMatrix(A, NB), W[:n],
-                                 W[n:], diag, rhs, tol, maxiter)
+    return port.sharded_cr_solve(port.ShardedNormalMatrix(A, NB, CPU),
+                                 W[:n], W[n:], diag, rhs, tol, maxiter)
 
 
 @pytest.mark.parametrize("solver", ["ShardedDiagCR", "sharded_cr_solve"])
@@ -239,8 +239,8 @@ def test_batched_cr_matches_reference(m, n, seed):
         ref.ShardedNormalMatrix(A, NB), W[:n], W[n:], diag, RHS, tol=1e-10,
         maxiter=2000, mesh=_mesh((NB, 2), ("rows", "batch")))
     got, it = port.sharded_batched_cr_solve(
-        port.ShardedNormalMatrix(A, NB), W[:n], W[n:], diag, RHS, tol=1e-10,
-        maxiter=2000)
+        port.ShardedNormalMatrix(A, NB, CPU), W[:n], W[n:], diag, RHS,
+        tol=1e-10, maxiter=2000)
     assert it > 0 and abs(it - it_r) <= 2
     for k in range(6):
         assert _normal_residual(A, W[:, k], got[:, k], RHS[:, k]) <= 1e-9, k
@@ -252,7 +252,7 @@ def test_batched_cr_freezes_converged_lanes():
     keeps Y = 0; the loop still runs that trip, as the reference's does."""
     A, W, diag, RHS = _system(61, 90, 12, B=3)
     RHS[:, 1] = 0.0
-    snm = port.ShardedNormalMatrix(A, NB)
+    snm = port.ShardedNormalMatrix(A, NB, CPU)
     n = A.shape[1]
     Y, it = port.sharded_batched_cr_solve(snm, W[:n], W[n:], diag, RHS,
                                           1e-10, 2000)
@@ -286,7 +286,7 @@ def test_nnt_matches_reference(splitted):
     r = ref.ShardedSplittedNNt(m, n, N.nnz + m, NB, mesh=_mesh())
     assert r.set_operand(N)
     want = r.apply(w)
-    nnt = port.ShardedSplittedNNt(m, n, NB)
+    nnt = port.ShardedSplittedNNt(m, n, NB, CPU)
     nnt.set_operand(N)
     got = nnt.apply(w)
     assert nnt.applies == 1
@@ -317,9 +317,9 @@ def transport():
 @pytest.mark.parametrize("device", ["torch_cpu", "cpu"])
 def test_full_solve_with_shards(transport, device):
     """LpSolver(shards=4): status 1000, pobjval within 1e-8 of the
-    reference's sharded solve; phase 1 ran the row-blocked CR, and phase 2
-    the column-blocked N N' unless the device splitted CR took it
-    ("torch_cpu")."""
+    reference's sharded solve; phase 1 ran the row-blocked CR and phase 2
+    the column-blocked N N', on one device, for both devices (with
+    "torch_cpu" the device splitted CR does not take phase 2)."""
     data, want = transport
     s, st = _solve(ipx_tpu_torch, data, shards=NB, device=device)
     info = s.get_info()
@@ -329,10 +329,8 @@ def test_full_solve_with_shards(transport, device):
     assert key == (NB, "cpu") and cr.solves > 0
     assert cr.iterations == info.kktiter1 > 0
     nnt = getattr(s.model, "_sharded_nnt", None)
-    if device == "cpu":
-        assert nnt is not None and nnt[1].applies > 0 and info.kktiter2 > 0
-    else:
-        assert nnt is None and info.kktiter2 > 0
+    assert nnt is not None and nnt[0] == key
+    assert nnt[1].applies > 0 and info.kktiter2 > 0
 
 
 def test_sharded_phase2_full_solve_parity_10k():
@@ -374,8 +372,8 @@ def test_sharded_device_rule(monkeypatch):
     with pytest.raises(ValueError, match="unknown device"):
         backend.resolve_sharded("tpu")
     data = testgen.transportation(20, 30, 0.2, seed=4)
-    _, st = _solve(ipx_tpu_torch, data, shards=2, device="cuda")
-    assert st == int(ipx_tpu_torch.Status.INTERNAL_ERROR)
+    with pytest.raises(RuntimeError, match="is_available"):
+        _solve(ipx_tpu_torch, data, shards=2, device="cuda")
 
 
 @pytest.mark.parametrize("make", [
@@ -386,13 +384,14 @@ def test_sharded_device_rule(monkeypatch):
     pytest.param(lambda A, **kw: port.ShardedSplittedNNt(*A.shape, NB, **kw),
                  id="ShardedSplittedNNt")])
 def test_blocks_default_to_the_card_when_present(monkeypatch, make):
-    """With no device given, the blocks go where the reference's mesh is,
-    jax's default platform: the card when one is present (here a stand-in
-    for backend.cuda_device that raises, as nothing can be put on a card on
-    this host), else the CPU. A device given is kept."""
+    """With no device given, the blocks go on the card: without one the
+    constructor raises, and with one (here a stand-in for
+    backend.cuda_device that raises, as nothing can be put on a card on
+    this host) the card is chosen. A device given is kept."""
     A = sp.random(9, 7, density=0.4, format="csc", random_state=6)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert make(A).device == CPU
+    with pytest.raises(RuntimeError, match="is_available"):
+        make(A)
 
     def the_card():
         raise RuntimeError("the card was chosen")

@@ -184,8 +184,9 @@ def test_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         backend.resolve("cuda")
-    # the solver reports the failure; it does not finish on the host
-    assert _solve_cuda() == int(Status.INTERNAL_ERROR)
+    # the solver raises before any work; it does not finish on the host
+    with pytest.raises(RuntimeError, match="is_available"):
+        _solve_cuda()
     # "auto" without a card is the host path
     assert backend.resolve("auto") is None
 
@@ -200,7 +201,8 @@ def test_cuda_with_a_failed_build_raises(monkeypatch):
     monkeypatch.setattr(kernels._build, "build", failed_build)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         backend.resolve("cuda")
-    assert _solve_cuda() == int(Status.INTERNAL_ERROR)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _solve_cuda()
 
 
 def test_failed_phase2_device_solve_raises(monkeypatch):

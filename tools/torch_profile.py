@@ -43,7 +43,11 @@ with the card's nvidia-smi name and power limit:
            phase 9 (4 row blocks of the presolved LP, B = 256 for K14 and
            K16): host wall time and device time per call; then
            LpSolver(shards=4) with device "cuda" and "auto": wall time, and
-           for "cuda" the device busy share and the largest device items.
+           for "cuda" the device busy share and the largest device items;
+  entry    one step of ipx_tpu_torch.entry.entry() on the card (K5-K13 at
+           m = 32, n = 48, B = 8) and the same step through the plain
+           versions: host wall time and device time per call, from copies
+           of one state; then the wall time of dryrun_multichip(4).
 
 It imports torch and ipx_tpu_torch only, and no jax.
 """
@@ -481,9 +485,30 @@ def part_sharded(data, args, card):
             top_items("sharded", prof, wall, card)
 
 
+def part_entry(data, args, card):
+    from ipx_tpu_torch import entry
+    step, (S,) = entry.entry()
+    solver = step.__self__
+    plain = batch.PlainBatchedPhase1Solver(solver.lp, maxiter=50,
+                                           device="cuda",
+                                           cr_dtype=solver.cr_dtype)
+
+    def fresh():
+        return {k: v.clone() if torch.is_tensor(v) else v
+                for k, v in S.items()}
+
+    profile_cases([("entry step", lambda: step(fresh()),
+                    lambda: plain._ipm_step(fresh()), 20)], card)
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(4)
+    torch.cuda.synchronize()
+    print(f"entry dryrun_multichip(4) on one card: wall "
+          f"{time.perf_counter() - t0:.3f} s | {card}", flush=True)
+
+
 PARTS = {"e2e": part_e2e, "native": part_native, "kernels": part_kernels,
          "busy": part_busy, "batched": part_batched, "stage": part_stage,
-         "polish": part_polish, "sharded": part_sharded}
+         "polish": part_polish, "sharded": part_sharded, "entry": part_entry}
 
 
 def main():
