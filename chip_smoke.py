@@ -11,12 +11,20 @@ only: no jax, and no module of ipx_tpu.
   2. holds each kernel against its plain PyTorch version on the card, at
      the shapes of the 20k-row transportation LP after presolve, and times
      both (median of CUDA-event timings after warm-up), with one PyTorch
-     sparse product beside K1 and K4 as a yardstick;
+     sparse product beside K1 and K4 as a yardstick; K4 through the NntPlan
+     the phase-2 CR builds, in its cooperative and its two-launch form in
+     turns, with event and device (torch.profiler) time, both forms bit for
+     bit against each other and from run to run;
   3. solves afiro through ipx_tpu_torch.LpSolver(device="cuda");
   4. solves transportation(8000, 12000, 0.001, seed=1) through
      ipx_tpu_torch.LpSolver(device="cuda") with every launch counter set to
      0 just before, and through LpSolver(device="cpu"), the host path that
-     launches none of the kernels, and compares;
+     launches none of the kernels, and compares; then a second turn of
+     both, an f64-precision "cuda" solve, and both paths in a subprocess
+     with OMP_NUM_THREADS=4, each wall beside the OpenMP team and the
+     OpenBLAS pools' size in a solve (native/threads.py); it fails if the
+     best "cuda" wall is above 1.15x its best under OMP_NUM_THREADS=4 or
+     above 1.5x the best "cpu" wall;
   5. holds the batched kernels K5-K9 against their plain versions at the
      shapes of that LP as a batch of B = 256 scenarios (m = 20 000,
      n + m = 116 002), in float64 and float32, and K10-K13, the rest of the
@@ -37,11 +45,15 @@ only: no jax, and no module of ipx_tpu.
      BatchedScenarioSolver(phase2_polish=True) end to end on a small LP.
      The plain run replays the kernel run's host CR solutions.
   9. the sharded solves (parallel/sharding.py, 4 row blocks on the card):
-     K14-K16 against their plain versions at the phase-2 LP (B = 256 for
-     K16), trip by trip; LpSolver(shards=4) with device "cuda" and "auto"
-     on the phase-4 LP (row blocks in phase 1, column blocks in phase 2,
-     on the card), each with the counters set to 0 just before, against
-     the host path's objval; sharded_batched_cr_solve at B = 256;
+     K4 over 4 column blocks of phase 2's N (one launch an apply) beside
+     cuSPARSE on the whole N; K14v, the vector apply's first pass, beside
+     today's composition (P K1 launches and K14) and A' v by cuSPARSE,
+     with the launches of one vector apply (P + 1); K14-K16 against their
+     plain versions at the phase-2 LP (B = 256 for K16), trip by trip;
+     LpSolver(shards=4) with device "cuda" and "auto" on the phase-4 LP
+     (row blocks in phase 1, column blocks in phase 2, on the card), each
+     with the counters set to 0 just before, against the host path's
+     objval; sharded_batched_cr_solve at B = 256;
  10. the level-scheduled triangular solves of tools/torch_trisolve_proto.py
      (ops/trisolve.py) on L and U of splu of the final basis of phase 4's
      host solve: full solves (the L sweep, then the U sweep) through K17
@@ -49,13 +61,17 @@ only: no jax, and no module of ipx_tpu.
      sweep against its plain version and scipy's spsolve_triangular, and
      timed beside torch.triangular_solve on the same factors; one step of
      ipx_tpu_torch.entry.entry() on the card; afiro through the port's C
-     API (capi.py) with its default device, the card.
+     API (capi.py) with its default device, the card, and in a subprocess
+     with the card hidden (CUDA_VISIBLE_DEVICES=""), where ipx_solve
+     returns 1004 and raises nothing.
 
-It stops with a non-zero exit at the first failure. The line before the
+K1 takes its launches from phase 9's block products: in phase 4 every
+N N' apply is one K4 launch, and nothing else there launches K1. It stops
+with a non-zero exit at the first failure. The line before the
 last is a JSON object with one entry per kernel: its launches on its main
-path (phase 4 for K1-K4, phase 7 for K5-K13, the "cuda" solve of phase 9
-for K14 and K15, the batched solve of phase 9 for K16, the full solves of
-phase 10 for K17), its error against
+path (phase 4 for K2-K4, phase 7 for K5-K13, the "cuda" solve of phase 9
+for K1, K14v and K15, the batched solve of phase 9 for K14 and K16, the
+full solves of phase 10 for K17), its error against
 its plain version, the times of both, the least time the card could take
 (`bound_ms`, computed from the run's inputs) and a PyTorch call computing
 the same function where there is one (`library_ms`). The last line is
@@ -71,6 +87,7 @@ import time
 import numpy as np
 
 T_START = time.perf_counter()
+REPO = os.path.dirname(os.path.abspath(__file__))
 AFIRO = -464.7531428566996
 RTOL = {"float64": 1e-12, "float32": 1e-5}
 REPS = 20
@@ -102,6 +119,23 @@ def cuda_ms(fn, reps=REPS, warm=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=50):
+    """Device milliseconds per call of fn(), from torch.profiler: the sum of
+    the CUDA events' self device time over `reps` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type.name == "CUDA")
+    return us / reps / 1e3
 
 
 def max_abs(a, b):
@@ -319,34 +353,64 @@ def main():
                         + 4 * (n + m) + 4 * m * 2 + 8 * m * 2,
                         it * (4 * md.A.nnz + n + 20 * m), "f32"))
 
-    # K4 on a prepared SplittedNormalMatrix
+    # K4 on a prepared SplittedNormalMatrix, through the NntPlan that the
+    # phase-2 CR builds, in both forms
     sn = SplittedNormalMatrix(md)
     sn.prepare(host.basis, host.iterate.scaling_factors())
     dsc = device_cr2.DeviceSplittedCR(md, dev)
     dsc.prepare(sn)
     w = t(rng.standard_normal(m), torch.float64)
-    z = kernels.nnt(dsc._Nt, dsc._N, w)
+    plan = dsc._plan
+    forms = {"cooperative": lambda: plan(w),
+             "two-launch": lambda: plan._kernel.launch(w, cooperative=False)}
+    z = {name: form().clone() for name, form in forms.items()}
+    again = {name: form().clone() for name, form in forms.items()}
     z_p = device_cr2.nnt_plain(dsc._Nt, dsc._N, w)
     Nt_lib, N_lib = library_csr(dsc._Nt), library_csr(dsc._N)
     z_l = N_lib @ (Nt_lib @ w)
     torch.cuda.synchronize()
-    ms = cuda_ms(lambda: kernels.nnt(dsc._Nt, dsc._N, w))
+    check(all(torch.equal(z[k], again[k]) for k in forms),
+          "K4: two runs differ")
+    check(torch.equal(z["cooperative"], z["two-launch"]),
+          "K4: the two forms differ")
+    # the forms timed in turns: cooperative, two-launch, two-launch,
+    # cooperative
+    times = {name: [] for name in forms}
+    for name in ("cooperative", "two-launch", "two-launch", "cooperative"):
+        times[name].append(cuda_ms(forms[name]))
+    ms_of = {name: statistics.median(v) for name, v in times.items()}
+    dev_of = {name: device_ms(form) for name, form in forms.items()}
+    kept = "cooperative"        # the plan's form
+    ms = ms_of[kept]
     pms = cuda_ms(lambda: device_cr2.nnt_plain(dsc._Nt, dsc._N, w))
     lms = cuda_ms(lambda: N_lib @ (Nt_lib @ w))
-    report("K4 nnt", f"N (N' w) f64, nnz(N)={sn.N.nnz}", rel_err(z, z_p),
-           1e-12, ms, pms)
-    print(f"  {'':15s} library N_csr @ (Nt_csr @ w): {lms:.4f} ms (rel diff "
-          f"{rel_err(z_l, z_p):.1e}) | {card}", flush=True)
+    lib_dev = device_ms(lambda: N_lib @ (Nt_lib @ w))
+    w_host = w.cpu().numpy()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        plan.apply(w_host)
+    host_ms = (time.perf_counter() - t0) / 200 * 1e3
+    b = bound(op_bytes(dsc._Nt) + op_bytes(dsc._N) + nbytes(w, z_p),
+              4 * sn.N.nnz, "f64")
+    for name in forms:
+        report("K4 nnt", f"N (N' w) f64 {name}", rel_err(z[name], z_p),
+               1e-12, ms_of[name], pms)
+    print(f"  {'':15s} event ms in turns {times}; device ms "
+          f"{ {k: round(v, 5) for k, v in dev_of.items()} }; kept "
+          f"{kept}; bound {b['bound_ms']:.5f} ms; a host apply through the "
+          f"pinned buffers {host_ms:.4f} ms; library N_csr @ (Nt_csr @ w): "
+          f"{lms:.4f} ms event, {lib_dev:.5f} ms device (rel diff "
+          f"{rel_err(z_l, z_p):.1e}); nnz(N)={sn.N.nnz} | {card}",
+          flush=True)
     check(rel_err(z_l, z_p) <= 1e-12, "K4: the library differs")
-    rows["nnt"] = dict(case="N (N' w), f64", max_abs_err=max_abs(z, z_p),
-                       ms=ms, plain_ms=pms, library_ms=lms,
-                       **bound(op_bytes(dsc._Nt) + op_bytes(dsc._N)
-                               + nbytes(w, z), 4 * sn.N.nnz, "f64"))
-    del host
+    rows["nnt"] = dict(case=f"N (N' w), f64, P=1, {kept}, the plan's launch",
+                       max_abs_err=max_abs(z[kept], z_p), ms=ms,
+                       plain_ms=pms, library_ms=lms, **b)
+    N_phase2 = sn.N
+    del host, forms, z, again
 
     # -- phase 3: afiro ----------------------------------------------------------
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "tests"))
+    sys.path.insert(0, os.path.join(REPO, "tests"))
     from lp_fixtures import afiro
     s = LpSolver(Parameters(display=0, debug=1, device="cuda"))
     check(afiro().load_into(s) == 0, "afiro load failed")
@@ -386,6 +450,7 @@ def main():
     # the factors of phase 10: splu of the host solve's final basis
     factors = trisolve.basis_factors(ref.basis)
     e_obj = abs(pi.objval - ri.objval) / abs(ri.objval)
+
     def times(i):
         return (f"ipm1 {i.time_ipm1:.3f} s, ipm2 {i.time_ipm2:.3f} s, maxvol "
                 f"{i.time_maxvol:.3f} s, cr1 {i.time_cr1:.3f} s, cr2 "
@@ -405,13 +470,14 @@ def main():
     check(e_obj <= 1e-8, f"objective differs by {e_obj:.1e}")
     check(pi.kktiter1 > 0 and pi.kktiter2 > 0, "a phase ran no device CR")
     check(pi.time_cr2_NNt > 0, "no device N N' time")
-    for name in ("csr_spmv", "normal_apply", "cr_step", "nnt"):
+    for name in SINGLE:
         check(launches[name] > 0, f"kernel {name} was not launched in "
               "phase 4")
     check("jax" not in sys.modules, "jax was imported")
-    # the launches of K1-K4 on their main path, the single LP
+    # the launches of K2-K4 on their main path, the single LP
     path_launches = {k: launches[k] for k in SINGLE}
     host_objval = ri.objval
+    walls_phase4(card, data, t_port, t_ref, host_objval)
 
     del port, ref
     t_batched = time.perf_counter()
@@ -422,9 +488,10 @@ def main():
           f"script {time.perf_counter() - T_START:.1f} s", flush=True)
 
     t_sharded = time.perf_counter()
-    sharded_rows, launches = sharded_phase(card, data, md, host_objval, dev)
+    sharded_rows, launches = sharded_phase(card, data, md, N_phase2,
+                                           host_objval, dev)
     rows.update(sharded_rows)
-    path_launches.update({k: launches[k] for k in SHARDED})
+    path_launches.update({k: launches[k] for k in SHARDED + ("csr_spmv",)})
     print(f"phase 9 took {time.perf_counter() - t_sharded:.1f} s; the "
           f"script {time.perf_counter() - T_START:.1f} s", flush=True)
 
@@ -448,7 +515,7 @@ def main():
 SOURCE = {"csr_spmv": "ipx_tpu_torch/csrc/spmv.cu",
           "normal_apply": "ipx_tpu_torch/csrc/spmv.cu",
           "cr_step": "ipx_tpu_torch/csrc/cr.cu",
-          "nnt": "ipx_tpu_torch/csrc/spmv.cu",
+          "nnt": "ipx_tpu_torch/csrc/nnt.cu",
           "csr_spmm": "ipx_tpu_torch/csrc/spmm.cu",
           "normal_apply_batched": "ipx_tpu_torch/csrc/spmm.cu",
           "batched_cr_step": "ipx_tpu_torch/csrc/batch_cr.cu",
@@ -461,7 +528,8 @@ SOURCE = {"csr_spmv": "ipx_tpu_torch/csrc/spmv.cu",
           "block_sum": "ipx_tpu_torch/csrc/sharded.cu",
           "sharded_cr_step": "ipx_tpu_torch/csrc/sharded.cu",
           "sharded_batched_cr_step": "ipx_tpu_torch/csrc/sharded.cu",
-          "level_solve": "ipx_tpu_torch/csrc/trisolve.cu"}
+          "level_solve": "ipx_tpu_torch/csrc/trisolve.cu",
+          "block_spmv_sum": "ipx_tpu_torch/csrc/nnt.cu"}
 REPLACES = {"csr_spmv": "ipx_tpu/ops/spmv.py:93",
             "normal_apply": "ipx_tpu/ops/spmv.py:226",
             "cr_step": "ipx_tpu/ops/device_cr.py:85",
@@ -475,22 +543,123 @@ REPLACES = {"csr_spmv": "ipx_tpu/ops/spmv.py:93",
             "newton_rhs": "ipx_tpu/parallel/batch.py:465",
             "newton_recover": "ipx_tpu/parallel/batch.py:473",
             "starting_point": "ipx_tpu/parallel/batch.py:331",
-            "block_sum": "ipx_tpu/parallel/sharding.py:132",
+            "block_sum": "ipx_tpu/parallel/sharding.py:170",
             "sharded_cr_step": "ipx_tpu/parallel/sharding.py:221",
             "sharded_batched_cr_step": "ipx_tpu/parallel/sharding.py:429",
-            "level_solve": "tools/device_trisolve_proto.py:118"}
-SINGLE = ("csr_spmv", "normal_apply", "cr_step", "nnt")
+            "level_solve": "tools/device_trisolve_proto.py:118",
+            "block_spmv_sum": "ipx_tpu/parallel/sharding.py:132"}
+# the kernels of the single LP's main path (phase 4); K1 runs in phase 9
+SINGLE = ("normal_apply", "cr_step", "nnt")
 BATCHED = ("csr_spmm", "normal_apply_batched", "batched_cr_step",
            "step_batch", "ipm_update", "ipm_prologue", "newton_rhs",
            "newton_recover", "starting_point")
 # the kernels of the sharded solves (phase 9)
-SHARDED = ("block_sum", "sharded_cr_step", "sharded_batched_cr_step")
+SHARDED = ("block_sum", "block_spmv_sum", "sharded_cr_step",
+           "sharded_batched_cr_step")
 P_SHARDS = 4
 # the kernels of a polish step: its CR runs on the host
 POLISH = ("csr_spmm", "step_batch", "ipm_update", "ipm_prologue",
           "newton_rhs", "newton_recover")
 B_FULL = 256
 POLISH_STEPS = 3
+
+
+# phase 4's solves of both paths once each, twice, in a process whose
+# OpenMP setting is the caller's (OMP_NUM_THREADS=4)
+OMP4 = r"""
+import json, time
+import torch
+from ipx_tpu_torch import LpSolver, Parameters, testgen as tg
+from ipx_tpu_torch.native import threads
+data = tg.transportation(8000, 12000, 0.001, seed=1)
+out = {"cuda": [], "cpu": []}
+for device in ("cuda", "cpu", "cpu", "cuda"):
+    s = LpSolver(Parameters(display=0, device=device))
+    assert tg.load_into_solver(data, s) == 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = s.solve()
+    torch.cuda.synchronize()
+    out[device].append((st, time.perf_counter() - t0, s.get_info().objval))
+out["team"] = torch.get_num_threads()
+out["blas"] = [get() for get, _ in threads.blas_pools()]
+print(json.dumps(out))
+"""
+
+
+def walls_phase4(card, data, t_port, t_ref, host_objval):
+    """The rest of phase 4: a second turn of the host path ("cpu") and the
+    port ("cuda"), an f64-precision "cuda" solve (the f64 device CR), and
+    both paths twice in a subprocess with OMP_NUM_THREADS=4, each wall
+    beside the OpenMP team and the OpenBLAS pools' size in a solve. Fails
+    if a solve is not at status 1000 with the host objval to 1e-8, or if
+    the best "cuda" wall of the default setting is above 1.15x its best
+    under OMP_NUM_THREADS=4 or above 1.5x the best "cpu" wall."""
+    import torch
+    from ipx_tpu_torch import LpSolver, Parameters
+    from ipx_tpu_torch import testgen as tg
+    from ipx_tpu_torch.native import threads
+
+    def rel(objval):
+        return abs(objval - host_objval) / abs(host_objval)
+
+    def timed(**params):
+        s = LpSolver(Parameters(display=0, **params))
+        check(tg.load_into_solver(data, s) == 0, "load_model failed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = s.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        i = s.get_info()
+        check(st == 1000 and rel(i.objval) <= 1e-8, f"phase 4 {params}: "
+              f"status {st}, objval rel diff {rel(i.objval):.1e}")
+        return wall, i
+
+    blas = threads.blas_threads(os.environ)
+    walls = {"cuda": [t_port], "cpu": [t_ref]}
+    for device in ("cpu", "cuda"):
+        walls[device].append(timed(device=device)[0])
+    f64_wall, f64 = timed(device="cuda", precision="f64")
+    out = subprocess.run([sys.executable, "-c", OMP4], cwd=REPO,
+                         capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, OMP_NUM_THREADS="4"))
+    check(out.returncode == 0, "phase 4: the OMP_NUM_THREADS=4 run failed: "
+          + out.stderr[-2000:])
+    omp4 = json.loads(out.stdout.strip().splitlines()[-1])
+    for device in ("cuda", "cpu"):
+        for st, _, objval in omp4[device]:
+            check(st == 1000 and rel(objval) <= 1e-8, f"phase 4 "
+                  f"OMP_NUM_THREADS=4 {device}: status {st}, objval rel "
+                  f"diff {rel(objval):.1e}")
+    best = {k: min(v) for k, v in walls.items()}
+    best4 = {k: min(w for _, w, _ in omp4[k]) for k in ("cuda", "cpu")}
+    fmt = lambda v: "/".join(f"{x:.3f}" for x in v)  # noqa: E731
+    print(f"  walls, default setting (OpenMP team "
+          f"{torch.get_num_threads()} of {len(os.sched_getaffinity(0))} "
+          f"CPUs, OpenBLAS pools at {blas} thread in a solve): cuda "
+          f"{fmt(walls['cuda'])} s, cpu "
+          f"{fmt(walls['cpu'])} s; f64-precision cuda {f64_wall:.3f} s "
+          f"(cr1 {f64.time_cr1:.3f} s, CR iters {f64.kktiter1}+"
+          f"{f64.kktiter2}, objval rel diff {rel(f64.objval):.1e}); "
+          f"OMP_NUM_THREADS=4 (OpenMP team {omp4['team']}, OpenBLAS "
+          f"pools {omp4['blas']}): cuda "
+          f"{fmt(w for _, w, _ in omp4['cuda'])} s, cpu "
+          f"{fmt(w for _, w, _ in omp4['cpu'])} s; best cuda / best cpu "
+          f"{best['cuda'] / best['cpu']:.3f}, best cuda / best cuda at "
+          f"OMP_NUM_THREADS=4 {best['cuda'] / best4['cuda']:.3f} | {card}",
+          flush=True)
+    # the fault this guards against: the native regions waiting on the
+    # BLAS pools' spinning workers made the card path 1.8x the host path
+    # and about 5x its own time under OMP_NUM_THREADS=4 (PERF.md §5). With
+    # the pools quiet the host path, whose whole phase-2 CR is native, is
+    # faster than the card path on this LP, so no gate asks the card to win
+    check(best["cuda"] <= 1.15 * best4["cuda"], f"phase 4: the card path "
+          f"({best['cuda']:.3f} s) is above 1.15x its time under "
+          f"OMP_NUM_THREADS=4 ({best4['cuda']:.3f} s)")
+    check(best["cuda"] <= 1.5 * best["cpu"], f"phase 4: the card path "
+          f"({best['cuda']:.3f} s) is above 1.5x the host path "
+          f"({best['cpu']:.3f} s)")
 
 
 def scenarios(data, B):
@@ -1096,17 +1265,20 @@ def polish_phase(card, data, b4, handoff, device):
         check(launched[name] > 0, f"phase 8 e2e: {name} not launched")
 
 
-def sharded_phase(card, data, md, host_objval, dev):
+def sharded_phase(card, data, md, N2, host_objval, dev):
     """Phase 9, the sharded solves (parallel/sharding.py) with P_SHARDS row
-    blocks on the card: K14-K16 against their plain versions at the
-    presolved LP `md` of phase 2; LpSolver(shards=4) with device "cuda" and
-    "auto" on `data`, with the counters set to 0 just before each, against
-    the host path's objval; sharded_batched_cr_solve at B = B_FULL. Returns
-    the kernel rows of K14-K16 and the launch counts of their main paths:
-    the "cuda" solve for K14 and K15, the batched solve for K16."""
+    blocks on the card: K4 over P_SHARDS column blocks of phase 2's N
+    (`N2`), K14v and K14-K16 against their plain versions at the presolved
+    LP `md` of phase 2; LpSolver(shards=4) with device "cuda" and "auto" on
+    `data`, with the counters set to 0 just before each, against the host
+    path's objval; sharded_batched_cr_solve at B = B_FULL. Returns the
+    kernel rows of K14v and K14-K16 and the launch counts of their main
+    paths: the "cuda" solve for K1, K14v and K15, the batched solve for
+    K14 and K16."""
     import torch
     from ipx_tpu_torch import LpSolver, Parameters, kernels
     from ipx_tpu_torch import testgen as tg
+    from ipx_tpu_torch.ops import spmv
     from ipx_tpu_torch.parallel import sharding
 
     A = md.A
@@ -1126,14 +1298,97 @@ def sharded_phase(card, data, md, host_objval, dev):
         check(err <= tol, f"{name} {case}: error {err:.3e} > {tol:.0e}")
 
     snm = sharding.ShardedNormalMatrix(A, P, dev)
-    ops = sum(op_bytes(op) for op in snm.op_A + snm.op_At)
+    # the operands each loop reads: K15's apply takes the whole A' split at
+    # the row bounds (K14v), K16's the blocks' A_p' (K5); both the A_p
+    ops_A = sum(op_bytes(op) for op in snm.op_A)
+    ops_k15 = ops_A + op_bytes(snm.op_At_split)
+    ops_k16 = ops_A + sum(op_bytes(op) for op in snm.op_At)
     print(f"phase 9: sharded solves, P={P} row blocks {snm.rows} of m={m} "
           f"n={n} nnz(A)={A.nnz}; {card}", flush=True)
 
-    # K14 at the main path's three shapes, bit for bit: (P, m) unscaled (the
-    # N N' psum), (P, n) and (P, n, B) scaled (the single and batched
-    # applies). The row is the unscaled case, which one library call,
-    # torch.sum(parts, 0), also computes.
+    def moved(fn):
+        """fn() and the launches it made, by kernel."""
+        before = dict(kernels.LAUNCHES)
+        out = fn()
+        return out, {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                     if v != before[k]}
+
+    # K4 over P column blocks of phase 2's N, its psum inside: one launch an
+    # apply, against the per-block plain version and cuSPARSE on the whole N
+    nnt = sharding.ShardedSplittedNNt(N2.shape[0], N2.shape[1], P, dev)
+    nnt.set_operand(N2)
+    w = t(rng.standard_normal(N2.shape[0]))
+    z, launched = moved(lambda: sharding.block_nnt(nnt, w).clone())
+    check(launched == {"nnt": 1}, f"block_nnt launched {launched}, not one "
+          "K4")
+    again = sharding.block_nnt(nnt, w).clone()
+    z_p = sharding.block_nnt_plain(nnt.blocks, w)
+    Nt_lib, N_lib = library_csr(nnt.plan.Nt), library_csr(nnt.plan.N)
+    torch.cuda.synchronize()
+    check(torch.equal(z, again), "K4 over column blocks: two runs differ")
+    ms = cuda_ms(lambda: sharding.block_nnt(nnt, w))
+    dms = device_ms(lambda: sharding.block_nnt(nnt, w))
+    pms = cuda_ms(lambda: sharding.block_nnt_plain(nnt.blocks, w))
+    lms = cuda_ms(lambda: N_lib @ (Nt_lib @ w))
+    ldms = device_ms(lambda: N_lib @ (Nt_lib @ w))
+    report("K4 nnt", f"P={P} column blocks, 1 launch/apply",
+           rel_err(z, z_p), 1e-12, ms, pms)
+    print(f"  {'':26s} device {dms:.5f} ms; cuSPARSE N_csr @ (Nt_csr @ w) "
+          f"on the whole N: {lms:.4f} ms event, {ldms:.5f} ms device | "
+          f"{card}", flush=True)
+    del nnt, Nt_lib, N_lib
+
+    # K14v: the vector apply's first pass with its psum, beside today's
+    # composition (P K1 launches into parts, then K14) and A' v by cuSPARSE
+    # (unscaled, a yardstick); then the launches of one vector apply
+    op = snm.op_At_split
+    Ws, Wl, v = t(rng.uniform(0.5, 2.0, n)), t(rng.uniform(0.5, 2.0, m)), \
+        t(rng.standard_normal(m))
+
+    def composition():
+        parts = torch.empty((P, n), dtype=f64, device=dev)
+        for o, (r0, r1), part in zip(snm.op_At, snm.bounds, parts):
+            kernels.csr_spmv(o, v[r0:r1], out=part)
+        return kernels.block_sum(parts, Ws)
+
+    u = kernels.block_spmv_sum(op, v, Ws).clone()
+    again = kernels.block_spmv_sum(op, v, Ws).clone()
+    u_p = spmv.split_spmv_plain(op, v, Ws)
+    u_c = composition()
+    At_lib = library_csr(op)
+    torch.cuda.synchronize()
+    check(torch.equal(u, again), "K14v: two runs differ")
+    check(rel_err(u_c, u_p) <= 1e-12, "K14v: the composition differs")
+    ms = cuda_ms(lambda: kernels.block_spmv_sum(op, v, Ws))
+    dms = device_ms(lambda: kernels.block_spmv_sum(op, v, Ws))
+    pms = cuda_ms(lambda: spmv.split_spmv_plain(op, v, Ws))
+    cms, cdms = cuda_ms(composition), device_ms(composition)
+    lms, ldms = cuda_ms(lambda: At_lib @ v), device_ms(lambda: At_lib @ v)
+    report("K14v block_spmv_sum", f"W_s * sum of P={P} A_p' v_p f64",
+           rel_err(u, u_p), 1e-12, ms, pms)
+    out, launched = moved(lambda: sharding.block_normal_apply(snm, Ws, Wl,
+                                                              v))
+    want = sharding._block_apply_plain(snm, Ws, Wl, v, spmv.csr_spmv_plain)
+    print(f"  {'':26s} device {dms:.5f} ms; today's composition ({P} K1 + "
+          f"K14): {cms:.4f} ms event, {cdms:.5f} ms device; cuSPARSE "
+          f"At_csr @ v (unscaled): {lms:.4f} ms event, {ldms:.5f} ms "
+          f"device; one vector apply launched {launched} (rel err "
+          f"{rel_err(out, want):.1e}) | {card}", flush=True)
+    check(launched == {"block_spmv_sum": 1, "csr_spmv": P},
+          f"a vector apply launched {launched}, not K14v and {P} K1")
+    check(rel_err(out, want) <= 1e-12, "the vector apply differs")
+    rows["block_spmv_sum"] = dict(
+        case=f"u = W_struct * sum_p A_p' v_p, P={P}, f64",
+        max_abs_err=max_abs(u, u_p), ms=ms, plain_ms=pms, library_ms=None,
+        **bound(op_bytes(op) + nbytes(v, Ws, u), 2 * op.vals.numel() + n,
+                "f64"))
+    del u, again, u_p, u_c, At_lib, out, want, Ws, Wl, v
+
+    # K14 at the shapes it had on the main path, bit for bit: (P, m)
+    # unscaled (the N N' psum before K4 took it in), (P, n) scaled (the
+    # vector apply's, before K14v) and (P, n, B) scaled (the batched apply,
+    # K16's, its one shape on a main path now and the row's case). One
+    # library call, torch.sum(parts, 0), computes the unscaled case.
     for shape, scaled in (((m,), False), ((n,), True), ((n, B), True)):
         parts = t(rng.standard_normal((P,) + shape))
         scale = t(rng.uniform(0.5, 2.0, shape)) if scaled else None
@@ -1153,10 +1408,11 @@ def sharded_phase(card, data, md, host_objval, dev):
                   f"{lms:.4f} ms, max abs diff "
                   f"{max_abs(torch.sum(parts, 0), want):.3e} | {card}",
                   flush=True)
+        if len(shape) == 2:
             rows["block_sum"] = dict(
                 case=case, max_abs_err=max_abs(got, want), ms=ms,
-                plain_ms=pms, library_ms=lms,
-                **bound(nbytes(parts, got), P * m, "f64"))
+                plain_ms=pms, library_ms=None,
+                **bound(nbytes(parts, got, scale), P * n * B, "f64"))
         del parts, scale, got, want
     torch.cuda.empty_cache()
 
@@ -1192,7 +1448,7 @@ def sharded_phase(card, data, md, host_objval, dev):
     rows["sharded_cr_step"] = dict(
         case=f"ShardedDiagCR recurrence, P={P}, {timed} trips, f64",
         max_abs_err=max_abs(y, y_p), ms=ms, plain_ms=pms, library_ms=None,
-        **bound(ops + 8 * (n + 5 * m), timed * (4 * A.nnz + n + 20 * m),
+        **bound(ops_k15 + 8 * (n + 5 * m), timed * (4 * A.nnz + n + 20 * m),
                 "f64"))
 
     # K16: five trips against the plain version, then a fixed number timed
@@ -1224,7 +1480,7 @@ def sharded_phase(card, data, md, host_objval, dev):
     rows["sharded_batched_cr_step"] = dict(
         case=f"batched recurrence, P={P}, B={B}, {timed} trips, f64",
         max_abs_err=max_abs(Y, Y_p), ms=ms, plain_ms=pms, library_ms=None,
-        **bound(ops + 8 * (n + 4 * m) * B,
+        **bound(ops_k16 + 8 * (n + 4 * m) * B,
                 timed * (4 * A.nnz + n + 20 * m) * B, "f64"))
     del Y, Y_p, Wb, Wbs, Wbl, invd_b, R
     torch.cuda.empty_cache()
@@ -1261,12 +1517,15 @@ def sharded_phase(card, data, md, host_objval, dev):
         check(e <= 1e-8, f"shards={P} {device}: objval differs by {e:.1e}")
         check(i.kktiter1 > 0 and cr.solves > 0 and cr.device.type == "cuda",
               f"shards={P} {device}: the sharded CR did not run on the card")
-        for name in ("block_sum", "sharded_cr_step"):
+        for name in ("block_spmv_sum", "csr_spmv", "sharded_cr_step", "nnt"):
             check(launched[name] > 0, f"shards={P} {device}: {name} was not "
                   "launched")
-        check(applies > 0 and nnt[1].device.type == "cuda",
+        check(launched["block_sum"] == 0, f"shards={P} {device}: K14 ran on "
+              "a vector path")
+        check(applies > 0 and nnt[1].device.type == "cuda"
+              and launched["nnt"] == applies,
               f"shards={P} {device}: the sharded N N' did not run on the "
-              "card")
+              "card, one K4 launch an apply")
         del s
 
     # sharded_batched_cr_solve at full width, weights as in
@@ -1282,8 +1541,8 @@ def sharded_phase(card, data, md, host_objval, dev):
                                                  RHS, 1e-10, 2000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches["sharded_batched_cr_step"] = kernels.LAUNCHES[
-        "sharded_batched_cr_step"]
+    for name in ("sharded_batched_cr_step", "block_sum"):
+        launches[name] = kernels.LAUNCHES[name]
     Wt, Yt = t(W), t(Y)
     res = (t(RHS) - snm.apply(Wt[:n].contiguous(), Wt[n:].contiguous(), Yt)
            ).abs().amax(0).cpu().numpy()
@@ -1294,12 +1553,36 @@ def sharded_phase(card, data, md, host_objval, dev):
           f"{ {k: v for k, v in kernels.LAUNCHES.items() if v} }; {card}",
           flush=True)
     check(worst <= 1e-9, f"sharded batched CR: residual {worst:.2e}")
-    check(launches["sharded_batched_cr_step"] > 0, "K16 was not launched")
+    check(launches["sharded_batched_cr_step"] > 0
+          and launches["block_sum"] > 0, "K16 or K14 was not launched")
     bad = sorted(k for k in sys.modules
                  if k.split(".")[0] in ("ipx_tpu", "jax", "jaxlib"))
     check(not bad, f"modules of ipx_tpu or jax were imported: {bad[:5]}")
     return rows, launches
 
+
+# afiro through the C API in a process without the card: ipx_solve returns
+# INTERNAL_ERROR and enters neither presolve nor the IPM
+HIDDEN = r"""
+import sys
+sys.path.insert(0, "tests")
+import torch
+from ipx_tpu_torch import capi
+from ipx_tpu_torch.lp_solver import LpSolver
+from lp_fixtures import afiro
+assert not torch.cuda.is_available()
+entered = []
+for name in ("_presolve", "_interior_point_solve"):
+    orig = getattr(LpSolver, name)
+    setattr(LpSolver, name, lambda self, _o=orig, _n=name: (
+        entered.append(_n), _o(self))[1])
+h = capi.ipx_new()
+a = afiro().arrays()
+assert capi.ipx_load_model(h, a["num_var"], a["obj"], a["lb"], a["ub"],
+                           a["num_constr"], a["Ap"], a["Ai"], a["Ax"],
+                           a["rhs"], a["constr_type"]) == 0
+print("status", capi.ipx_solve(h), "entered", entered)
+"""
 
 TRI_B = (1, 256, 1024)
 TRI_ROW_B = 256       # the case of K17's row in the kernels line
@@ -1480,6 +1763,15 @@ def trisolve_phase(card, L, U, dev):
     check(st == 1000 and e <= 1e-9, f"capi afiro: status {st}, rel err "
           f"{e:.1e}")
     check(used.get("cr_step", 0) > 0, "capi afiro: no kernel launched")
+    # the C API with the card hidden: a status, not an exception
+    out = subprocess.run([sys.executable, "-c", HIDDEN], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    said = out.stdout.strip().splitlines()[-1:] or [""]
+    print(f"  capi.ipx_solve on afiro with CUDA_VISIBLE_DEVICES=\"\": rc "
+          f"{out.returncode}, {said[0]}", flush=True)
+    check(out.returncode == 0 and said[0] == "status 1004 entered []",
+          "capi with the card hidden: " + (said[0] or out.stderr[-2000:]))
     bad = sorted(k for k in sys.modules
                  if k.split(".")[0] in ("ipx_tpu", "jax", "jaxlib"))
     check(not bad, f"modules of ipx_tpu or jax were imported: {bad[:5]}")

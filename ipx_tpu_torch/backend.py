@@ -20,9 +20,10 @@ from . import kernels
 
 # Minimum problem size for the device path to pay off in auto mode: the
 # reference's value, not a measurement on a card. At the one size measured so
-# far, the 20k-row transportation LP (nnz 192 004), the device path was
-# slower end to end than the host path in the default OpenMP setting
-# (PERF.md, "Where the time goes").
+# far, the 20k-row transportation LP (nnz 192 004), the device path takes
+# about the host path's time once a solve quiets the BLAS pools
+# (native/threads.py; PERF.md, "Where the time goes"); a sweep of sizes
+# would set this value.
 MIN_NNZ_AUTO = 20_000
 
 DEVICES = ("auto", "cuda", "torch_cpu", "cpu")
@@ -41,7 +42,8 @@ def cuda_device() -> torch.device:
 def require(device: str) -> None:
     """Raises unless `device` is one of DEVICES and, for "cuda", the card
     and the kernel library are there: LpSolver.solve checks this before any
-    work, so a solve that asked for the card never runs on the host."""
+    work and ends at INTERNAL_ERROR when it raises, so a solve that asked
+    for the card never runs on the host."""
     if device not in DEVICES:
         raise ValueError(f"unknown device {device!r}; expected one of "
                          f"{DEVICES}")

@@ -11,14 +11,17 @@ dispatch on a tensor's device, and a launcher given anything but a CUDA
 tensor raises.
 
 Kernels: K1 ``csr_spmv``, K2 ``normal_apply`` (csrc/spmv.cu), K3
-``cr_step`` (csrc/cr.cu), K4 ``nnt`` (two K1 launches); for the batched
+``cr_step`` (csrc/cr.cu), K4 ``nnt`` (NntKernel, one C call per N N' apply
+over P >= 1 column blocks, csrc/nnt.cu); for the batched
 phase 1, K5 ``csr_spmm``, K6 ``normal_apply_batched`` (csrc/spmm.cu), K7
 ``batched_cr_step`` (csrc/batch_cr.cu), K8 ``step_batch`` and K9
 ``ipm_update`` (csrc/ipm_step.cu); for the rest of the batched IPM step, in
 float64, K10 ``ipm_prologue`` (csrc/ipm_prologue.cu), K11 ``newton_rhs``
 and K12 ``newton_recover`` (csrc/newton.cu) and K13 ``starting_point``
 (csrc/start.cu); for the sharded solves, in float64, K14 ``block_sum``, K15
-``sharded_cr_step`` and K16 ``sharded_batched_cr_step`` (csrc/sharded.cu);
+``sharded_cr_step`` and K16 ``sharded_batched_cr_step`` (csrc/sharded.cu)
+and K14v ``block_spmv_sum``, the vector apply's psum fused into its first
+pass (csrc/nnt.cu);
 for the level-scheduled triangular solve, in float64, K17 ``level_solve``
 (csrc/trisolve.cu). Batched arrays are (rows, B) with the B lanes
 contiguous.
@@ -38,7 +41,8 @@ LAUNCHES = dict.fromkeys(("csr_spmv", "normal_apply", "cr_step", "nnt",
                           "batched_cr_step", "step_batch", "ipm_update",
                           "ipm_prologue", "newton_rhs", "newton_recover",
                           "starting_point", "block_sum", "sharded_cr_step",
-                          "sharded_batched_cr_step", "level_solve"), 0)
+                          "sharded_batched_cr_step", "level_solve",
+                          "block_spmv_sum"), 0)
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _lib = None
@@ -104,7 +108,9 @@ def _declare(lib: ctypes.CDLL) -> None:
            + [I64, P, P, P],
            "ipxt_sbcr_step_f64": [I, I64, I64, I64, I64, I64, D] + [P] * 11
            + [I64, P, P, P],
-           "ipxt_level_solve_f64": [I64, P, I64] + [P] * 8}
+           "ipxt_level_solve_f64": [I64, P, I64] + [P] * 8,
+           "ipxt_nnt_f64": [I64, P, P, P, I] * 2 + [I] + [P] * 4 + [I, P],
+           "ipxt_block_spmv_sum_f64": [I64, P, P, P, I, I] + [P] * 6}
     for name, argtypes in f64.items():
         f = getattr(lib, name)
         f.argtypes = argtypes
@@ -261,12 +267,64 @@ def normal_apply(At, A, W: torch.Tensor, v: torch.Tensor, out=None,
     return out
 
 
-def nnt(Nt, N, w: torch.Tensor, out=None) -> torch.Tensor:
-    """K4: z = N (N' w) as two K1 launches, into `out` if given; `Nt` is N'
-    as a CSR operand."""
-    z = csr_spmv(N, csr_spmv(Nt, w), out=out)
-    LAUNCHES["nnt"] += 1
-    return z
+MAX_SPLIT = 8         # blocks a split operand may have (csrc/nnt.cu)
+
+
+def _op_args(op) -> tuple:
+    """The arguments by which a C entry of csrc/nnt.cu takes a CSR
+    operand: rows, indptr, indices, vals and lanes per row."""
+    return (op.rows, op.indptr.data_ptr(), op.indices.data_ptr(),
+            op.vals.data_ptr(), op.vec)
+
+
+def _check_split(op, device: torch.device) -> None:
+    """A float64 CSR operand in the split layout of ops/spmv.py (which
+    checks its bounds when it is built) that csrc/nnt.cu takes: at most
+    MAX_SPLIT blocks."""
+    _check_operand(op, device, F64)
+    if not 1 <= op.P <= MAX_SPLIT:
+        raise ValueError(f"the split kernels take 1 to {MAX_SPLIT} blocks, "
+                         f"got {op.P}")
+
+
+class NntKernel:
+    """K4 bound to one operand: z = sum_{p<P} N_p (N_p' w), the P column
+    blocks summed in block order, in one C call (csrc/nnt.cu). `Nt` is N' as
+    a CSR operand, `N` the CSR operand of N split at the P - 1 column
+    bounds (P = 1: N (N' w)); float64. The operands are checked, u and z
+    allocated, the argument tuple packed and the current stream taken once,
+    here; launch(w) then checks w and makes one ctypes call, one
+    cooperative launch with a grid-wide barrier between the halves. The z
+    it returns is this object's and the next launch overwrites it."""
+
+    def __init__(self, Nt, N):
+        device = _device_of(N.vals)
+        load()
+        _check_operand(Nt, device, F64)
+        _check_split(N, device)
+        if (Nt.rows, Nt.cols) != (N.cols, N.rows):
+            raise ValueError(f"Nt is {Nt.rows} x {Nt.cols}, N is {N.rows} x "
+                             f"{N.cols}: not N' and N")
+        self.device, self.m = device, N.rows
+        self.u = torch.empty(Nt.rows, dtype=F64, device=device)
+        self.z = torch.empty(N.rows, dtype=F64, device=device)
+        self._keep = (Nt, N)            # alive while the pointers are used
+        self._head = (*_op_args(Nt), *_op_args(N), N.P, N.inner_ptr)
+        self._tail = (self.u.data_ptr(), self.z.data_ptr())
+        self._stream = _stream(device)
+
+    def launch(self, w: torch.Tensor, cooperative: bool = True
+               ) -> torch.Tensor:
+        """z for w. `cooperative` False takes the C entry's two-launch form
+        instead, which the solvers never ask for: chip_smoke.py times the
+        two forms in turns, and the cooperative one is kept as the faster
+        (PERF.md §6)."""
+        _check(w, "w", self.device, F64, self.m)
+        err = _lib.ipxt_nnt_f64(*self._head, w.data_ptr(), *self._tail,
+                                int(cooperative), self._stream)
+        _raise_if(err, "nnt")
+        LAUNCHES["nnt"] += 1
+        return self.z
 
 
 # -- K3 -----------------------------------------------------------------------
@@ -764,6 +822,31 @@ def block_sum(parts: torch.Tensor, scale=None, out=None, state=None):
     return out
 
 
+def block_spmv_sum(op, x: torch.Tensor, scale=None, out=None, state=None):
+    """K14v: out[i] = scale[i] * (((s_0 + s_1) + ...) + s_{P-1}), s_p the
+    sum over row i's entries of block p of op (the split layout of
+    ops/spmv.py) of vals * x (csrc/nnt.cu): for `op` the whole A' split at
+    the row blocks' bounds, the scaled psum of the blocks' A_p' v_p in one
+    launch. `state` is a CR loop's: once it says done, the launch returns at
+    once."""
+    device = _device_of(x)
+    _check_split(op, device)
+    _check(x, "x", device, F64, op.cols)
+    if scale is not None:
+        _check(scale, "scale", device, F64, op.rows)
+    out = torch.empty(op.rows, dtype=F64, device=device) if out is None \
+        else out
+    _check(out, "out", device, F64, op.rows)
+    if state is not None:
+        _check_state(state, device)
+    err = _lib.ipxt_block_spmv_sum_f64(
+        *_op_args(op), op.P, op.inner_ptr, x.data_ptr(), _ptr(scale),
+        out.data_ptr(), _ptr(state), _stream(device))
+    _raise_if(err, "block_spmv_sum")
+    LAUNCHES["block_spmv_sum"] += 1
+    return out
+
+
 def _check_state(state, device) -> None:
     """A CR loop's state as the block products read it: float64, at least
     the scalar slots of common.cuh."""
@@ -790,36 +873,59 @@ def _slices(t: torch.Tensor, sizes) -> list:
     return out
 
 
-def block_normal_apply(At, A, W_struct, W_slack, v, out=None, parts=None,
-                       u=None, partials=None, state=None):
-    """out = C v over row blocks for v of shape (m,) or (m, B): A_p' v_p by
-    K1 or K5 into parts[p], their ordered sum scaled by W_struct by K14 into
-    u, then A_p u + W_slack_p v_p by K1 or K5 into the block's rows of out,
-    with the block's partials of v.out into partials[p] if given. `At` and
-    `A` are the blocks' operands (A_p' with n rows, A_p with the block's
-    rows); scratch not given is allocated here."""
-    prod = csr_spmm if v.dim() == 2 else csr_spmv
+def _block_products(prod, A, u, out, W_slack, v, partials, state) -> None:
+    """The second pass of a row-blocked apply: A_p u + W_slack_p v_p by
+    `prod` (K1 or K5) into the block's rows of out, with the block's
+    partials of v.out into partials[p] if given."""
     rows = [op.rows for op in A]
-    n, lanes = W_struct.shape[0], tuple(v.shape[1:])
-    e = lambda *s: torch.empty(s, dtype=F64, device=v.device)  # noqa: E731
-    out = e(*v.shape) if out is None else out
-    parts = e(len(A), n, *lanes) if parts is None else parts
     partials = [None] * len(A) if partials is None else partials
-    for op, v_p, part in zip(At, _slices(v, rows), parts):
-        prod(op, v_p, out=part, state=state)
-    u = block_sum(parts, W_struct, out=u, state=state)
     for op, o_p, w_p, v_p, pc in zip(A, _slices(out, rows),
                                      _slices(W_slack, rows),
                                      _slices(v, rows), partials):
         prod(op, u, out=o_p, addw=w_p, addv=v_p, partials=pc, state=state)
+
+
+def block_normal_apply(At, A, W_struct, W_slack, v, out=None, u=None,
+                       partials=None, state=None):
+    """out = C v over row blocks for v of shape (m,), in P + 1 launches:
+    u = W_struct * sum_p A_p' v_p by one K14v launch on `At`, the whole A'
+    split at the row blocks' bounds, then the block products of
+    _block_products by K1. `A` are the blocks' operands (A_p with the
+    block's rows); scratch not given is allocated here."""
+    if At.P != len(A):
+        raise ValueError(f"At is split into {At.P} blocks, A into {len(A)}")
+    out = torch.empty_like(v) if out is None else out
+    u = block_spmv_sum(At, v, W_struct, out=u, state=state)
+    _block_products(csr_spmv, A, u, out, W_slack, v, partials, state)
+    return out
+
+
+def block_normal_apply_batched(At, A, W_struct, W_slack, V, out=None,
+                               parts=None, U=None, partials=None,
+                               state=None):
+    """out = C V over row blocks for V of shape (m, B), in 2P + 1 launches:
+    A_p' V_p by K5 into parts[p], their ordered sum scaled by W_struct by
+    K14 into U, then the block products of _block_products by K5. `At` and
+    `A` are the blocks' operands (A_p' with n rows, A_p with the block's
+    rows); scratch not given is allocated here."""
+    rows = [op.rows for op in A]
+    n, B = W_struct.shape[0], _lanes(V, "V")
+    e = lambda *s: torch.empty(s, dtype=F64, device=V.device)  # noqa: E731
+    out = e(*V.shape) if out is None else out
+    parts = e(len(A), n, B) if parts is None else parts
+    for op, v_p, part in zip(At, _slices(V, rows), parts):
+        csr_spmm(op, v_p, out=part, state=state)
+    U = block_sum(parts, W_struct, out=U, state=state)
+    _block_products(csr_spmm, A, U, out, W_slack, V, partials, state)
     return out
 
 
 class _ShardedStep:
     """What the step objects of K15 and K16 share, allocated once per solve
-    on the card of `rhs`: the row blocks' operands (`At`: A_p' with n rows,
-    `A`: A_p with the block's rows), the loop's vectors of rhs's shape (`r`
-    starts as a copy of rhs), the block products' scratch, the partials
+    on the card of `rhs`: the operands of the first pass of the normal apply
+    (`At`, as block_normal_apply or block_normal_apply_batched takes them)
+    and the row blocks' (`A`: A_p with the block's rows), the loop's vectors
+    of rhs's shape (`r` starts as a copy of rhs), the apply's u, the partials
     (`pa` of shape `pa_shape`, one partial block per K14-K16 reduction
     block `nblk[p]` of each row block; `pc`, the block products' partials,
     `npc[p]` rows per row block), the prefix offsets of the rows and of
@@ -837,7 +943,7 @@ class _ShardedStep:
         rows = [op.rows for op in A]
         m, n, P, lanes = rhs.shape[0], W_struct.shape[0], len(rows), \
             tuple(rhs.shape[1:])
-        if sum(rows) != m or len(At) != P:
+        if sum(rows) != m:
             raise ValueError("row blocks do not cover the m rows")
         e = lambda *s: torch.empty(s, dtype=F64, device=device)  # noqa: E731
         self.At, self.A, self.P, self.m = At, A, P, m
@@ -845,7 +951,7 @@ class _ShardedStep:
         self.r = rhs.clone()
         self.y, self.s, self.cs, self.d, self.cd = (e(m, *lanes)
                                                     for _ in range(5))
-        self.parts, self.u = e(P, n, *lanes), e(n, *lanes)
+        self.u = e(n, *lanes)
         self.nblk = sum(nblk)
         self.pa, self.pc = e(*pa_shape), e(sum(npc), *lanes)
         self.pc_slices = _slices(self.pc, npc)
@@ -860,13 +966,6 @@ class _ShardedStep:
                       self.pa.data_ptr(), self.nblk, self.pc.data_ptr(),
                       self.state.data_ptr(), _stream(device))
 
-    def normal_apply(self) -> None:
-        """cs = C s over the row blocks, with the block products' partials
-        of the dots s.cs per block (block_normal_apply)."""
-        block_normal_apply(self.At, self.A, self.W_struct, self.W_slack,
-                           self.s, out=self.cs, parts=self.parts, u=self.u,
-                           partials=self.pc_slices, state=self.state)
-
     def done(self) -> bool:
         return bool(self.state[self.DONE].item())
 
@@ -876,7 +975,7 @@ class ShardedCrStep(_ShardedStep):
     card, for ShardedDiagCR (`ladder`, the scaled norm with `resscale`) and
     sharded_cr_solve (no ladder, resscale None: the unscaled norm).
     W_struct (n,), W_slack, invd, resscale and rhs (m,), float64 on the
-    card."""
+    card; `At` the whole A' split at the row blocks' bounds (K14v)."""
 
     INIT, START, PASS_A, PASS_B, PASS_C = range(5)
     TRIP = (PASS_A, PASS_B, _ShardedStep.APPLY, PASS_C)
@@ -901,6 +1000,14 @@ class ShardedCrStep(_ShardedStep):
                       _ptr(resscale), *self._tail)
         self._ladder = int(bool(ladder))
 
+    def normal_apply(self) -> None:
+        """cs = C s over the row blocks (block_normal_apply: K14v, then K1
+        per block), with the block products' partials of the dots s.cs per
+        block."""
+        block_normal_apply(self.At, self.A, self.W_struct, self.W_slack,
+                           self.s, out=self.cs, u=self.u,
+                           partials=self.pc_slices, state=self.state)
+
     def launch(self, phase: int, k: int, maxiter: int, tol: float) -> None:
         err = _lib.ipxt_scr_step_f64(phase, self.m, self.P, k, maxiter,
                                      float(tol), self._ladder, *self._args)
@@ -918,8 +1025,9 @@ class ShardedBatchedCrStep(_ShardedStep):
     """K16: the passes of one row-blocked, lane-masked batched CR solve
     (csrc/sharded.cu) on one card, for sharded_batched_cr_solve.
     W_struct (n, B), W_slack, invd and rhs (m, B), float64 on the card; tol
-    a number. On one card the reference's batch mesh axis is the column
-    range of these arrays, so it needs nothing here."""
+    a number; `At` the blocks' A_p' operands. On one card the reference's
+    batch mesh axis is the column range of these arrays, so it needs
+    nothing here."""
 
     INIT, START, PASS_A, LANE, PASS_B, BETA = range(6)
     TRIP = (PASS_A, LANE, PASS_B, _ShardedStep.APPLY, BETA)
@@ -939,9 +1047,19 @@ class ShardedBatchedCrStep(_ShardedStep):
                          [lane_blocks(op.rows, B // vw) for op in A],
                          (2, B, sum(nblk)), int(lib.ipxt_sbcr_state_len(B)))
         self.B = B
+        self.parts = torch.empty((self.P, n, B), dtype=F64, device=device)
         self._keep = invd
         self._args = (*(t.data_ptr() for t in self._off), invd.data_ptr(),
                       *self._tail)
+
+    def normal_apply(self) -> None:
+        """cs = C s over the row blocks (block_normal_apply_batched: K5 per
+        block, K14, K5 per block), with the block products' partials of the
+        column dots s.cs per block."""
+        block_normal_apply_batched(self.At, self.A, self.W_struct,
+                                   self.W_slack, self.s, out=self.cs,
+                                   parts=self.parts, U=self.u,
+                                   partials=self.pc_slices, state=self.state)
 
     def launch(self, phase: int, k: int, maxiter: int, tol: float) -> None:
         err = _lib.ipxt_sbcr_step_f64(phase, self.m, self.B, self.P, k,

@@ -21,8 +21,9 @@ selected by Parameters.device.
 
 The port's copy of ipx_tpu/kkt/diag.py. Its device branches are the
 port's: _prepare_sharded builds the port's ShardedDiagCR on the device that
-backend.resolve_sharded picks, _prepare_device the port's mixed-precision
-device CR; neither falls back when a constructor raises.
+backend.resolve_sharded picks, _prepare_device the port's device CR in the
+precision Parameters.precision names; neither falls back when a
+constructor raises.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ from ..control import Control
 from ..info import Info
 from .. import backend
 from ..model import Model
-from ..ops.device_cr import MixedPrecisionDeviceCR
+from ..ops.device_cr import DeviceNormalCR, MixedPrecisionDeviceCR
 from ..parallel.sharding import ShardedDiagCR
 from .base import KKTSolver
 from .cr import ConjugateResiduals
@@ -218,21 +219,30 @@ class KKTSolverDiag(KKTSolver):
 
     def _prepare_device(self) -> None:
         """The device CR solver when Parameters.device asks for one
-        (backend.resolve): mixed precision, which the reference also builds
-        whatever Parameters.precision says. The reference falls back to its
-        f64 solver, and then to the host, when a constructor raises (a
-        failed jax compile); here the error propagates."""
+        (backend.resolve): the f64 DeviceNormalCR when Parameters.precision
+        is "f64", else mixed precision. The reference builds the mixed
+        solver whatever Parameters.precision says; the port honours the
+        parameter on purpose, as the host path does (ROADMAP, Queue 3). The
+        reference falls back to its f64 solver, and then to the host, when
+        a constructor raises (a failed jax compile); here the error
+        propagates."""
         self._device_cr = None
         if self._sharded is not None:
             return      # the row-blocked CR is the device path
-        device = backend.resolve(self.control.parameters.device, self.model)
+        params = self.control.parameters
+        device = backend.resolve(params.device, self.model)
         if device is None:
             return
         if self.precond.Adense is not None:
             return      # dense-column SMW precond runs on host
-        self._device_cr = MixedPrecisionDeviceCR(
-            self.model, self.W, self.precond.diagonal, self.resscale,
-            host_apply=self.normal_matrix.apply_vec, device=device)
+        if params.precision == "f64":
+            self._device_cr = DeviceNormalCR(
+                self.model, self.W, self.precond.diagonal, self.resscale,
+                device)
+        else:
+            self._device_cr = MixedPrecisionDeviceCR(
+                self.model, self.W, self.precond.diagonal, self.resscale,
+                host_apply=self.normal_matrix.apply_vec, device=device)
 
     def _solve(self, a: np.ndarray, b: np.ndarray, tol: float, info: Info,
                y0: Optional[np.ndarray] = None):

@@ -8,10 +8,14 @@ policy (reference: src/lp_solver.cc:79-95) and phase-switch heuristics
 
 The port's copy of ipx_tpu/lp_solver.py. Its KKT solvers are the port's
 (kkt/diag.py and kkt/basis_precond.py), which choose the device path;
-solve() raises before any work when Parameters.device names a device that
-is not there (backend.require: "cuda", the default, without a card); a
-second LP on one solver is safe because Model.clear drops the caches of
-the LP before.
+solve() returns Status.INTERNAL_ERROR, the message logged, before any work
+when Parameters.device names a device that is not there or not known
+(backend.require: "cuda", the default, without a card or with a kernel
+library that does not build), as it does for any error, and never solves
+on the host instead; a second LP on one solver is safe because Model.clear
+drops the caches of the LP before. A solve runs numpy's and scipy's
+OpenBLAS pools on one thread unless the user sized them
+(native/threads.py).
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from .ipm import IPM
 from .iterate import Iterate
 from .kkt.diag import KKTSolverDiag
 from .model import Model
+from .native import threads
 from .parameters import Parameters
 from .presolve import Presolver
 from .status import (Errflag, IPX_BASIC, IPX_NONBASIC_LB, IPX_NONBASIC_UB,
@@ -168,18 +173,26 @@ class LpSolver:
     # Solve (reference: src/lp_solver.cc:53-110)
     # ------------------------------------------------------------------
     def solve(self) -> int:
+        # numpy's and scipy's BLAS pools on one thread for the solve, unless
+        # the user sized them (native/threads.py)
+        with threads.quiet_blas():
+            return self._solve()
+
+    def _solve(self) -> int:
         self.clear_solution()
         info = self.info
         if self.user_model.empty():
             info.status = int(Status.NO_MODEL)
             return info.status
-        # the device the caller asked for ("cuda" by default), or raise
-        # before any work: no host solve stands in for it
-        backend.require(self.control.parameters.device)
         self.control.reset_timer()
         self.control.open_logfile()
         self.control.log(f"IPX version {__version__} (torch)\n")
         try:
+            # the device the caller asked for ("cuda" by default) before any
+            # work: without it (no card, a kernel library that does not
+            # build, an unknown device) the solve ends at INTERNAL_ERROR
+            # below, and no host solve stands in for it
+            backend.require(self.control.parameters.device)
             self._presolve()
             if info.status == int(Status.NOT_RUN):
                 self._interior_point_solve()

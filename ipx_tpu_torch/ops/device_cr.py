@@ -149,10 +149,9 @@ def _upload(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 class DeviceNormalCR:
     """Per-factorization f64 device CR solver.
 
-    The solver never builds it: the reference builds it only when the mixed
-    solver's constructor fails, and the port's KKTSolverDiag lets that
-    failure raise. It is kept as the f64 counterpart of ipx_tpu's class, for
-    the parity tests and chip_smoke.py."""
+    KKTSolverDiag builds it when Parameters.precision is "f64". The
+    reference builds it only when its mixed solver's constructor fails (a
+    failed jax compile), whatever the parameter says."""
 
     inner_solve = staticmethod(cr_solve)
 

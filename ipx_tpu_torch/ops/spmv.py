@@ -24,6 +24,11 @@ index and value per nonzero plus a gather of x that stays in L2, K5 and K6
 gather one row of B values per nonzero; csrc/spmv.cu and csrc/spmm.cu say
 what the designs do about it. A wrapper takes the plain version only for a
 tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
+
+A CsrOperand built with column `bounds` is the split layout of K4 and K14v
+(csrc/nnt.cu): each row's entries cut into the blocks' segments, the
+blocks' sums added in block order. ``split_spmv`` is K14v's wrapper and
+``split_spmv_plain`` the plain version of both kernels' split sums.
 """
 from __future__ import annotations
 
@@ -50,21 +55,45 @@ def lanes_per_row(indptr: np.ndarray) -> int:
 class CsrOperand:
     """One CSR matrix on a device: indptr (int64), indices (int32) and vals
     (float64 or float32), plus the row id of every nonzero for the plain
-    version."""
+    version.
+
+    With `bounds`, the split layout of K4 and K14v: the columns cut into P
+    contiguous blocks at the offsets bounds[0] = 0 <= ... <= bounds[P] =
+    num_cols (an int64 vector on the host), each row's entries of block p
+    being those with a column in [bounds[p], bounds[p + 1]); the column
+    indices of each row must then be sorted, so that a block's entries are
+    one segment of the row. Without, P = 1. `slots` is each nonzero's place
+    in the (P, rows) per-segment sums of the plain version."""
 
     def __init__(self, indptr, indices, data, num_cols: int,
-                 device: torch.device, dtype: torch.dtype):
+                 device: torch.device, dtype: torch.dtype, bounds=None):
         indptr = np.asarray(indptr, dtype=np.int64)
+        indices = np.ascontiguousarray(indices, dtype=np.int32)
         self.rows = len(indptr) - 1
         self.cols = int(num_cols)
         self.vec = lanes_per_row(indptr)
         self.indptr = torch.from_numpy(indptr).to(device)
-        self.indices = torch.from_numpy(
-            np.ascontiguousarray(indices, dtype=np.int32)).to(device)
+        self.indices = torch.from_numpy(indices).to(device)
         self.vals = torch.from_numpy(
             np.ascontiguousarray(data, dtype=NP_DTYPE[dtype])).to(device)
-        self.row_ids = torch.from_numpy(np.repeat(
-            np.arange(self.rows, dtype=np.int64), np.diff(indptr))).to(device)
+        rows = np.repeat(np.arange(self.rows, dtype=np.int64),
+                         np.diff(indptr))
+        self.row_ids = torch.from_numpy(rows).to(device)
+        bounds = np.array([0, self.cols] if bounds is None else bounds,
+                          dtype=np.int64)
+        if (bounds.ndim != 1 or len(bounds) < 2 or bounds[0] != 0
+                or bounds[-1] != self.cols or np.any(np.diff(bounds) < 0)):
+            raise ValueError(f"bounds {bounds.tolist()} do not cut the "
+                             f"{self.cols} columns into blocks")
+        self.bounds, self.P = bounds, len(bounds) - 1
+        # the interior bounds, which K4 and K14v read from the host
+        self.inner = np.ascontiguousarray(bounds[1:-1])
+        self.inner_ptr = self.inner.ctypes.data
+        if self.P == 1:
+            self.slots = self.row_ids
+        else:
+            seg = np.searchsorted(self.inner, indices, side="right")
+            self.slots = torch.from_numpy(seg * self.rows + rows).to(device)
 
 
 def csr_spmv_plain(op: CsrOperand, x: torch.Tensor) -> torch.Tensor:
@@ -78,6 +107,28 @@ def csr_spmv(op: CsrOperand, x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return csr_spmv_plain(op, x)
     return kernels.csr_spmv(op, x)
+
+
+def split_spmv_plain(op: CsrOperand, x: torch.Tensor,
+                     scale=None) -> torch.Tensor:
+    """Plain version of the split sums of K4 and K14v: each row's sum over
+    each block's segment, then those P sums added in block order, times
+    `scale` if given."""
+    parts = torch.zeros(op.P * op.rows, dtype=x.dtype, device=x.device)
+    parts.index_add_(0, op.slots, op.vals * x.index_select(0, op.indices))
+    parts = parts.view(op.P, op.rows)
+    y = parts[0]
+    for p in range(1, op.P):
+        y = y + parts[p]
+    return y * scale if scale is not None else y
+
+
+def split_spmv(op: CsrOperand, x: torch.Tensor, scale=None) -> torch.Tensor:
+    """K14v: scale * (((s_0 + s_1) + ...) + s_{P-1}) per row of `op`, s_p
+    the row's sum over block p's segment (float64)."""
+    if x.device.type == "cpu":
+        return split_spmv_plain(op, x, scale)
+    return kernels.block_spmv_sum(op, x, scale)
 
 
 class NormalMatrixDevice:

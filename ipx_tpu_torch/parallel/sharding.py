@@ -23,10 +23,15 @@ range of the (m, B) arrays here and needs nothing.
 Kernels, each wrapper with its plain PyTorch version beside it:
 
 * the block products: K1 ``csr_spmv`` and K5 ``csr_spmm`` (csrc/spmv.cu,
-  csrc/spmm.cu) on each block's CSR operands of A_p and A_p', and K4
-  ``nnt`` on each column block of N;
-* K14 ``block_sum`` (csrc/sharded.cu): the psum, out = scale * sum_p
-  part_p in block order;
+  csrc/spmm.cu) on each block's CSR operands of A_p and A_p';
+* K14v ``block_spmv_sum`` (csrc/nnt.cu): the vector apply's first half and
+  its psum in one launch, u = W_struct * sum_p A_p' v_p in block order, on
+  the whole A' split at the row blocks' bounds (ops/spmv.py's split
+  layout); no parts array;
+* K14 ``block_sum`` (csrc/sharded.cu): the batched apply's psum, out =
+  scale * sum_p part_p in block order, over the parts that K5 wrote;
+* K4 ``nnt`` (csrc/nnt.cu): the column-blocked N N' with its psum, one
+  launch per apply on the whole N split at the column blocks' bounds;
 * K15 ``sharded_cr_step``: the passes of ShardedDiagCR and
   sharded_cr_solve (``sharded_cr``);
 * K16 ``sharded_batched_cr_step``: the passes of sharded_batched_cr_solve
@@ -49,7 +54,7 @@ import scipy.sparse as sp
 import torch
 
 from .. import backend, kernels
-from ..ops.device_cr2 import nnt_plain
+from ..ops.device_cr2 import NntPlan, nnt_plain
 from ..ops.spmv import CsrOperand, csr_spmm_plain, csr_spmv_plain
 
 F64 = torch.float64
@@ -112,8 +117,10 @@ class ShardedNormalMatrix:
 
     A's rows in num_blocks contiguous blocks (block_sizes); each block holds
     the CSR operand of A_p (its rows, n columns) for A_p u and that of A_p'
-    (n rows) for A_p' v_p, on `device`, in the format K1 and K5 take.
-    `device` None means the card, and raises without one."""
+    (n rows) for A_p' V_p, on `device`, in the format K1 and K5 take.
+    `op_At_split` is the whole A' split at the blocks' row bounds, for the
+    vector apply's K14v. `device` None means the card, and raises without
+    one."""
 
     def __init__(self, A: sp.csc_matrix, num_blocks: int,
                  device: torch.device = None):
@@ -126,6 +133,12 @@ class ShardedNormalMatrix:
         self.bounds = _bounds(self.rows)
         A_csr = A.tocsr()
         A_csr.sort_indices()
+        A_csc = A_csr.tocsc()
+        A_csc.sort_indices()
+        # the CSC arrays of A are the CSR arrays of A'
+        self.op_At_split = CsrOperand(
+            A_csc.indptr, A_csc.indices, A_csc.data, m, device, F64,
+            bounds=[0] + [r1 for _, r1 in self.bounds])
         self.op_A, self.op_At = [], []
         for r0, r1 in self.bounds:
             Ab = A_csr[r0:r1]
@@ -153,15 +166,19 @@ def _block_apply_plain(snm, W_struct, W_slack, v, prod):
 
 
 def block_normal_apply(snm: ShardedNormalMatrix, W_struct, W_slack, v):
-    """C v over the row blocks: per block A_p' v_p (K1 or K5), their ordered
-    sum scaled by W_struct (K14), per block A_p u + W_slack_p v_p (K1 or
-    K5). v is (m,) or (m, B)."""
+    """C v over the row blocks. For v of shape (m,): u = W_struct * sum_p
+    A_p' v_p in one K14v launch, then A_p u + W_slack_p v_p per block (K1).
+    For (m, B): A_p' V_p per block (K5), their ordered sum scaled by
+    W_struct (K14), then per block (K5)."""
     if v.device.type == "cpu":
         return _block_apply_plain(snm, W_struct, W_slack, v,
                                   csr_spmm_plain if v.dim() == 2
                                   else csr_spmv_plain)
-    return kernels.block_normal_apply(snm.op_At, snm.op_A, W_struct, W_slack,
-                                      v)
+    if v.dim() == 2:
+        return kernels.block_normal_apply_batched(snm.op_At, snm.op_A,
+                                                  W_struct, W_slack, v)
+    return kernels.block_normal_apply(snm.op_At_split, snm.op_A, W_struct,
+                                      W_slack, v)
 
 
 # -- K15: the row-blocked CR --------------------------------------------------
@@ -254,8 +271,8 @@ def sharded_cr(snm, W_struct, W_slack, invd, resscale, rhs, tol: float,
         return sharded_cr_plain(snm, W_struct, W_slack, invd, resscale, rhs,
                                 tol, maxiter, ladder)
     return _run_on_card(kernels.ShardedCrStep(
-        snm.op_At, snm.op_A, W_struct, W_slack, invd, resscale, rhs, ladder),
-        maxiter, tol)
+        snm.op_At_split, snm.op_A, W_struct, W_slack, invd, resscale, rhs,
+        ladder), maxiter, tol)
 
 
 class ShardedDiagCR:
@@ -393,26 +410,26 @@ def block_nnt_plain(blocks, w: torch.Tensor) -> torch.Tensor:
                                         for Nt, N in blocks]))
 
 
-def block_nnt(blocks, w: torch.Tensor) -> torch.Tensor:
-    """sum_p N_p (N_p' w) in block order: K4 per column block (N_p' as the
-    CSR operand Nt) and K14 over the blocks."""
-    if w.device.type == "cpu":
-        return block_nnt_plain(blocks, w)
-    parts = torch.empty((len(blocks), w.numel()), dtype=F64, device=w.device)
-    for (Nt, N), part in zip(blocks, parts):
-        kernels.nnt(Nt, N, w, out=part)
-    return kernels.block_sum(parts)
+def block_nnt(nnt: "ShardedSplittedNNt", w: torch.Tensor) -> torch.Tensor:
+    """sum_p N_p (N_p' w) in block order for the operand of `nnt`, w on
+    its device: one K4 launch on the card (z is the kernel's buffer, which
+    the next apply overwrites), block_nnt_plain on the CPU."""
+    return nnt.plan(w)
 
 
 class ShardedSplittedNNt:
     """Column-blocked N N' apply for the PHASE-2 splitted operator
     (counterpart of the NNt pass in reference: src/splitted_normal_matrix.cc
-    :90-117): N's columns in num_blocks contiguous blocks (block_sizes),
-    each with the CSR operands of N_p' and N_p on `device`, and apply(w) =
-    sum_p N_p (N_p' w) in block order. The B / B' triangular solves stay
-    on the host (sequential by nature), so the phase-2 CR is host solve ->
-    device N N' -> host solve per iteration. `applies` counts the applies.
-    `device` as for ShardedNormalMatrix.
+    :90-117): N's columns in num_blocks contiguous blocks (block_sizes), and
+    apply(w) = sum_p N_p (N_p' w) in block order. Each epoch's operand is
+    packed once on `device`: N' with N split at the blocks' column bounds,
+    which `plan` (ops/device_cr2.py NntPlan: one K4 launch per apply on the
+    card) takes. `blocks`, the CSR operands of N_p' and N_p per block that
+    the plain version takes, are packed at their first use: the CPU plan's
+    first apply, or a comparison with the plain version. The B / B'
+    triangular solves stay on the host (sequential by nature), so the
+    phase-2 CR is host solve -> device N N' -> host solve per iteration.
+    `applies` counts the applies. `device` as for ShardedNormalMatrix.
     """
 
     def __init__(self, m: int, n: int, num_blocks: int,
@@ -421,28 +438,46 @@ class ShardedSplittedNNt:
         self.n = n
         self.num_blocks = num_blocks
         self.device = _where(device)
+        self._N = None
         self._blocks = None
+        self.plan = None
         self.applies = 0
 
     def set_operand(self, N) -> None:
-        """Packs a fresh epoch's N (m x n) into its column blocks, as they
-        are: there is no static capacity to overflow."""
-        N = sp.csc_matrix(N)
+        """Packs a fresh epoch's N (m x n) split at its column blocks'
+        bounds, as it is: there is no static capacity to overflow."""
+        N = sp.csc_matrix(N, copy=True)
         N.sort_indices()
-        blocks = []
-        for c0, c1 in _bounds(block_sizes(N.shape[1], self.num_blocks)):
-            Nb = N[:, c0:c1]
-            Nr = Nb.tocsr()
-            # the CSC arrays of N_p are the CSR arrays of N_p'
-            blocks.append((CsrOperand(Nb.indptr, Nb.indices, Nb.data, self.m,
-                                      self.device, F64),
-                           CsrOperand(Nr.indptr, Nr.indices, Nr.data,
-                                      c1 - c0, self.device, F64)))
-        self._blocks = blocks
+        self._N, self._blocks = N, None
+        Nr = N.tocsr()
+        Nr.sort_indices()
+        cuts = _bounds(block_sizes(N.shape[1], self.num_blocks))
+        Nt = CsrOperand(N.indptr, N.indices, N.data, self.m, self.device, F64)
+        Ns = CsrOperand(Nr.indptr, Nr.indices, Nr.data, N.shape[1],
+                        self.device, F64, bounds=[0] + [c1 for _, c1 in cuts])
+        self.plan = NntPlan(Nt, Ns, lambda w: block_nnt_plain(self.blocks, w))
+
+    @property
+    def blocks(self) -> list:
+        """(N_p', N_p) as CSR operands on `device` per column block, packed
+        from the epoch's N at the first use."""
+        if self._blocks is None:
+            N = self._N
+            self._blocks = []
+            for c0, c1 in _bounds(block_sizes(N.shape[1], self.num_blocks)):
+                Nb = N[:, c0:c1]
+                Nr = Nb.tocsr()
+                # the CSC arrays of N_p are the CSR arrays of N_p'
+                self._blocks.append((
+                    CsrOperand(Nb.indptr, Nb.indices, Nb.data, self.m,
+                               self.device, F64),
+                    CsrOperand(Nr.indptr, Nr.indices, Nr.data, c1 - c0,
+                               self.device, F64)))
+        return self._blocks
 
     def apply(self, w: np.ndarray) -> np.ndarray:
         self.applies += 1
-        return block_nnt(self._blocks, _t(w, self.device)).cpu().numpy()
+        return self.plan.apply(w)
 
 
 class ShardedPhase2CR:

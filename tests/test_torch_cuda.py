@@ -136,19 +136,62 @@ def test_cr_solve_stop_codes_match_plain(dev, case):
     assert _rel(got[0], want[0]) <= 1e-10 or float(want[0].abs().max()) == 0
 
 
+def _nnt_operands(dev, P, seed=4, m=500, n=800):
+    """N' and N (split at P column blocks) of a 500 x 800 matrix with a
+    long and an empty row, and the per-block operands of the plain
+    version."""
+    from ipx_tpu_torch.parallel import sharding
+    A, rng = _matrix(m, n, 0.01, seed=seed)
+    nnt = sharding.ShardedSplittedNNt(m, n, P, dev)
+    nnt.set_operand(A)
+    return nnt, torch.from_numpy(rng.standard_normal(m)).to(dev)
+
+
 def test_nnt(dev):
-    A, rng = _matrix(500, 800, 0.01, seed=4)
-    csr = A.tocsr()
-    Nt = spmv.CsrOperand(A.indptr, A.indices, A.data, A.shape[0], dev,
-                         torch.float64)
-    N = spmv.CsrOperand(csr.indptr, csr.indices, csr.data, A.shape[1], dev,
-                        torch.float64)
-    w = torch.from_numpy(rng.standard_normal(A.shape[0])).to(dev)
+    """K4 through device_cr2.nnt: one launch, no K1, 1e-12 of the plain
+    version."""
+    nnt, w = _nnt_operands(dev, 1)
+    Nt, N = nnt.plan.Nt, nnt.plan.N
     before = dict(kernels.LAUNCHES)
     z = device_cr2.nnt(Nt, N, w)
     assert kernels.LAUNCHES["nnt"] == before["nnt"] + 1
-    assert kernels.LAUNCHES["csr_spmv"] == before["csr_spmv"] + 2
+    assert kernels.LAUNCHES["csr_spmv"] == before["csr_spmv"]
     assert _rel(z, device_cr2.nnt_plain(Nt, N, w)) <= 1e-12
+
+
+@pytest.mark.parametrize("cooperative", [True, False],
+                         ids=["cooperative", "two-launch"])
+@pytest.mark.parametrize("P", [1, 4])
+def test_nnt_plan_forms(dev, P, cooperative):
+    """K4 at P = 1 and 4 in both forms: 1e-12 of nnt_plain and
+    block_nnt_plain, equal bit for bit across two runs and across the two
+    forms, one launch counted per apply, and the host apply through the
+    pinned buffers gives the same z."""
+    from ipx_tpu_torch.parallel import sharding
+    nnt, w = _nnt_operands(dev, P)
+    plan = device_cr2.NntPlan(nnt.plan.Nt, nnt.plan.N, None)
+    before = kernels.LAUNCHES["nnt"]
+    z = plan._kernel.launch(w, cooperative).clone()
+    z2 = plan._kernel.launch(w, cooperative).clone()
+    assert kernels.LAUNCHES["nnt"] == before + 2
+    assert torch.equal(z, z2)
+    assert torch.equal(z, plan._kernel.launch(w, not cooperative))
+    assert torch.equal(z, plan(w))
+    want = (device_cr2.nnt_plain(nnt.blocks[0][0], nnt.blocks[0][1], w)
+            if P == 1 else sharding.block_nnt_plain(nnt.blocks, w))
+    assert _rel(z, want) <= 1e-12
+    assert _rel(z, device_cr2.nnt_plain(nnt.plan.Nt, nnt.plan.N, w)) <= 1e-12
+    host = plan.apply(w.cpu().numpy())
+    assert np.array_equal(host, z.cpu().numpy())
+
+
+def test_split_refuses_more_blocks_than_it_takes(dev):
+    """K4 and K14v take at most kernels.MAX_SPLIT blocks; more raise."""
+    from ipx_tpu_torch.parallel import sharding
+    A, rng = _matrix(60, 90, 0.05, seed=5)
+    nnt = sharding.ShardedSplittedNNt(60, 90, kernels.MAX_SPLIT + 1, dev)
+    with pytest.raises(ValueError, match="blocks"):
+        nnt.set_operand(A)
 
 
 def test_launcher_checks_raise(dev):
@@ -678,14 +721,48 @@ def test_block_sum_bit_for_bit(dev, P):
 
 @pytest.mark.parametrize("m, B", [(613, None), (613, 5), (5, None), (5, 4)])
 def test_block_normal_apply_on_card(dev, m, B):
-    """K1 or K5 per row block and K14: 1e-12 of the plain version, a
-    ragged last block and (m = 5 over 4 blocks) an empty one."""
+    """K14v and K1 per row block (vector), K5 per row block and K14
+    (batched): 1e-12 of the plain version, a ragged last block and (m = 5
+    over 4 blocks) an empty one; P + 1 launches for the vector apply, with
+    no K14, and 2P + 1 for the batched one; bit for bit from run to run."""
     from ipx_tpu_torch.parallel import sharding
     _, snm, Ws, Wl, _, _, v = _sharded_inputs(dev, m, 300, seed=7, B=B)
+    before = dict(kernels.LAUNCHES)
     got = sharding.block_normal_apply(snm, Ws, Wl, v)
+    after = dict(kernels.LAUNCHES)
     want = sharding._block_apply_plain(
         snm, Ws, Wl, v, spmv.csr_spmm_plain if B else spmv.csr_spmv_plain)
     assert _rel(got, want) <= 1e-12
+    assert torch.equal(got, sharding.block_normal_apply(snm, Ws, Wl, v))
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    if B is None:
+        assert moved == {"block_spmv_sum": 1, "csr_spmv": 4}
+    else:
+        assert moved == {"csr_spmm": 8, "block_sum": 1}
+
+
+@pytest.mark.parametrize("P", [1, 3, 4])
+def test_block_spmv_sum(dev, P):
+    """K14v on the whole A' split at P row blocks: 1e-12 of its plain
+    version, bit for bit from run to run, one launch, and a done CR state
+    makes it return at once."""
+    from ipx_tpu_torch.parallel import sharding
+    A, snm, Ws, _, _, _, v = _sharded_inputs(dev, 613, 300, seed=13, P=P)
+    op = snm.op_At_split
+    before = kernels.LAUNCHES["block_spmv_sum"]
+    u = spmv.split_spmv(op, v, Ws)
+    assert kernels.LAUNCHES["block_spmv_sum"] == before + 1
+    assert torch.equal(u, spmv.split_spmv(op, v, Ws))
+    assert _rel(u, spmv.split_spmv_plain(op, v, Ws)) <= 1e-12
+    parts = torch.stack([spmv.csr_spmv_plain(o, v[r0:r1]) for o, (r0, r1)
+                         in zip(snm.op_At, snm.bounds)])
+    assert _rel(u, sharding.block_sum_plain(parts, Ws)) <= 1e-12
+    state = torch.zeros(int(kernels.load().ipxt_cr_state_len()),
+                        dtype=torch.float64, device=dev)
+    state[5] = 1.0                              # the done flag
+    out = torch.full_like(u, 7.0)
+    kernels.block_spmv_sum(op, v, Ws, out=out, state=state)
+    assert bool((out == 7.0).all())
 
 
 @pytest.mark.parametrize("ladder", [True, False])
@@ -762,16 +839,18 @@ def test_sharded_batched_cr_per_trip_and_converged(dev):
 
 
 def test_sharded_nnt_on_card(dev):
-    """K4 per column block and K14 against the plain version: 1e-12."""
+    """The column-blocked N N' with its psum in one K4 launch per apply
+    against the plain version: 1e-12, no K14."""
     from ipx_tpu_torch.parallel import sharding
     A, rng = _matrix(400, 1001, 0.02, seed=11)
     nnt = sharding.ShardedSplittedNNt(400, 1001, 4, dev)
     nnt.set_operand(A)
     w = rng.standard_normal(400)
-    before = kernels.LAUNCHES["nnt"]
+    before = dict(kernels.LAUNCHES)
     got = nnt.apply(w)
-    assert kernels.LAUNCHES["nnt"] == before + 4
-    want = sharding.block_nnt_plain(nnt._blocks, torch.from_numpy(w).to(dev))
+    assert kernels.LAUNCHES["nnt"] == before["nnt"] + 1
+    assert kernels.LAUNCHES["block_sum"] == before["block_sum"]
+    want = sharding.block_nnt_plain(nnt.blocks, torch.from_numpy(w).to(dev))
     assert _rel(torch.from_numpy(got), want) <= 1e-12
 
 
@@ -798,7 +877,8 @@ def test_sharded_blocks_default_to_the_card(dev):
 def test_sharded_lp_solve_on_card(dev, device):
     """LpSolver(shards=4) with device "cuda" and "auto" (row-blocked
     phase 1 and column-blocked N N' in phase 2, both on the card): status
-    1000, the host solve's objective to 1e-8, K14 and K15 launched."""
+    1000, the host solve's objective to 1e-8, K14v, K15 and K4 launched and
+    K14 not (the vector paths have no standalone psum)."""
     from ipx_tpu_torch import LpSolver, Parameters
     from ipx_tpu_torch import testgen as tg
     data = tg.transportation(60, 90, 0.05, seed=3)
@@ -810,11 +890,37 @@ def test_sharded_lp_solve_on_card(dev, device):
     assert s.solve() == 1000
     want = host.get_info().objval
     assert abs(s.get_info().objval - want) <= 1e-8 * abs(want)
-    assert kernels.LAUNCHES["block_sum"] > 0
+    assert kernels.LAUNCHES["block_spmv_sum"] > 0
+    assert kernels.LAUNCHES["block_sum"] == 0
     assert kernels.LAUNCHES["sharded_cr_step"] > 0
+    assert kernels.LAUNCHES["nnt"] > 0
     assert s.model._sharded_cr[1].device.type == "cuda"
     nnt = s.model._sharded_nnt[1]
     assert nnt.applies > 0 and nnt.device.type == "cuda"
+
+
+def test_f64_precision_solve_on_card(dev):
+    """Parameters(precision="f64") on "cuda" runs phase 1 through the f64
+    device CR: the 20k transportation LP at status 1000 with the host
+    path's objective to 1e-8."""
+    from ipx_tpu_torch import LpSolver, Parameters
+    from ipx_tpu_torch import testgen as tg
+    data = tg.transportation(8000, 12000, 0.001, seed=1)
+    host = LpSolver(Parameters(display=0, device="cpu"))
+    assert tg.load_into_solver(data, host) == 0 and host.solve() == 1000
+    calls = []
+    orig = device_cr.DeviceNormalCR.solve
+    s = LpSolver(Parameters(display=0, device="cuda", precision="f64"))
+    assert tg.load_into_solver(data, s) == 0
+    device_cr.DeviceNormalCR.solve = lambda self, *a: (calls.append(1),
+                                                       orig(self, *a))[1]
+    try:
+        assert s.solve() == 1000
+    finally:
+        device_cr.DeviceNormalCR.solve = orig
+    want = host.get_info().objval
+    assert abs(s.get_info().objval - want) <= 1e-8 * abs(want)
+    assert calls
 
 
 # -- K17 and the entry points --------------------------------------------------

@@ -1,8 +1,10 @@
 """The port's entry points default to the card: with the card hidden
-(CUDA_VISIBLE_DEVICES=""), Parameters().device is "cuda", and a
-default-constructed LpSolver, batched solver, polish, scenario solver,
-row-blocked operator or entry() raises instead of running on the CPU. The
-LpSolver raises before any work: neither presolve nor the IPM is entered.
+(CUDA_VISIBLE_DEVICES=""), Parameters().device is "cuda"; a
+default-constructed batched solver, polish, scenario solver, row-blocked
+operator or entry() raises instead of running on the CPU, and
+LpSolver.solve and capi.ipx_solve return INTERNAL_ERROR (1004), as they do
+for an unknown device, before any work: neither presolve nor the IPM is
+entered.
 
 All cases run in one fresh process, which prints one line per case."""
 import json
@@ -35,16 +37,19 @@ for name in ("_presolve", "_interior_point_solve"):
 
 def outcome(fn):
     try:
-        fn()
+        out = fn()
     except RuntimeError as e:
         return "raised: " + str(e)
-    return "returned"
+    return f"returned {out}"
 
 
-def lp_solve():
-    s = LpSolver(Parameters(display=0))
+def lp_solve(device=None):
+    p = Parameters(display=0)
+    if device is not None:
+        p.device = device
+    s = LpSolver(p)
     assert afiro().load_into(s) == 0
-    s.solve()
+    return s.solve()
 
 
 def capi_solve():
@@ -53,7 +58,7 @@ def capi_solve():
     capi.ipx_load_model(h, a["num_var"], a["obj"], a["lb"], a["ub"],
                         a["num_constr"], a["Ap"], a["Ai"], a["Ax"], a["rhs"],
                         a["constr_type"])
-    capi.ipx_solve(h)
+    return capi.ipx_solve(h)
 
 
 data = testgen.transportation(10, 15, 0.3, seed=3)
@@ -63,6 +68,7 @@ A = sp.random(9, 7, density=0.4, format="csc", random_state=6)
 cases = {
     "LpSolver.solve": lp_solve,
     "capi.ipx_solve": capi_solve,
+    "LpSolver.solve unknown device": lambda: lp_solve("tpu"),
     "BatchedPhase1Solver": lambda: batch.BatchedPhase1Solver(blp),
     "SharedBasisBatchedPolish":
         lambda: batch2.SharedBasisBatchedPolish(blp, None),
@@ -80,10 +86,10 @@ out["entered"] = entered
 print(json.dumps(out))
 '''
 
-CASES = ["LpSolver.solve", "capi.ipx_solve", "BatchedPhase1Solver",
-         "SharedBasisBatchedPolish", "BatchedScenarioSolver.solve",
-         "ShardedNormalMatrix", "ShardedDiagCR", "ShardedSplittedNNt",
-         "entry"]
+CASES = ["BatchedPhase1Solver", "SharedBasisBatchedPolish",
+         "BatchedScenarioSolver.solve", "ShardedNormalMatrix",
+         "ShardedDiagCR", "ShardedSplittedNNt", "entry"]
+SOLVES = ["LpSolver.solve", "capi.ipx_solve", "LpSolver.solve unknown device"]
 
 
 @pytest.fixture(scope="module")
@@ -107,6 +113,14 @@ def test_default_constructed_raises_without_a_card(hidden, case):
     assert "is_available" in hidden[case]
 
 
+@pytest.mark.parametrize("case", SOLVES)
+def test_solve_returns_internal_error_without_a_card(hidden, case):
+    """LpSolver.solve and the C API's ipx_solve return INTERNAL_ERROR
+    (1004) without a card or for an unknown device, as the reference and
+    IPX's C API return a status for every error; they do not raise."""
+    assert hidden[case] == "returned 1004", hidden[case]
+
+
 def test_no_host_solve_without_a_card(hidden):
-    """The solves that raised never entered presolve or the IPM."""
+    """The solves that stopped never entered presolve or the IPM."""
     assert hidden["entered"] == []

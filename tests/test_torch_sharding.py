@@ -361,9 +361,9 @@ def test_failed_sharded_solve_raises(monkeypatch):
 
 
 def test_sharded_device_rule(monkeypatch):
-    """"cuda" is the card or raises, also with shards; "torch_cpu" is the
-    CPU; "auto" and "cpu" are the card when one is present, else the
-    CPU."""
+    """"cuda" is the card or raises, also with shards (a solve then ends
+    at INTERNAL_ERROR before any work); "torch_cpu" is the CPU; "auto" and
+    "cpu" are the card when one is present, else the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for device in ("auto", "cpu", "torch_cpu"):
         assert backend.resolve_sharded(device) == CPU
@@ -372,8 +372,9 @@ def test_sharded_device_rule(monkeypatch):
     with pytest.raises(ValueError, match="unknown device"):
         backend.resolve_sharded("tpu")
     data = testgen.transportation(20, 30, 0.2, seed=4)
-    with pytest.raises(RuntimeError, match="is_available"):
-        _solve(ipx_tpu_torch, data, shards=2, device="cuda")
+    s, st = _solve(ipx_tpu_torch, data, shards=2, device="cuda")
+    assert st == int(ipx_tpu_torch.Status.INTERNAL_ERROR)
+    assert s.get_info().iter == 0 and s.basis is None
 
 
 @pytest.mark.parametrize("make", [

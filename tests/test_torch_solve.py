@@ -174,19 +174,26 @@ def test_card_scripts_import_only_the_port(script):
     assert not roots & {"jax", "jaxlib", "ipx_tpu"}
 
 
-def _solve_cuda():
+def _solve_cuda(monkeypatch):
+    """A "cuda" solve of afiro: (status, the phases it entered)."""
+    entered = []
+    for name in ("_presolve", "_interior_point_solve"):
+        orig = getattr(ipx_tpu_torch.LpSolver, name)
+        monkeypatch.setattr(ipx_tpu_torch.LpSolver, name,
+                            lambda self, _o=orig, _n=name: (
+                                entered.append(_n), _o(self))[1])
     s = ipx_tpu_torch.LpSolver(_params(ipx_tpu_torch, "cuda"))
     assert afiro().load_into(s) == 0
-    return s.solve()
+    return s.solve(), entered
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         backend.resolve("cuda")
-    # the solver raises before any work; it does not finish on the host
-    with pytest.raises(RuntimeError, match="is_available"):
-        _solve_cuda()
+    # the solver stops before any work, at INTERNAL_ERROR as the reference
+    # ends on any error; it does not finish on the host
+    assert _solve_cuda(monkeypatch) == (int(Status.INTERNAL_ERROR), [])
     # "auto" without a card is the host path
     assert backend.resolve("auto") is None
 
@@ -201,8 +208,7 @@ def test_cuda_with_a_failed_build_raises(monkeypatch):
     monkeypatch.setattr(kernels._build, "build", failed_build)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         backend.resolve("cuda")
-    with pytest.raises(RuntimeError, match="nvcc failed"):
-        _solve_cuda()
+    assert _solve_cuda(monkeypatch) == (int(Status.INTERNAL_ERROR), [])
 
 
 def test_failed_phase2_device_solve_raises(monkeypatch):

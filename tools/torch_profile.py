@@ -21,10 +21,21 @@ with the card's nvidia-smi name and power limit:
            the iteration counts, with the OpenMP settings in force;
   native   milliseconds per call of the native vector kernels of
            ipx_tpu_torch/native (ipxlu.cc) inside one port solve and one host
-           solve, from cProfile;
-  kernels  K1-K4 and their plain versions at the shapes of the presolved
-           LP: host wall time per call and device time per call from
-           torch.profiler, and the device's busy share over the calls;
+           solve, and the 25 functions with the most time of their own and
+           in all, from cProfile;
+  threads  e2e in a fresh process per thread setting, in turns: the
+           default (LpSolver.solve runs numpy's and scipy's OpenBLAS pools
+           on one thread, native/threads.py; OpenMP's own team), the pools
+           left at one per CPU (OPENBLAS_NUM_THREADS set to the CPUs), and
+           OpenMP teams of 4 and 2 with the pools at one thread
+           (OMP_NUM_THREADS, OPENBLAS_NUM_THREADS=1), then OMP_NUM_THREADS
+           1 and 4 alone (the pools at as many);
+  precision  the "cuda" solve with Parameters.precision "mixed" and "f64"
+           in turns (the mixed and the f64 device CR of phase 1);
+  kernels  K1-K4 (K4 through the phase-2 CR's NntPlan) and their plain
+           versions at the shapes of the presolved LP: host wall time per
+           call and device time per call from torch.profiler, and the
+           device's busy share over the calls;
   busy     device time over wall time of one port solve, from
            torch.profiler, with the ten kernels and copies that took most;
   batched  K5-K13 and their plain versions at the shapes of that LP as a
@@ -39,9 +50,10 @@ with the card's nvidia-smi name and power limit:
            it) of 4 scenarios from their batched phase-1 handoff: steps,
            shared-basis CR iterations, wall time, the host CR's share,
            device time and busy share, and the largest device items;
-  sharded  K14-K16 and their plain versions at the shapes of chip_smoke.py
-           phase 9 (4 row blocks of the presolved LP, B = 256 for K14 and
-           K16): host wall time and device time per call; then
+  sharded  K4 over 4 column blocks of phase 2's N, K14v and K14-K16 and
+           their plain versions at the shapes of chip_smoke.py phase 9 (4
+           row blocks of the presolved LP, B = 256 for K14 and K16): host
+           wall time and device time per call; then
            LpSolver(shards=4) with device "cuda" and "auto": wall time, and
            for "cuda" the device busy share and the largest device items;
   entry    one step of ipx_tpu_torch.entry.entry() on the card (K5-K13 at
@@ -49,7 +61,10 @@ with the card's nvidia-smi name and power limit:
            versions: host wall time and device time per call, from copies
            of one state; then the wall time of dryrun_multichip(4).
 
-It imports torch and ipx_tpu_torch only, and no jax.
+The first line says what the process sees of its host: the CPUs of its
+affinity mask, the cgroup's quota, the OpenMP runtimes mapped, torch's
+threads and the OpenBLAS pools' sizes. It imports torch and ipx_tpu_torch
+only, and no jax.
 """
 import argparse
 import cProfile
@@ -67,6 +82,7 @@ sys.path.insert(0, REPO)
 
 from ipx_tpu_torch import (LpSolver, Parameters, backend,  # noqa: E402
                            kernels, testgen)
+from ipx_tpu_torch.native import threads  # noqa: E402
 from ipx_tpu_torch.kkt.splitted_normal import (  # noqa: E402
     SplittedNormalMatrix)
 from ipx_tpu_torch.sparse import normal_diag  # noqa: E402
@@ -76,7 +92,8 @@ from ipx_tpu_torch.parallel import batch  # noqa: E402
 from chip_smoke import scenarios  # noqa: E402
 
 INSTANCE = (8000, 12000, 0.001, 1)
-OMP_VARS = ("OMP_NUM_THREADS", "OMP_WAIT_POLICY", "OMP_PROC_BIND")
+OMP_VARS = ("OMP_NUM_THREADS", "OMP_WAIT_POLICY", "OMP_PROC_BIND",
+            "OPENBLAS_NUM_THREADS")
 NATIVE = ("AI_mul", "AIt_mul", "newton_recover", "step_boundary")
 PHASES = ("time_ipm1", "time_ipm2", "time_cr1", "time_cr2", "time_cr2_NNt",
           "time_maxvol", "time_crossover")
@@ -106,43 +123,143 @@ def solve(data, device, profiler=None, **params):
     return s, st, time.perf_counter() - t0
 
 
+def host_line() -> str:
+    """What the process can see of its host: the CPUs of its affinity mask,
+    os.cpu_count(), the cgroup's CPU quota, the OpenMP runtimes mapped into
+    it and the OpenMP settings."""
+    quota = "-"
+    for path in ("/sys/fs/cgroup/cpu.max",
+                 "/sys/fs/cgroup/cpu/cpu.cfs_quota_us"):
+        if os.path.exists(path):
+            with open(path) as f:
+                quota = f.read().strip()
+            break
+    with open("/proc/self/maps") as f:
+        gomp = sorted({line.split()[-1] for line in f if "gomp" in line})
+    env = " ".join(f"{k}={os.environ.get(k, '-')}" for k in OMP_VARS)
+    return (f"host affinity {len(os.sched_getaffinity(0))} cpus, cpu_count "
+            f"{os.cpu_count()}, cgroup cpu quota {quota!r}, libgomp {gomp}, "
+            f"{env}, torch_threads {torch.get_num_threads()}, "
+            f"{blas_line()}")
+
+
+def blas_line() -> str:
+    """The OpenBLAS pools' sizes now, and in a solve (native/threads.py)."""
+    k = threads.blas_threads(os.environ)
+    return (f"openblas pools {[get() for get, _ in threads.blas_pools()]} "
+            f"threads, {'as they are' if k is None else k} in a solve")
+
+
+def thread_cpu() -> dict:
+    """CPU seconds (user + system) of each thread of this process."""
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        out[tid] = (int(fields[11]) + int(fields[12])) / tick
+    return out
+
+
 def part_e2e(data, args, card):
     env = " ".join(f"{k}={os.environ.get(k, '-')}" for k in OMP_VARS)
     for _ in range(args.turns):
         for device in ("cuda", "cpu"):
+            c0, th0 = os.times(), thread_cpu()
             s, st, wall = solve(data, device)
+            c1, th1 = os.times(), thread_cpu()
+            cpu = (c1.user - c0.user) + (c1.system - c0.system)
+            busy = sorted((th1[k] - th0.get(k, 0.0) for k in th1),
+                          reverse=True)
+            cpu = (f"{cpu:.3f} s over {len(th1)} threads, the busiest "
+                   f"{' '.join(f'{b:.2f}' for b in busy[:10])} s")
             i = s.get_info()
             times = " ".join(f"{f[5:]} {getattr(i, f):.3f}" for f in PHASES)
-            print(f"e2e {env} torch_threads {torch.get_num_threads()} | "
-                  f"device={device:4s} status {st} wall {wall:.3f} s | "
+            print(f"e2e {env} torch_threads {torch.get_num_threads()} "
+                  f"{blas_line()} | "
+                  f"device={device:4s} status {st} wall {wall:.3f} s, "
+                  f"process cpu {cpu} | objval {i.objval!r} | "
                   f"{times} | IPM {i.iter} CR {i.kktiter1}+{i.kktiter2} | "
                   f"{card}", flush=True)
 
 
 def part_native(data, args, card):
+    """Per path, from cProfile: the native vector kernels' time per call,
+    then the functions with the most time of their own and those with the
+    most time in all (the device path's set-up among them)."""
     for device in ("cuda", "cpu"):
         prof = cProfile.Profile()
         _, st, wall = solve(data, device, profiler=prof)
+        stats = pstats.Stats(prof).stats
         per = {}
-        for (_, _, name), (_, ncalls, tottime, _, _) in \
-                pstats.Stats(prof).stats.items():
+        for (_, _, name), (_, ncalls, tottime, _, _) in stats.items():
             if name in NATIVE:
                 calls, t = per.get(name, (0, 0.0))
                 per[name] = (calls + ncalls, t + tottime)
         calls = " ".join(f"{k} {t / c * 1e3:.3f} ms x{c}"
                          for k, (c, t) in sorted(per.items()))
         print(f"native device={device:4s} status {st} wall {wall:.3f} s "
-              f"(under cProfile) | {calls} | {card}", flush=True)
+              f"(under cProfile), {blas_line()} | {calls} | "
+              f"{card}", flush=True)
+        for title, col in (("own", 2), ("all", 3)):
+            top = sorted(stats.items(), key=lambda kv: -kv[1][col])[:25]
+            print(f"  device={device} most time, {title}: " + "; ".join(
+                f"{name} ({os.path.basename(path)}:{line}) "
+                f"{v[col] * 1e3:.1f} ms x{v[1]}"
+                for (path, line, name), v in top), flush=True)
+
+
+def part_precision(data, args, card):
+    """The "cuda" solve with Parameters.precision "mixed" (the mixed device
+    CR of phase 1) and "f64" (the f64 device CR) in turns, beside one host
+    solve's objval."""
+    host, _, _ = solve(data, "cpu")
+    want = host.get_info().objval
+    for _ in range(args.turns):
+        for precision in ("mixed", "f64"):
+            s, st, wall = solve(data, "cuda", precision=precision)
+            i = s.get_info()
+            times = " ".join(f"{f[5:]} {getattr(i, f):.3f}" for f in PHASES)
+            print(f"precision {precision:5s} device=cuda status {st} wall "
+                  f"{wall:.3f} s | objval {i.objval!r} (host {want!r}, rel "
+                  f"{abs(i.objval - want) / abs(want):.1e}) | {times} | IPM "
+                  f"{i.iter} CR {i.kktiter1}+{i.kktiter2} | {blas_line()} | "
+                  f"{card}", flush=True)
+
+
+def part_threads(data, args, card):
+    """e2e (one solve a path) in a fresh process per thread setting, the
+    settings in turns, forth and back; OpenMP and OpenBLAS read theirs when
+    they load."""
+    cpus = str(len(os.sched_getaffinity(0)))
+    settings = ({}, {"OPENBLAS_NUM_THREADS": cpus},
+                {"OPENBLAS_NUM_THREADS": "1", "OMP_NUM_THREADS": "4"},
+                {"OPENBLAS_NUM_THREADS": "1", "OMP_NUM_THREADS": "2"},
+                {"OMP_NUM_THREADS": "1"}, {"OMP_NUM_THREADS": "4"})
+    env = {k: v for k, v in os.environ.items()
+           if k not in threads.USER_VARS}
+    for setting in settings + settings[::-1]:
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--what", "e2e",
+             "--turns", "1"], cwd=REPO, env=dict(env, **setting),
+            capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            raise RuntimeError(f"{setting}: {out.stderr[-2000:]}")
+        print(out.stdout, end="", flush=True)
 
 
 # the port's kernel of each CUDA function of csrc/, by name prefix
-KERNEL_OF = (("csr_spmv", "K1/K2/K4"), ("reduce_sum", "K2"),
+KERNEL_OF = (("csr_spmv", "K1/K2"), ("reduce_sum", "K2"),
              ("cr_step", "K3"), ("csr_spmm", "K5/K6"), ("lane_sum", "K6"),
              ("bcr_", "K7"), ("step_", "K8"), ("muaff", "K8"),
              ("ipm_update", "K9"), ("prologue_", "K10"), ("mu_", "K10"),
              ("newton_rhs", "K11"), ("normal_rhs", "K11"),
              ("newton_dx", "K12"), ("recover_", "K12"), ("start_", "K13"),
-             ("block_sum", "K14"), ("scr_", "K15"), ("sbcr_", "K16"))
+             ("block_sum", "K14"), ("scr_", "K15"), ("sbcr_", "K16"),
+             ("split_", "K14v/K4"), ("nnt_", "K4"))
 
 
 def kernel_label(key: str) -> str:
@@ -203,7 +320,7 @@ def part_kernels(data, args, card):
          lambda: spmv.csr_spmv_plain(n64.op_At, v64), 100),
         ("K2 f32", lambda: spmv.normal_apply(n32, W32, v32),
          lambda: spmv.normal_apply_plain(n32, W32, v32), 100),
-        ("K4 f64", lambda: kernels.nnt(dsc._Nt, dsc._N, w),
+        ("K4 f64 (plan)", lambda: dsc._plan(w),
          lambda: device_cr2.nnt_plain(dsc._Nt, dsc._N, w), 100),
         ("K3 mixed CR solve", lambda: mk.solve(rhs, tol, -1),
          lambda: mp.solve(rhs, tol, -1), 5)]
@@ -449,6 +566,12 @@ def part_sharded(data, args, card):
         return torch.from_numpy(np.asarray(x, dtype=np.float64)).to(dev)
 
     snm = sharding.ShardedNormalMatrix(A, P, dev)
+    sn = SplittedNormalMatrix(host.basis.model)
+    sn.prepare(host.basis, host.iterate.scaling_factors())
+    nnt = sharding.ShardedSplittedNNt(*sn.N.shape, P, dev)
+    nnt.set_operand(sn.N)
+    w = t(rng.standard_normal(m))
+    v = t(rng.standard_normal(m))
     parts, scale = t(rng.standard_normal((P, n, B))), t(
         rng.uniform(0.5, 2.0, (n, B)))
     parts1, scale1 = t(rng.standard_normal((P, n))), t(
@@ -461,7 +584,12 @@ def part_sharded(data, args, card):
     Wb = rng.uniform(0.5, 2.0, (n + m, B))
     bcr = (snm, t(Wb[:n]), t(Wb[n:]), t(1.0 / (A2 @ Wb[:n] + Wb[n:])),
            t(rng.standard_normal((m, B))), 0.0, 10)
+    op = snm.op_At_split
     cases = [
+        ("K4 P=4 (plan)", lambda: sharding.block_nnt(nnt, w),
+         lambda: sharding.block_nnt_plain(nnt.blocks, w), 100),
+        ("K14v (4, n)", lambda: kernels.block_spmv_sum(op, v, scale1),
+         lambda: spmv.split_spmv_plain(op, v, scale1), 100),
         ("K14 (4, n, 256)", lambda: sharding.block_sum(parts, scale),
          lambda: sharding.block_sum_plain(parts, scale), 20),
         ("K14 (4, n)", lambda: sharding.block_sum(parts1, scale1),
@@ -471,7 +599,7 @@ def part_sharded(data, args, card):
         ("K16 10 trips", lambda: sharding.sharded_batched_cr(*bcr),
          lambda: sharding.sharded_batched_cr_plain(*bcr), 3)]
     profile_cases(cases, card)
-    del cases, parts, scale, cr, bcr
+    del cases, parts, scale, cr, bcr, nnt
     for device in ("cuda", "auto"):
         prof = (profile(activities=[ProfilerActivity.CUDA])
                 if device == "cuda" else None)
@@ -506,7 +634,9 @@ def part_entry(data, args, card):
           f"{time.perf_counter() - t0:.3f} s | {card}", flush=True)
 
 
-PARTS = {"e2e": part_e2e, "native": part_native, "kernels": part_kernels,
+PARTS = {"e2e": part_e2e, "native": part_native, "threads": part_threads,
+         "precision": part_precision,
+         "kernels": part_kernels,
          "busy": part_busy, "batched": part_batched, "stage": part_stage,
          "polish": part_polish, "sharded": part_sharded, "entry": part_entry}
 
@@ -529,6 +659,7 @@ def main():
         sys.exit(f"unknown parts {sorted(unknown)}; expected {list(PARTS)}")
     card = card_name()
     backend.cuda_device()           # build the kernels before any timing
+    print(host_line(), flush=True)
     data = testgen.transportation(*INSTANCE[:3], seed=INSTANCE[3])
     for part in parts:
         PARTS[part](data, args, card)
