@@ -11,10 +11,13 @@ only: no jax, and no module of ipx_tpu.
   2. holds each kernel against its plain PyTorch version on the card, at
      the shapes of the 20k-row transportation LP after presolve, and times
      both (median of CUDA-event timings after warm-up), with one PyTorch
-     sparse product beside K1 and K4 as a yardstick; K4 through the NntPlan
-     the phase-2 CR builds, in its cooperative and its two-launch form in
-     turns, with event and device (torch.profiler) time, both forms bit for
-     bit against each other and from run to run;
+     sparse product beside K1 and K4 as a yardstick; K1 through the plan
+     cached on its operand, in event and device time beside the library's,
+     and on A u at the plan's lanes per row and at the operand's, in turns;
+     K4 through
+     the NntPlan the phase-2 CR builds, in its cooperative and its
+     two-launch form in turns, with event and device (torch.profiler) time,
+     both forms bit for bit against each other and from run to run;
   3. solves afiro through ipx_tpu_torch.LpSolver(device="cuda");
   4. solves transportation(8000, 12000, 0.001, seed=1) through
      ipx_tpu_torch.LpSolver(device="cuda") with every launch counter set to
@@ -32,7 +35,9 @@ only: no jax, and no module of ipx_tpu.
      sparse product);
   6. runs BatchedPhase1Solver(device="cuda") over those 256 scenarios to
      the handoff (tolerance 1e-4), with the counters set to 0 just before,
-     and checks a small stage against the same solver with the plain
+     profiles the first STAGE_STEPS steps of that stage for K7's passes by
+     name (launches and mean device time beside each lane pass's byte
+     bound), and checks a small stage against the same solver with the plain
      versions on the card;
   7. solves the first 4 scenarios end to end through
      BatchedScenarioSolver(parameters=Parameters(device="cuda")), the
@@ -47,13 +52,17 @@ only: no jax, and no module of ipx_tpu.
   9. the sharded solves (parallel/sharding.py, 4 row blocks on the card):
      K4 over 4 column blocks of phase 2's N (one launch an apply) beside
      cuSPARSE on the whole N; K14v, the vector apply's first pass, beside
-     today's composition (P K1 launches and K14) and A' v by cuSPARSE,
-     with the launches of one vector apply (P + 1); K14-K16 against their
+     the composition it replaced (P K1 launches and K14) and A' v by
+     cuSPARSE, with the launches of one vector apply (K14v and one K1);
+     K1's block products in one launch against the P per-block launches,
+     bit for bit, and one vector apply both ways, in turns, in event and
+     device time; K14-K16 against their
      plain versions at the phase-2 LP (B = 256 for K16), trip by trip;
      LpSolver(shards=4) with device "cuda" and "auto" on the phase-4 LP
      (row blocks in phase 1, column blocks in phase 2, on the card), each
      with the counters set to 0 just before, against the host path's
-     objval; sharded_batched_cr_solve at B = 256;
+     objval, and K1's launches there equal to its vector applies;
+     sharded_batched_cr_solve at B = 256;
  10. the level-scheduled triangular solves of tools/torch_trisolve_proto.py
      (ops/trisolve.py) on L and U of splu of the final basis of phase 4's
      host solve: full solves (the L sweep, then the U sweep) through K17
@@ -65,8 +74,9 @@ only: no jax, and no module of ipx_tpu.
      with the card hidden (CUDA_VISIBLE_DEVICES=""), where ipx_solve
      returns 1004 and raises nothing.
 
-K1 takes its launches from phase 9's block products: in phase 4 every
-N N' apply is one K4 launch, and nothing else there launches K1. It stops
+K1 takes its launches from phase 9's block products, one launch a vector
+apply: in phase 4 every N N' apply is one K4 launch, and nothing else there
+launches K1. It stops
 with a non-zero exit at the first failure. The line before the
 last is a JSON object with one entry per kernel: its launches on its main
 path (phase 4 for K2-K4, phase 7 for K5-K13, the "cuda" solve of phase 9
@@ -183,6 +193,28 @@ def rel_err(got, want):
     return max_abs(got, want) / max(float(want.abs().max()), 1e-300)
 
 
+def k1_vec_turns(card, op, x, want, tol):
+    """K1's plan on `op` at its lanes per row (kernels.k1_lanes) and at
+    ops/spmv.py's lanes_per_row (op.vec, which K2, K4 and K14v take), in
+    turns (plan, op.vec, op.vec, plan): event and device time of each, both
+    held to `tol` of the plain version `want`."""
+    import statistics as st
+    from ipx_tpu_torch import kernels
+    own = kernels.plan_of(op).vec
+    plans = {own: kernels.plan_of(op), op.vec: kernels.SpmvPlan(op, op.vec)}
+    for vec, plan in plans.items():
+        check(rel_err(plan(x), want) <= tol, f"K1 at {vec} lanes a row "
+              "differs from the plain version")
+    times = {vec: [] for vec in plans}
+    for vec in (own, op.vec, op.vec, own):
+        times[vec].append(cuda_ms(lambda: plans[vec](x)))
+    dev = {vec: device_ms(lambda: plans[vec](x)) for vec in plans}
+    print(f"  {'':15s} lanes per row in turns: " + "; ".join(
+        f"vec {vec}: event {st.median(times[vec]):.4f} ms "
+        f"({'/'.join(f'{t:.4f}' for t in times[vec])}), device "
+        f"{dev[vec]:.5f} ms" for vec in plans) + f" | {card}", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -251,23 +283,34 @@ def main():
                                                     dtype)),
                               ("A' v", nmd.op_At, t(rng.standard_normal(m),
                                                      dtype))):
-            y = kernels.csr_spmv(op, x)
+            # K1 through the plan cached on the operand (one ctypes call)
+            y = kernels.csr_spmv(op, x).clone()
+            again = kernels.csr_spmv(op, x)
             y_p = spmv.csr_spmv_plain(op, x)
             A_lib = library_csr(op)
             y_l = A_lib @ x
             torch.cuda.synchronize()
+            check(torch.equal(y, again), "K1: two runs differ")
             err = rel_err(y, y_p)
             ms = cuda_ms(lambda: kernels.csr_spmv(op, x))
+            dms = device_ms(lambda: kernels.csr_spmv(op, x))
             pms = cuda_ms(lambda: spmv.csr_spmv_plain(op, x))
             lms = cuda_ms(lambda: A_lib @ x)
-            report("K1 csr_spmv", f"{opname} {dn} (vec {op.vec})", err,
-                   RTOL[dn], ms, pms)
-            print(f"  {'':15s} library sparse_csr_tensor @ x: {lms:.4f} ms "
-                  f"(rel diff {rel_err(y_l, y_p):.1e}) | {card}", flush=True)
+            ldms = device_ms(lambda: A_lib @ x)
+            report("K1 csr_spmv", f"{opname} {dn} (vec "
+                   f"{kernels.plan_of(op).vec}), plan", err, RTOL[dn], ms,
+                   pms)
+            print(f"  {'':15s} device {dms:.5f} ms; library "
+                  f"sparse_csr_tensor @ x: {lms:.4f} ms event, {ldms:.5f} ms "
+                  f"device (rel diff {rel_err(y_l, y_p):.1e}) | {card}",
+                  flush=True)
             check(rel_err(y_l, y_p) <= RTOL[dn], "K1: the library differs")
+            if opname == "A u":
+                k1_vec_turns(card, op, x, y_p, RTOL[dn])
             if opname == "A u" and dtype == torch.float64:
                 rows["csr_spmv"] = dict(
-                    case="A u, f64", max_abs_err=max_abs(y, y_p), ms=ms,
+                    case="A u, f64, through the operand's plan",
+                    max_abs_err=max_abs(y, y_p), ms=ms,
                     plain_ms=pms, library_ms=lms,
                     **bound(op_bytes(op) + nbytes(x, y),
                             2 * op.vals.numel(), "f64"))
@@ -562,6 +605,7 @@ POLISH = ("csr_spmm", "step_batch", "ipm_update", "ipm_prologue",
           "newton_rhs", "newton_recover")
 B_FULL = 256
 POLISH_STEPS = 3
+STAGE_STEPS = 3     # steps of the stage profiled for K7's passes (phase 6)
 
 
 # phase 4's solves of both paths once each, twice, in a process whose
@@ -900,6 +944,7 @@ def batched_phases(card, data, dev, rng):
     handoff = {k: np.ascontiguousarray(out[k][..., :4]) for k in (
         "X", "XL", "XU", "Y", "ZL", "ZU", "done", "iters")}
     del ph1, out
+    k7_pass_times(card, blp, dev)
 
     # the whole stage, kernels against plain versions, on a small LP
     small = tg.transportation(60, 90, 0.05, seed=2)
@@ -964,6 +1009,62 @@ def batched_phases(card, data, dev, rng):
 
     polish_phase(card, data, b_batch[:4], handoff, "cuda")
     return rows, launches
+
+
+K7_PASSES = ("kInit", "kStart", "kPassCA", "kCheck", "kPassB", "kBeta")
+
+
+def k7_passes(prof):
+    """{(dtype, pass name): (launches, mean device us)} of K7's kernels in a
+    torch.profiler window; the pass is the kernel's template argument."""
+    import re
+    out = {}
+    for e in prof.key_averages():
+        hit = re.search(
+            r"bcr_(?:lane|elem)_kernel<(float|double),[^0-9>]*(\d)[^>]*>",
+            e.key)
+        if e.device_type.name == "CUDA" and hit:
+            key = (hit.group(1), K7_PASSES[int(hit.group(2))])
+            n, us = out.get(key, (0, 0.0))
+            out[key] = (n + e.count, us + e.self_device_time_total)
+    return {k: (n, us / n) for k, (n, us) in out.items()}
+
+
+def k7_pass_times(card, blp, dev):
+    """Phase 6, K7's passes by name: the first STAGE_STEPS steps of the
+    B = 256 stage under torch.profiler, each pass's launches and mean device
+    time beside its byte bound (the partials it reads once, the lane slots
+    it reads and writes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ipx_tpu_torch import kernels
+    from ipx_tpu_torch.parallel import batch
+    m, B = blp.A.shape[0], blp.batch
+    ph = batch.BatchedPhase1Solver(blp, feasibility_tol=1e-4,
+                                   optimality_tol=1e-4, maxiter=STAGE_STEPS,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ph.solve()
+        torch.cuda.synchronize()
+    passes = k7_passes(prof)
+    npa = kernels.lane_blocks(m, B)
+    lines = []
+    for (dn, name), (n, us) in sorted(passes.items()):
+        size = 4 if dn == "float" else 8
+        npc = kernels.lane_blocks(m, B // (16 // size))
+        read = {"kCheck": 2 * npa * B + 2 * B, "kStart": npc * B,
+                "kBeta": npc * B + 2 * B}.get(name)
+        wrote = {"kCheck": 3 * B, "kStart": B, "kBeta": 2 * B + 1}.get(name)
+        b_us = (f", bound {1e6 * size * (read + wrote) / HBM_BYTES_PER_S:.3f}"
+                f" us" if read else "")
+        lines.append(f"{dn} {name} {n} x {us:.2f} us{b_us}")
+    for name in ("kStart", "kCheck", "kBeta"):
+        check(any(k[1] == name for k in passes), f"phase 6: K7 {name} was "
+              "not seen by the profiler")
+    print(f"  K7 passes over the first {STAGE_STEPS} steps of the stage "
+          f"(B={B}, m={m}, npa={npa}): " + "; ".join(lines) + f" | {card}",
+          flush=True)
 
 
 class plain_products:
@@ -1265,6 +1366,53 @@ def polish_phase(card, data, b4, handoff, device):
         check(launched[name] > 0, f"phase 8 e2e: {name} not launched")
 
 
+def block_products_turns(card, snm, u, Wl, v, Ws):
+    """Phase 9, K1's block products of one vector apply: the one launch
+    (BlockSpmvPlan) against the P per-block K1 launches it replaced, out and
+    partials bit for bit, each timed in turns (one, P, P, one) in event and
+    device time; then the whole vector apply both ways (K14v and the one
+    launch, K14v and the P launches), in turns."""
+    import statistics as st
+    import torch
+    from ipx_tpu_torch import kernels
+    m, P = v.numel(), len(snm.op_A)
+    vecs = [kernels.k1_lanes(op) for op in snm.op_A]
+    _, blk_off = kernels.block_layout([op.rows for op in snm.op_A], vecs)
+    e = lambda k: torch.empty(k, dtype=v.dtype, device=v.device)  # noqa
+    out, parts, out_p, parts_p = e(m), e(blk_off[-1]), e(m), e(blk_off[-1])
+    plan = kernels.BlockSpmvPlan(snm.op_A, u, out, Wl, v, parts)
+    slices = kernels._slices(parts_p, np.diff(blk_off))
+
+    def per_block():
+        kernels._block_products(kernels.csr_spmv, snm.op_A, u, out_p, Wl, v,
+                                slices, None)
+
+    plan.launch()
+    per_block()
+    torch.cuda.synchronize()
+    check(torch.equal(out, out_p) and torch.equal(parts, parts_p),
+          "K1's one launch differs from its P launches")
+    forms = {"one launch": plan.launch, f"{P} launches": per_block}
+    # a vector apply as K15's step object makes it: K14v into u, then the
+    # block products
+    applies = {"one launch": lambda: (kernels.block_spmv_sum(
+        snm.op_At_split, v, Ws, out=u), plan.launch()),
+        f"{P} launches": lambda: (kernels.block_spmv_sum(
+            snm.op_At_split, v, Ws, out=u), per_block())}
+    for label, fns in (("block products", forms), ("vector apply", applies)):
+        times = {k: [] for k in fns}
+        for k in ("one launch", f"{P} launches", f"{P} launches",
+                  "one launch"):
+            times[k].append(cuda_ms(fns[k]))
+        dev = {k: device_ms(fns[k]) for k in fns}
+        print(f"  K1 {label}: " + "; ".join(
+            f"{k}: event {st.median(times[k]):.4f} ms ("
+            f"{'/'.join(f'{t:.4f}' for t in times[k])}), device "
+            f"{dev[k]:.5f} ms" for k in fns) + f"; blocks' lanes per row "
+            f"{vecs} (agree: {len(set(vecs)) == 1}), bit for bit with the P "
+            f"launches | {card}", flush=True)
+
+
 def sharded_phase(card, data, md, N2, host_objval, dev):
     """Phase 9, the sharded solves (parallel/sharding.py) with P_SHARDS row
     blocks on the card: K4 over P_SHARDS column blocks of phase 2's N
@@ -1369,14 +1517,15 @@ def sharded_phase(card, data, md, N2, host_objval, dev):
     out, launched = moved(lambda: sharding.block_normal_apply(snm, Ws, Wl,
                                                               v))
     want = sharding._block_apply_plain(snm, Ws, Wl, v, spmv.csr_spmv_plain)
-    print(f"  {'':26s} device {dms:.5f} ms; today's composition ({P} K1 + "
-          f"K14): {cms:.4f} ms event, {cdms:.5f} ms device; cuSPARSE "
+    print(f"  {'':26s} device {dms:.5f} ms; the P K1 + K14 composition it "
+          f"replaced: {cms:.4f} ms event, {cdms:.5f} ms device; cuSPARSE "
           f"At_csr @ v (unscaled): {lms:.4f} ms event, {ldms:.5f} ms "
           f"device; one vector apply launched {launched} (rel err "
           f"{rel_err(out, want):.1e}) | {card}", flush=True)
-    check(launched == {"block_spmv_sum": 1, "csr_spmv": P},
-          f"a vector apply launched {launched}, not K14v and {P} K1")
+    check(launched == {"block_spmv_sum": 1, "csr_spmv": 1},
+          f"a vector apply launched {launched}, not one K14v and one K1")
     check(rel_err(out, want) <= 1e-12, "the vector apply differs")
+    block_products_turns(card, snm, u, Wl, v, Ws)
     rows["block_spmv_sum"] = dict(
         case=f"u = W_struct * sum_p A_p' v_p, P={P}, f64",
         max_abs_err=max_abs(u, u_p), ms=ms, plain_ms=pms, library_ms=None,
@@ -1522,6 +1671,9 @@ def sharded_phase(card, data, md, N2, host_objval, dev):
                   "launched")
         check(launched["block_sum"] == 0, f"shards={P} {device}: K14 ran on "
               "a vector path")
+        check(launched["csr_spmv"] == launched["block_spmv_sum"],
+              f"shards={P} {device}: {launched['csr_spmv']} K1 launches for "
+              f"{launched['block_spmv_sum']} vector applies, not one each")
         check(applies > 0 and nnt[1].device.type == "cuda"
               and launched["nnt"] == applies,
               f"shards={P} {device}: the sharded N N' did not run on the "

@@ -11,6 +11,10 @@ namespace ipxt {
 
 constexpr int kThreads = 256;
 
+// Blocks a split operand (nnt.cu) or a one-launch block product (spmv.cu)
+// takes, by value in the kernel's arguments: kernels.MAX_SPLIT.
+constexpr int kMaxSplit = 8;
+
 // The CR loop keeps its scalars in one small device array of the working
 // type (ops/device_cr.py:_cr_solve_cuda). `cdot` is double-buffered by the
 // parity of the host's trip count, so a pass can read this trip's value

@@ -59,8 +59,6 @@ namespace cg = cooperative_groups;
 namespace ipxt {
 namespace {
 
-constexpr int kMaxSplit = 8;  // kernels.MAX_SPLIT
-
 // the P - 1 interior bounds of a split, by value in the kernel's arguments
 struct Split {
   int64_t bound[kMaxSplit - 1];

@@ -3,23 +3,34 @@
 //
 // Replaces: ipx_tpu/ops/spmv.py apply_csr / apply_csr_tree (a gather, a
 // lane-major cumsum and a boundary difference), NormalMatrixDevice.apply /
-// normal_apply_tree, and the segment-sum SpMV _apply_seg of
-// ipx_tpu/ops/device_cr2.py. The cumsum and the segment ids existed because
-// the TPU lowered neither a scatter nor a per-row loop well; here each CSR
-// row is summed by its own group of lanes and both disappear.
+// normal_apply_tree, the segment-sum SpMV _apply_seg of
+// ipx_tpu/ops/device_cr2.py, and the per-block products A_p u + W_slack_p
+// v_p of the row-blocked vector apply (ipx_tpu/parallel/sharding.py
+// _apply_block, one per mesh device there). The cumsum and the segment ids
+// existed because the TPU lowered neither a scatter nor a per-row loop well;
+// here each CSR row is summed by its own group of lanes and both disappear.
 //
-// What bounds it on the H100: memory. Per nonzero it reads a 4-byte column
-// index and an 8-byte (f64) or 4-byte (f32) value, and gathers one entry of
-// x, which stays in the 50 MB L2 cache at the main path's sizes (x has at
-// most ~100k entries). There is about one multiply-add per 12-16 bytes, far
-// below the card's ratio of compute to bandwidth, so no tensor-core path
-// applies (f64 goes through the plain FP64 units).
+// What bounds it on the H100: memory, and at the main path's sizes the
+// launch. Per nonzero it reads a 4-byte column index and an 8-byte (f64) or
+// 4-byte (f32) value, and gathers one entry of x, which stays in the 50 MB
+// L2 cache (x has at most ~100k entries). There is about one multiply-add
+// per 12-16 bytes, far below the card's ratio of compute to bandwidth, so no
+// tensor-core path applies (f64 goes through the plain FP64 units). At
+// m = 20 000 a product moves about 2.3 MB (0.7 us at 3.35 TB/s), less than a
+// launch and the host's share of a call cost: the host side is one ctypes
+// call through a plan that checked the operand once (kernels.SpmvPlan), and
+// the P block products of a row-blocked apply are one launch
+// (kernels.BlockSpmvPlan), not P.
 //
-// Design: a group of VEC lanes of one warp per row, VEC the power of two at
-// or above the operand's mean row length (rows of A have ~10 nonzeros, rows
-// of A' have 2), so neighbouring lanes read neighbouring nonzeros and short
-// rows do not leave 30 of 32 lanes idle. The row sum is a fixed shuffle
-// tree, so results repeat exactly from run to run.
+// Design: a group of VEC lanes of one warp per row, VEC a power of two
+// near the operand's mean row length (rows of A have ~10 nonzeros, rows of
+// A' have 2), so neighbouring lanes read neighbouring nonzeros and short
+// rows do not leave 30 of 32 lanes idle: for K2 the one at or above the
+// mean (ops/spmv.py lanes_per_row), for K1's plans the one at or below it
+// (kernels.k1_lanes; on A of the 20k LP 8 lanes, not 16, take 18-20% less
+// device time). The row sum is a fixed shuffle tree, so results repeat
+// exactly from run to run. spmv_block holds one CUDA block's rows; both
+// kernels below run it, so they round alike.
 //
 // K2 is two launches of the same kernel with epilogues:
 //   u   = W_s * (A' v)                 (rowscale)
@@ -30,6 +41,19 @@
 // in cr.cu; reduce_sum serves the stand-alone K2 wrapper that the tests and
 // chip_smoke.py call.
 //
+// The block products (block_spmv_kernel): out_p = A_p u + W_slack_p v_p over
+// the P <= kMaxSplit row blocks of a row-blocked apply, with the partials of
+// v_p . out_p. It takes the P blocks' own CSR operands (each block keeps its
+// rows, as each rank of the reference holds its block, and the batched
+// apply's K5 reads the same operands), so no second copy of A is kept. The
+// CUDA blocks are laid out block by block, block p taking as many as its
+// own launch would (blocks_for(rows_p, kThreads / vec_p)), so no CUDA block
+// straddles two row blocks and each runs its row block's own VEC. A CUDA
+// block finds its row block from its index against the P + 1 offsets, which
+// it takes by value. Rows, lane trees and partial slots are then those of P
+// separate launches of csr_spmv_kernel, and the results equal theirs bit for
+// bit.
+//
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError().
 
@@ -38,19 +62,22 @@
 namespace ipxt {
 namespace {
 
+// One CUDA block's rows of a product: local block `blk` of an operand of
+// `rows` rows takes rows blk * (kThreads / VEC) + threadIdx.x / VEC, each
+// summed by VEC lanes with a fixed shuffle tree, then
+//   y[row] = sum * rowscale[row] + addw[row] * addv[row]
+// (rowscale, addw / addv may be null). With `partial`, *partial is the
+// block's fixed-order sum of addv[row] * y[row]. y, rowscale, addw and addv
+// point at the operand's row 0. Every thread of the block calls it.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-csr_spmv_kernel(int64_t rows, const int64_t* __restrict__ indptr,
-                const int32_t* __restrict__ indices,
-                const T* __restrict__ vals, const T* __restrict__ x,
-                const T* __restrict__ rowscale, const T* __restrict__ addw,
-                const T* __restrict__ addv, T* __restrict__ y,
-                T* __restrict__ partials, const T* __restrict__ state) {
-  __shared__ T red[kThreads];
-  if (loop_done(state)) return;
+__device__ __forceinline__ void spmv_block(
+    int64_t rows, int64_t blk, const int64_t* __restrict__ indptr,
+    const int32_t* __restrict__ indices, const T* __restrict__ vals,
+    const T* __restrict__ x, const T* __restrict__ rowscale,
+    const T* __restrict__ addw, const T* __restrict__ addv,
+    T* __restrict__ y, T* __restrict__ partial, T* red) {
   const int lane = threadIdx.x % VEC;
-  const int64_t row =
-      (int64_t)blockIdx.x * (kThreads / VEC) + threadIdx.x / VEC;
+  const int64_t row = blk * (kThreads / VEC) + threadIdx.x / VEC;
   T sum = T(0);
   if (row < rows) {
     const int64_t end = indptr[row + 1];
@@ -68,11 +95,81 @@ csr_spmv_kernel(int64_t rows, const int64_t* __restrict__ indptr,
     if (rowscale != nullptr) out *= rowscale[row];
     if (addw != nullptr) out += addw[row] * addv[row];
     y[row] = out;
-    if (partials != nullptr) dot = addv[row] * out;
+    if (partial != nullptr) dot = addv[row] * out;
   }
-  if (partials != nullptr) {
+  if (partial != nullptr) {
     const T b = block_sum(dot, red);
-    if (threadIdx.x == 0) partials[blockIdx.x] = b;
+    if (threadIdx.x == 0) *partial = b;
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+csr_spmv_kernel(int64_t rows, const int64_t* __restrict__ indptr,
+                const int32_t* __restrict__ indices,
+                const T* __restrict__ vals, const T* __restrict__ x,
+                const T* __restrict__ rowscale, const T* __restrict__ addw,
+                const T* __restrict__ addv, T* __restrict__ y,
+                T* __restrict__ partials, const T* __restrict__ state) {
+  __shared__ T red[kThreads];
+  if (loop_done(state)) return;
+  spmv_block<T, VEC>(rows, blockIdx.x, indptr, indices, vals, x, rowscale,
+                     addw, addv, y,
+                     partials != nullptr ? partials + blockIdx.x : nullptr,
+                     red);
+}
+
+// The P row blocks of a row-blocked apply, by value: block p holds rows
+// [row_off[p], row_off[p + 1]) of out and the CUDA blocks (and partial
+// slots) [blk_off[p], blk_off[p + 1]), and its own CSR operand.
+struct BlockOps {
+  int P;
+  int64_t row_off[kMaxSplit + 1];
+  int64_t blk_off[kMaxSplit + 1];
+  int vec[kMaxSplit];
+  const int64_t* indptr[kMaxSplit];
+  const int32_t* indices[kMaxSplit];
+  const double* vals[kMaxSplit];
+};
+
+__global__ void __launch_bounds__(kThreads)
+block_spmv_kernel(BlockOps o, const double* __restrict__ x,
+                  const double* __restrict__ addw,
+                  const double* __restrict__ addv, double* __restrict__ y,
+                  double* __restrict__ partials,
+                  const double* __restrict__ state) {
+  __shared__ double red[kThreads];
+  if (loop_done(state)) return;
+  const int64_t g = blockIdx.x;
+  // this CUDA block's row block: the last p with blk_off[p] <= g (an empty
+  // row block has no CUDA block, so the last such p is the one holding g);
+  // every index is a constant after unrolling, so the arguments stay in the
+  // parameter bank
+  int64_t r0 = o.row_off[0], r1 = o.row_off[1], b0 = o.blk_off[0];
+  int vec = o.vec[0];
+  const int64_t* ip = o.indptr[0];
+  const int32_t* ix = o.indices[0];
+  const double* va = o.vals[0];
+#pragma unroll
+  for (int q = 1; q < kMaxSplit; ++q) {
+    if (q < o.P && o.blk_off[q] <= g) {
+      r0 = o.row_off[q];
+      r1 = o.row_off[q + 1];
+      b0 = o.blk_off[q];
+      vec = o.vec[q];
+      ip = o.indptr[q];
+      ix = o.indices[q];
+      va = o.vals[q];
+    }
+  }
+  double* part = partials != nullptr ? partials + g : nullptr;
+  const int64_t rows = r1 - r0, blk = g - b0;
+  switch (vec) {  // the same for every thread of the block
+    case 2: spmv_block<double, 2>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
+    case 4: spmv_block<double, 4>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
+    case 8: spmv_block<double, 8>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
+    case 16: spmv_block<double, 16>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
+    default: spmv_block<double, 32>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
   }
 }
 
@@ -160,6 +257,53 @@ extern "C" int ipxt_csr_spmv_f32(int64_t rows, const void* indptr,
                                  void* stream) {
   return ipxt::csr_spmv<float>(rows, indptr, indices, vals, x, rowscale, addw,
                                addv, y, partials, state, vec, stream);
+}
+
+// The block products of a row-blocked apply in one launch, float64:
+// y[i] = (A_p x)[i - row_off[p]] + addw[i] addv[i] for the rows i of block
+// p, and partials[g] the sum of addv[i] y[i] over the rows of CUDA block g.
+// The host arrays row_off and blk_off (P + 1 each), vec, indptr, indices
+// and vals (P each) are read during the call; blk_off must be the layout
+// of P separate launches (ipxt_spmv_blocks of each block). addw and addv
+// are required; partials and state may be null.
+extern "C" int ipxt_block_spmv_f64(int P, const int64_t* row_off,
+                                   const int64_t* blk_off, const int* vec,
+                                   const void* const* indptr,
+                                   const void* const* indices,
+                                   const void* const* vals, const void* x,
+                                   const void* addw, const void* addv,
+                                   void* y, void* partials, const void* state,
+                                   void* stream) {
+  using namespace ipxt;
+  if (P < 1 || P > kMaxSplit || row_off[0] != 0 || blk_off[0] != 0 ||
+      addw == nullptr || addv == nullptr)
+    return (int)cudaErrorInvalidValue;
+  BlockOps o = {};
+  o.P = P;
+  for (int p = 0; p <= P; ++p) {
+    o.row_off[p] = row_off[p];
+    o.blk_off[p] = blk_off[p];
+  }
+  for (int p = 0; p < P; ++p) {
+    const int v = vec[p];
+    if (v != 2 && v != 4 && v != 8 && v != 16 && v != 32)
+      return (int)cudaErrorInvalidValue;
+    const int64_t rows = row_off[p + 1] - row_off[p];
+    if (rows < 0 || blk_off[p + 1] - blk_off[p] != blocks_for(rows, kThreads / v))
+      return (int)cudaErrorInvalidValue;
+    o.vec[p] = v;
+    o.indptr[p] = static_cast<const int64_t*>(indptr[p]);
+    o.indices[p] = static_cast<const int32_t*>(indices[p]);
+    o.vals[p] = static_cast<const double*>(vals[p]);
+  }
+  const int64_t grid = blk_off[P];
+  if (grid == 0) return 0;
+  block_spmv_kernel<<<(unsigned)grid, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      o, static_cast<const double*>(x), static_cast<const double*>(addw),
+      static_cast<const double*>(addv), static_cast<double*>(y),
+      static_cast<double*>(partials), static_cast<const double*>(state));
+  return (int)cudaGetLastError();
 }
 
 // out[0] = sum of in[0..n), in a fixed order (one block).

@@ -10,7 +10,9 @@ CPU: the plain PyTorch versions sit beside the wrappers in ``ops/`` that
 dispatch on a tensor's device, and a launcher given anything but a CUDA
 tensor raises.
 
-Kernels: K1 ``csr_spmv``, K2 ``normal_apply`` (csrc/spmv.cu), K3
+Kernels: K1 ``csr_spmv`` (SpmvPlan, checked once per operand and one
+ctypes call a launch; BlockSpmvPlan, the P block products of a row-blocked
+vector apply in one launch), K2 ``normal_apply`` (csrc/spmv.cu), K3
 ``cr_step`` (csrc/cr.cu), K4 ``nnt`` (NntKernel, one C call per N N' apply
 over P >= 1 column blocks, csrc/nnt.cu); for the batched
 phase 1, K5 ``csr_spmm``, K6 ``normal_apply_batched`` (csrc/spmm.cu), K7
@@ -115,6 +117,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         f = getattr(lib, name)
         f.argtypes = argtypes
         f.restype = I
+    lib.ipxt_block_spmv_f64.argtypes = [I] + [P] * 13
+    lib.ipxt_block_spmv_f64.restype = I
     lib.ipxt_red_blocks.argtypes = [I64, I64]
     lib.ipxt_red_blocks.restype = I64
     lib.ipxt_lane_blocks.argtypes = [I64, I64]
@@ -196,36 +200,108 @@ def _stream(device: torch.device) -> int:
 
 
 # -- K1 / K2 / K4 -------------------------------------------------------------
+THREADS = 256         # threads of a block (kThreads, csrc/common.cuh)
+
+
+def _blocks_for(n: int, per: int) -> int:
+    return -(-n // per)
+
+
 def spmv_blocks(op) -> int:
-    """Length of the partials a launch over operand `op` writes."""
-    return int(load().ipxt_spmv_blocks(op.rows, op.vec))
+    """Length of the partials a launch over operand `op` at its own lanes
+    per row (op.vec, as K2 takes it) writes: its CUDA blocks
+    (ipxt_spmv_blocks of csrc/spmv.cu)."""
+    return _blocks_for(op.rows, THREADS // op.vec)
 
 
-def _spmv(op, x, y, rowscale=None, addw=None, addv=None, partials=None,
-          state=None) -> None:
-    """One launch of the CSR kernel with its optional epilogues."""
-    device, dtype = x.device, x.dtype
-    lib = load()
-    _check_operand(op, device, dtype)
-    _check(x, "x", device, dtype, op.cols)
-    _check(y, "y", device, dtype, op.rows)
-    for name, t in (("rowscale", rowscale), ("addw", addw), ("addv", addv)):
-        if t is not None:
-            _check(t, name, device, dtype, op.rows)
-    if (addw is None) != (addv is None):
-        raise ValueError("addw and addv go together")
-    if partials is not None:
-        if addv is None:
+def k1_lanes(op) -> int:
+    """Lanes per row of K1's plans: the power of two at or below the mean
+    row length of `op`, within [2, 32]. On A of the 20k LP (9.6 nonzeros a
+    row) 8 lanes take 18-20% less device time than the 16 of ops/spmv.py's
+    lanes_per_row, which K2, K4 and K14v keep (PERF.md §6)."""
+    mean = op.vals.numel() / op.rows if op.rows else 0.0
+    vec = 2
+    while vec < 32 and 2 * vec <= mean:
+        vec *= 2
+    return vec
+
+
+class SpmvPlan:
+    """K1 bound to one CSR operand `op` of ops/spmv.py, float64 or float32:
+    the operand is checked, the C function bound and the current stream of
+    its device taken once, here; a call then checks only what it is given
+    and makes one ctypes call. `vec` (lanes per row) defaults to
+    k1_lanes(op). csr_spmv and K2 go through the plans cached on the
+    operand (plan_of), which launch on the stream that was current when they
+    were built."""
+
+    def __init__(self, op, vec: int = None):
+        device, dtype = _device_of(op.vals), op.vals.dtype
+        _check_operand(op, device, dtype)
+        vec = k1_lanes(op) if vec is None else vec
+        if vec not in (2, 4, 8, 16, 32):
+            raise ValueError(f"lanes per row must be a power of two in "
+                             f"[2, 32], got {vec}")
+        lib = load()
+        self.op, self.device, self.dtype, self.vec = op, device, dtype, vec
+        self.nblk = _blocks_for(op.rows, THREADS // vec)
+        self._shape = {"x": torch.Size([op.cols]),
+                       "state": torch.Size([int(lib.ipxt_cr_state_len())])}
+        self._rows = torch.Size([op.rows])
+        self._fn = getattr(lib, f"ipxt_csr_spmv_{_SUFFIX[dtype]}")
+        self._head = (op.rows, op.indptr.data_ptr(), op.indices.data_ptr(),
+                      op.vals.data_ptr())
+        self._stream = _stream(device)
+
+    def _ptr(self, t, name: str, shape=None):
+        """The pointer of `t` (None for None) once it is a contiguous tensor
+        of the plan's device and dtype and of `shape` (the rows of op)."""
+        if t is None:
+            return None
+        shape = self._rows if shape is None else shape
+        if not (isinstance(t, torch.Tensor) and t.dtype == self.dtype
+                and t.shape == shape and t.device == self.device
+                and t.is_contiguous()):
+            _check(t, name, self.device, self.dtype, tuple(shape))
+        return t.data_ptr()
+
+    def __call__(self, x, out=None, rowscale=None, addw=None, addv=None,
+                 partials=None, state=None) -> torch.Tensor:
+        """out = (op @ x) * rowscale + addw * addv, into `out` if given,
+        with the block partials of addv.out in `partials` (length nblk);
+        each epilogue optional. `state` is a CR loop's: once it says done,
+        the launch returns at once. Counts nothing: csr_spmv counts K1's
+        launches, normal_apply K2's."""
+        if (addw is None) != (addv is None):
+            raise ValueError("addw and addv go together")
+        if partials is not None and addv is None:
             raise ValueError("partials need addv")
-        _check(partials, "partials", device, dtype, spmv_blocks(op))
-    if state is not None:
-        _check(state, "state", device, dtype, int(lib.ipxt_cr_state_len()))
-    fn = getattr(lib, f"ipxt_csr_spmv_{_SUFFIX[dtype]}")
-    err = fn(op.rows, op.indptr.data_ptr(), op.indices.data_ptr(),
-             op.vals.data_ptr(), x.data_ptr(), _ptr(rowscale), _ptr(addw),
-             _ptr(addv), y.data_ptr(), _ptr(partials), _ptr(state), op.vec,
-             _stream(device))
-    _raise_if(err, "csr_spmv")
+        xp = self._ptr(x, "x", self._shape["x"])
+        if out is None:
+            out = torch.empty(self._rows, dtype=self.dtype,
+                              device=self.device)
+            yp = out.data_ptr()
+        else:
+            yp = self._ptr(out, "out")
+        err = self._fn(*self._head, xp, self._ptr(rowscale, "rowscale"),
+                       self._ptr(addw, "addw"), self._ptr(addv, "addv"), yp,
+                       self._ptr(partials, "partials",
+                                 torch.Size([self.nblk])),
+                       self._ptr(state, "state", self._shape["state"]),
+                       self.vec, self._stream)
+        _raise_if(err, "csr_spmv")
+        return out
+
+
+def plan_of(op, vec: int = None) -> SpmvPlan:
+    """The SpmvPlan of operand `op` at `vec` lanes per row (by default
+    k1_lanes(op), K1's; K2 asks for op.vec), built at its first use and kept
+    on the operand."""
+    vec = k1_lanes(op) if vec is None else vec
+    plans = op.__dict__.setdefault("_spmv_plans", {})
+    if vec not in plans:
+        plans[vec] = SpmvPlan(op, vec)
+    return plans[vec]
 
 
 def csr_spmv(op, x: torch.Tensor, out=None, addw=None, addv=None,
@@ -233,11 +309,10 @@ def csr_spmv(op, x: torch.Tensor, out=None, addw=None, addv=None,
     """K1: y = op @ x on the card, into `out` if given; with addw and addv,
     y = op @ x + addw * addv and, with `partials`, the block partials of
     addv.y (a block product of the sharded solves). `state` is a CR loop's:
-    once it says done, the launch returns at once."""
-    device = _device_of(x)
-    y = torch.empty(op.rows, dtype=x.dtype, device=device) \
-        if out is None else out
-    _spmv(op, x, y, addw=addw, addv=addv, partials=partials, state=state)
+    once it says done, the launch returns at once. Through the operand's
+    plan: one ctypes call."""
+    y = plan_of(op)(x, out, addw=addw, addv=addv, partials=partials,
+                    state=state)
     LAUNCHES["csr_spmv"] += 1
     return y
 
@@ -253,11 +328,12 @@ def normal_apply(At, A, W: torch.Tensor, v: torch.Tensor, out=None,
     n, m = At.rows, A.rows
     _check(W, "W", device, v.dtype, n + m)
     e = lambda k: torch.empty(k, dtype=v.dtype, device=device)  # noqa: E731
+    plan_t, plan = plan_of(At, At.vec), plan_of(A, A.vec)
     out = e(m) if out is None else out
     u = e(n) if u is None else u
-    partials = e(spmv_blocks(A)) if partials is None else partials
-    _spmv(At, v, u, rowscale=W[:n], state=state)
-    _spmv(A, u, out, addw=W[n:], addv=v, partials=partials, state=state)
+    partials = e(plan.nblk) if partials is None else partials
+    plan_t(v, u, rowscale=W[:n], state=state)
+    plan(u, out, addw=W[n:], addv=v, partials=partials, state=state)
     if dot is not None:
         _check(dot, "dot", device, v.dtype, 1)
         fn = getattr(_lib, f"ipxt_reduce_sum_{_SUFFIX[v.dtype]}")
@@ -512,7 +588,7 @@ class BatchedCrStep:
         self.Y, self.S, self.CS, self.D, self.CD = (e(m, B) for _ in range(5))
         self.U = e(n, B)
         self.npa = lane_blocks(m, B)
-        self.pa = e(2, self.npa, B)
+        self.pa = e(2, B, self.npa)     # lane-major (csrc/batch_cr.cu)
         self.pc = e(*normal_partials_shape(A, W, self.S, self.CS, self.U))
         # zeros made on the host: the state is copied up, not filled by a
         # device kernel
@@ -873,10 +949,74 @@ def _slices(t: torch.Tensor, sizes) -> list:
     return out
 
 
+def block_layout(rows, vecs) -> tuple:
+    """(row_off, blk_off) of the block products' one launch over P row
+    blocks of rows[p] rows summed with vecs[p] lanes a row (k1_lanes of the
+    block): the prefix offsets of the rows and of the CUDA blocks, block p
+    taking as many as its own K1 launch would, which are also the offsets
+    of its partials."""
+    row_off, blk_off = [0], [0]
+    for r, vec in zip(rows, vecs):
+        row_off.append(row_off[-1] + int(r))
+        blk_off.append(blk_off[-1] + _blocks_for(int(r), THREADS // vec))
+    return row_off, blk_off
+
+
+class BlockSpmvPlan:
+    """K1 over the P row blocks of a row-blocked vector apply in one launch
+    (csrc/spmv.cu): out_p = A_p u + W_slack_p v_p into block p's rows of
+    out, and with `partials` the block partials of v_p.out_p in the slots
+    that P separate K1 launches would write (block_layout), float64. `A` are
+    the blocks' CSR operands (A_p with the block's rows and n columns, at
+    most MAX_SPLIT of them); u (n,), out, W_slack and v (m,); `state` a CR
+    loop's, once it says done the launch returns at once. The operands and
+    buffers are checked, the argument tuple packed and the current stream
+    taken once, here; launch() makes one ctypes call. Each block keeps its
+    own lanes per row (k1_lanes), so out and partials equal those of P
+    csr_spmv launches bit for bit."""
+
+    def __init__(self, A, u, out, W_slack, v, partials=None, state=None):
+        device = _device_of(u)
+        P, n, rows = len(A), u.numel(), [op.rows for op in A]
+        if not 1 <= P <= MAX_SPLIT:
+            raise ValueError(f"the block products take 1 to {MAX_SPLIT} "
+                             f"blocks, got {P}")
+        for op in A:
+            _check_operand(op, device, F64)
+            if op.cols != n:
+                raise ValueError(f"a block has {op.cols} columns, u {n}")
+        m, vecs = sum(rows), [k1_lanes(op) for op in A]
+        _check_f64(device, dict(u=(u, n), out=(out, m), W_slack=(W_slack, m),
+                                v=(v, m)))
+        row_off, blk_off = block_layout(rows, vecs)
+        if partials is not None:
+            _check(partials, "partials", device, F64, blk_off[-1])
+        load()
+        if state is not None:
+            _check_state(state, device)
+        # host arrays the C entry reads during each call
+        self._host = (np.array(row_off, dtype=np.int64),
+                      np.array(blk_off, dtype=np.int64),
+                      np.array(vecs, dtype=np.int32),
+                      *(np.array([getattr(op, k).data_ptr() for op in A],
+                                 dtype=np.uint64)
+                        for k in ("indptr", "indices", "vals")))
+        self._keep = (A, u, out, W_slack, v, partials, state)
+        self._args = (P, *(a.ctypes.data for a in self._host),
+                      u.data_ptr(), W_slack.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), _ptr(partials), _ptr(state),
+                      _stream(device))
+
+    def launch(self) -> None:
+        _raise_if(_lib.ipxt_block_spmv_f64(*self._args), "block products")
+        LAUNCHES["csr_spmv"] += 1
+
+
 def _block_products(prod, A, u, out, W_slack, v, partials, state) -> None:
-    """The second pass of a row-blocked apply: A_p u + W_slack_p v_p by
-    `prod` (K1 or K5) into the block's rows of out, with the block's
-    partials of v.out into partials[p] if given."""
+    """The second pass of a row-blocked apply in P launches: A_p u +
+    W_slack_p v_p by `prod` (K5, or K1 where the tests compare BlockSpmvPlan
+    with it) into the block's rows of out, with the block's partials of
+    v.out into partials[p] if given."""
     rows = [op.rows for op in A]
     partials = [None] * len(A) if partials is None else partials
     for op, o_p, w_p, v_p, pc in zip(A, _slices(out, rows),
@@ -885,18 +1025,17 @@ def _block_products(prod, A, u, out, W_slack, v, partials, state) -> None:
         prod(op, u, out=o_p, addw=w_p, addv=v_p, partials=pc, state=state)
 
 
-def block_normal_apply(At, A, W_struct, W_slack, v, out=None, u=None,
-                       partials=None, state=None):
-    """out = C v over row blocks for v of shape (m,), in P + 1 launches:
-    u = W_struct * sum_p A_p' v_p by one K14v launch on `At`, the whole A'
-    split at the row blocks' bounds, then the block products of
-    _block_products by K1. `A` are the blocks' operands (A_p with the
-    block's rows); scratch not given is allocated here."""
+def block_normal_apply(At, A, W_struct, W_slack, v, out=None):
+    """out = C v over row blocks for v of shape (m,), in two launches: u =
+    W_struct * sum_p A_p' v_p by one K14v launch on `At`, the whole A' split
+    at the row blocks' bounds, then the P block products A_p u + W_slack_p
+    v_p by one K1 launch (BlockSpmvPlan). `A` are the blocks' operands (A_p
+    with the block's rows); out is allocated here if not given."""
     if At.P != len(A):
         raise ValueError(f"At is split into {At.P} blocks, A into {len(A)}")
     out = torch.empty_like(v) if out is None else out
-    u = block_spmv_sum(At, v, W_struct, out=u, state=state)
-    _block_products(csr_spmv, A, u, out, W_slack, v, partials, state)
+    u = block_spmv_sum(At, v, W_struct)
+    BlockSpmvPlan(A, u, out, W_slack, v).launch()
     return out
 
 
@@ -954,7 +1093,6 @@ class _ShardedStep:
         self.u = e(n, *lanes)
         self.nblk = sum(nblk)
         self.pa, self.pc = e(*pa_shape), e(sum(npc), *lanes)
-        self.pc_slices = _slices(self.pc, npc)
         self._off = (_offsets(rows, device), _offsets(nblk, device),
                      _offsets(npc, device))
         # zeros made on the host: the state is copied up, not filled by a
@@ -992,21 +1130,25 @@ class ShardedCrStep(_ShardedStep):
             shapes["resscale"] = (resscale, m)
         _check_f64(device, shapes)
         nblk = [int(lib.ipxt_scr_blocks(op.rows)) for op in A]
+        _, pc_off = block_layout([op.rows for op in A],
+                                 [k1_lanes(op) for op in A])
         super().__init__(At, A, W_struct, W_slack, rhs, nblk,
-                         [spmv_blocks(op) for op in A], (2 * sum(nblk),),
+                         np.diff(pc_off).tolist(), (2 * sum(nblk),),
                          int(lib.ipxt_cr_state_len()))
         self._keep = (invd, resscale)     # alive while the loop runs
         self._args = (*(t.data_ptr() for t in self._off), invd.data_ptr(),
                       _ptr(resscale), *self._tail)
         self._ladder = int(bool(ladder))
+        self._products = BlockSpmvPlan(A, self.u, self.cs, W_slack, self.s,
+                                       self.pc, self.state)
 
     def normal_apply(self) -> None:
-        """cs = C s over the row blocks (block_normal_apply: K14v, then K1
-        per block), with the block products' partials of the dots s.cs per
-        block."""
-        block_normal_apply(self.At, self.A, self.W_struct, self.W_slack,
-                           self.s, out=self.cs, u=self.u,
-                           partials=self.pc_slices, state=self.state)
+        """cs = C s over the row blocks in two launches, K14v then the
+        block products (BlockSpmvPlan), with the block products' partials of
+        the dots s.cs per row block."""
+        block_spmv_sum(self.At, self.s, self.W_struct, out=self.u,
+                       state=self.state)
+        self._products.launch()
 
     def launch(self, phase: int, k: int, maxiter: int, tol: float) -> None:
         err = _lib.ipxt_scr_step_f64(phase, self.m, self.P, k, maxiter,
@@ -1042,11 +1184,12 @@ class ShardedBatchedCrStep(_ShardedStep):
                                 invd=(invd, (m, B)), rhs=(rhs, (m, B))))
         nblk = [red_blocks(op.rows, B) for op in A]
         vw = spmm_width(B, F64)
+        npc = [lane_blocks(op.rows, B // vw) for op in A]
         # the state's length is K7's, which K5 checks
-        super().__init__(At, A, W_struct, W_slack, rhs, nblk,
-                         [lane_blocks(op.rows, B // vw) for op in A],
+        super().__init__(At, A, W_struct, W_slack, rhs, nblk, npc,
                          (2, B, sum(nblk)), int(lib.ipxt_sbcr_state_len(B)))
         self.B = B
+        self.pc_slices = _slices(self.pc, npc)
         self.parts = torch.empty((self.P, n, B), dtype=F64, device=device)
         self._keep = invd
         self._args = (*(t.data_ptr() for t in self._off), invd.data_ptr(),

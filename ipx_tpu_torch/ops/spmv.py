@@ -42,8 +42,9 @@ NP_DTYPE = {torch.float64: np.float64, torch.float32: np.float32}
 
 
 def lanes_per_row(indptr: np.ndarray) -> int:
-    """Lanes that sum one row in K1: the power of two at or above the mean
-    row length, within [2, 32]."""
+    """Lanes that sum one row in K2, K4 and K14v (an operand's `vec`): the
+    power of two at or above the mean row length, within [2, 32]. K1's
+    plans take the one at or below it (kernels.k1_lanes)."""
     rows = len(indptr) - 1
     mean = (indptr[-1] - indptr[0]) / rows if rows else 0.0
     vec = 2

@@ -22,8 +22,10 @@ range of the (m, B) arrays here and needs nothing.
 
 Kernels, each wrapper with its plain PyTorch version beside it:
 
-* the block products: K1 ``csr_spmv`` and K5 ``csr_spmm`` (csrc/spmv.cu,
-  csrc/spmm.cu) on each block's CSR operands of A_p and A_p';
+* the block products: K1 ``csr_spmv`` (csrc/spmv.cu), one launch over the
+  P blocks' CSR operands of A_p for the vector apply (BlockSpmvPlan), and K5
+  ``csr_spmm`` (csrc/spmm.cu) per block on those of A_p and A_p' for the
+  batched one;
 * K14v ``block_spmv_sum`` (csrc/nnt.cu): the vector apply's first half and
   its psum in one launch, u = W_struct * sum_p A_p' v_p in block order, on
   the whole A' split at the row blocks' bounds (ops/spmv.py's split
@@ -167,8 +169,8 @@ def _block_apply_plain(snm, W_struct, W_slack, v, prod):
 
 def block_normal_apply(snm: ShardedNormalMatrix, W_struct, W_slack, v):
     """C v over the row blocks. For v of shape (m,): u = W_struct * sum_p
-    A_p' v_p in one K14v launch, then A_p u + W_slack_p v_p per block (K1).
-    For (m, B): A_p' V_p per block (K5), their ordered sum scaled by
+    A_p' v_p in one K14v launch, then A_p u + W_slack_p v_p for every block
+    in one K1 launch. For (m, B): A_p' V_p per block (K5), their ordered sum scaled by
     W_struct (K14), then per block (K5)."""
     if v.device.type == "cpu":
         return _block_apply_plain(snm, W_struct, W_slack, v,

@@ -70,6 +70,96 @@ def test_csr_spmv(dev, dtype, density):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_spmv_plan(dev, dtype):
+    """K1 through its plan (kernels.SpmvPlan, cached on the operand): 1e-12
+    (f64) or 1e-5 (f32) of csr_spmv_plain, bit for bit from run to run and
+    against a direct call of the plan, one launch counted per csr_spmv, and
+    right at every lanes-per-row setting the plan takes."""
+    A, rng = _matrix(1000, 300, 0.03, seed=21)
+    csr = A.tocsr()
+    op = spmv.CsrOperand(csr.indptr, csr.indices, csr.data, A.shape[1], dev,
+                         dtype)
+    x = torch.from_numpy(rng.standard_normal(A.shape[1])).to(dtype).to(dev)
+    before = kernels.LAUNCHES["csr_spmv"]
+    y = kernels.csr_spmv(op, x).clone()
+    y2 = kernels.csr_spmv(op, x)
+    assert kernels.LAUNCHES["csr_spmv"] == before + 2
+    plan = kernels.plan_of(op)
+    assert plan is kernels.plan_of(op) and plan.vec == kernels.k1_lanes(op)
+    assert torch.equal(y, y2) and torch.equal(y, plan(x))
+    out = torch.empty_like(y)
+    assert kernels.csr_spmv(op, x, out=out) is out
+    want = spmv.csr_spmv_plain(op, x)
+    assert _rel(y, want) <= RTOL[dtype]
+    for vec in (2, 4, 8, 16, 32):
+        assert _rel(kernels.SpmvPlan(op, vec)(x), want) <= RTOL[dtype], vec
+    with pytest.raises(ValueError, match="lanes per row"):
+        kernels.SpmvPlan(op, 3)
+
+
+def _rows_of(lengths, n, seed):
+    """A CSC matrix with n columns whose row i holds lengths[i] entries."""
+    rng = np.random.default_rng(seed)
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    indices = np.concatenate([np.sort(rng.choice(n, k, replace=False))
+                              for k in lengths]).astype(np.int32)
+    return sp.csc_matrix(sp.csr_matrix(
+        (rng.standard_normal(indptr[-1]), indices, indptr),
+        shape=(len(lengths), n))), rng
+
+
+@pytest.mark.parametrize("lengths", [[20] * 800 + [5] * 1200, [10] * 1000,
+                                     [40, 3, 9, 1] * 150, [7] * 5],
+                         ids=["vecs-differ", "vecs-agree", "ragged",
+                              "empty-last"])
+def test_block_products_in_one_launch(dev, lengths):
+    """The P = 4 block products in one K1 launch (BlockSpmvPlan) against P
+    per-block K1 launches: out and the partials bit for bit (each block
+    keeps its own lanes per row, k1_lanes), the layout the C entry's, 1e-12
+    of the plain version, bit for bit from run to run, one launch counted; a
+    done CR state makes the launch return at once."""
+    from ipx_tpu_torch.parallel import sharding
+    A, rng = _rows_of(lengths, 100, seed=len(lengths))
+    m, n = A.shape
+    snm = sharding.ShardedNormalMatrix(A, 4, dev)
+    vecs = [kernels.k1_lanes(op) for op in snm.op_A]
+    if len(lengths) == 2000:
+        assert vecs == [16, 8, 4, 4]
+    _, blk_off = kernels.block_layout([op.rows for op in snm.op_A], vecs)
+    lib = kernels.load()
+    assert np.diff(blk_off).tolist() == [
+        int(lib.ipxt_spmv_blocks(op.rows, vec))
+        for op, vec in zip(snm.op_A, vecs)]
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    u, Wl, v = t(rng.standard_normal(n)), t(rng.uniform(0.5, 2.0, m)), \
+        t(rng.standard_normal(m))
+    out = torch.empty(m, dtype=torch.float64, device=dev)
+    parts = torch.empty(blk_off[-1], dtype=torch.float64, device=dev)
+    plan = kernels.BlockSpmvPlan(snm.op_A, u, out, Wl, v, parts)
+    before = kernels.LAUNCHES["csr_spmv"]
+    plan.launch()
+    out1, parts1 = out.clone(), parts.clone()
+    plan.launch()
+    assert kernels.LAUNCHES["csr_spmv"] == before + 2
+    assert torch.equal(out, out1) and torch.equal(parts, parts1)
+    ref_out = torch.full_like(out, float("nan"))
+    ref_parts = torch.full_like(parts, float("nan"))
+    kernels._block_products(kernels.csr_spmv, snm.op_A, u, ref_out, Wl, v,
+                            kernels._slices(ref_parts, np.diff(blk_off)),
+                            None)
+    assert torch.equal(out, ref_out) and torch.equal(parts, ref_parts)
+    plain = torch.cat([spmv.csr_spmv_plain(op, u) + Wl[r0:r1] * v[r0:r1]
+                       for op, (r0, r1) in zip(snm.op_A, snm.bounds)])
+    assert _rel(out, plain) <= 1e-12
+    state = torch.zeros(int(lib.ipxt_cr_state_len()), dtype=torch.float64,
+                        device=dev)
+    state[5] = 1.0                              # the done flag
+    idle = torch.full_like(out, 7.0)
+    kernels.BlockSpmvPlan(snm.op_A, u, idle, Wl, v, state=state).launch()
+    assert bool((idle == 7.0).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_normal_apply_is_right_and_repeatable(dev, dtype):
     A, rng = _matrix(700, 1500, 0.01, seed=2)
     m, n = A.shape
@@ -314,6 +404,60 @@ def test_batched_cr_f32_and_iteration_limit(dev):
     Y7_p, t7_p = batch.batched_cr_plain(nmd, W, invd, rs, rhs, tol, 7)
     assert t7 == t7_p == 7
     assert _rel(Y7, Y7_p) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [1, 7, 256, 300])
+def test_batched_cr_lane_passes_over_blocks(dev, dtype, B):
+    """K7 with its lane passes a warp per lane over blocks, at B below a
+    warp, not a multiple of 8, one block's 256 lanes and past them, the
+    lanes' tolerances spread over decades so that they freeze at different
+    trips, and every 37th lane from lane 5 done at once: every lane meets
+    its tolerance (its scaled residual in float64 on the host, within the
+    rounding of the recurrence: 1e-6 in f64, 1e-3 in f32), a lane done at
+    once keeps Y = 0, the trips are within 2 (f64) or 10% (f32) of the plain
+    version's, and two runs agree bit for bit."""
+    nmd, W, invd, rs, rhs, base = _batched_cr_inputs(dev, dtype, B)
+    A, _ = _matrix(600, 900, 0.01, seed=9)
+    n = A.shape[1]
+    rng = np.random.default_rng(B)
+    f64 = dtype == torch.float64
+    rel = 10.0 ** (rng.uniform(-8, -3, B) if f64 else rng.uniform(-4, -2, B))
+    rel[5::37] = 10.0
+    tol = torch.from_numpy(base * rel).to(dtype).to(dev)
+    before = kernels.LAUNCHES["batched_cr_step"]
+    Y, trips = batch.batched_cr(nmd, W, invd, rs, rhs, tol, 1000)
+    assert kernels.LAUNCHES["batched_cr_step"] > before
+    Y2, trips2 = batch.batched_cr(nmd, W, invd, rs, rhs, tol, 1000)
+    assert trips2 == trips and torch.equal(Y, Y2)
+    _, trips_p = batch.batched_cr_plain(nmd, W, invd, rs, rhs, tol, 1000)
+    if f64:
+        assert abs(trips - trips_p) <= 2
+    else:
+        assert abs(trips - trips_p) <= 0.1 * trips_p
+    assert bool((Y[:, 5::37] == 0).all())
+    h = lambda x: x.double().cpu().numpy()  # noqa: E731
+    Yn, Wn = h(Y), h(W)
+    res = h(rhs) - (A @ (Wn[:n] * (A.T @ Yn)) + Wn[n:] * Yn)
+    slack = 1e-6 if f64 else 1e-3
+    assert np.all(np.max(np.abs(h(rs) * res), axis=0)
+                  <= h(tol) * (1 + slack))
+
+
+@pytest.mark.parametrize("maxiter", [0, 1, 5])
+def test_batched_cr_stops_on_the_trip_limit(dev, maxiter):
+    """K7 at B = 300 in float64 with a tolerance no lane reaches: the loop
+    stops on trip `maxiter` exactly, as the plain version does, with Y
+    within 1e-10 of the plain version's (Y = 0 at maxiter 0)."""
+    nmd, W, invd, rs, rhs, base = _batched_cr_inputs(dev, torch.float64, 300)
+    tol = torch.from_numpy(base * 1e-30).to(dev)
+    Y, trips = batch.batched_cr(nmd, W, invd, rs, rhs, tol, maxiter)
+    Y_p, trips_p = batch.batched_cr_plain(nmd, W, invd, rs, rhs, tol,
+                                          maxiter)
+    assert trips == trips_p == maxiter
+    assert _rel(Y, Y_p) <= 1e-10
+    if maxiter == 0:
+        assert bool((Y == 0).all())
 
 
 def _step_inputs(dev, dtype, nm=3000, B=5, seed=10):
@@ -721,10 +865,11 @@ def test_block_sum_bit_for_bit(dev, P):
 
 @pytest.mark.parametrize("m, B", [(613, None), (613, 5), (5, None), (5, 4)])
 def test_block_normal_apply_on_card(dev, m, B):
-    """K14v and K1 per row block (vector), K5 per row block and K14
-    (batched): 1e-12 of the plain version, a ragged last block and (m = 5
-    over 4 blocks) an empty one; P + 1 launches for the vector apply, with
-    no K14, and 2P + 1 for the batched one; bit for bit from run to run."""
+    """K14v and one K1 launch over the row blocks (vector), K5 per row
+    block and K14 (batched): 1e-12 of the plain version, a ragged last block
+    and (m = 5 over 4 blocks) an empty one; two launches for the vector
+    apply, with no K14, and 2P + 1 for the batched one; bit for bit from run
+    to run."""
     from ipx_tpu_torch.parallel import sharding
     _, snm, Ws, Wl, _, _, v = _sharded_inputs(dev, m, 300, seed=7, B=B)
     before = dict(kernels.LAUNCHES)
@@ -736,7 +881,7 @@ def test_block_normal_apply_on_card(dev, m, B):
     assert torch.equal(got, sharding.block_normal_apply(snm, Ws, Wl, v))
     moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     if B is None:
-        assert moved == {"block_spmv_sum": 1, "csr_spmv": 4}
+        assert moved == {"block_spmv_sum": 1, "csr_spmv": 1}
     else:
         assert moved == {"csr_spmm": 8, "block_sum": 1}
 

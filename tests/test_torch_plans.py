@@ -1,0 +1,167 @@
+"""The host side of K1's plans (ipx_tpu_torch/kernels.py), on the CPU: the
+layout of the block products' one launch over P row blocks, which must give
+each block the CUDA blocks and partial slots of its own K1 launch, and the
+plans' refusal of CPU tensors before the kernel library is built or loaded.
+
+The layout is held exactly against blocks_for(rows, 256 // vec) per block,
+computed here, on the row blocks that ShardedNormalMatrix cuts (the blocks'
+lanes per row agreeing and differing, an empty last block). The block
+products' values are held against ipx_tpu's mesh program by
+tests/test_torch_sharding.py and tests/test_torch_block_layout.py, and on
+the card by tests/test_torch_cuda.py.
+"""
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from ipx_tpu_torch import kernels
+from ipx_tpu_torch.ops import spmv
+from ipx_tpu_torch.parallel import batch
+from ipx_tpu_torch.parallel import sharding as port
+
+CPU = torch.device("cpu")
+
+
+def _rows_of(lengths, n, seed):
+    """A CSR matrix with n columns whose row i holds lengths[i] entries."""
+    rng = np.random.default_rng(seed)
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    indices = np.concatenate([np.sort(rng.choice(n, k, replace=False))
+                              for k in lengths]).astype(np.int32)
+    return sp.csr_matrix((rng.standard_normal(indptr[-1]), indices, indptr),
+                         shape=(len(lengths), n))
+
+
+# (row lengths, P): long rows, then short ones, so that the row blocks'
+# lanes per row differ; uniform rows (they agree); one block, eight blocks,
+# an empty last block, and rows above a warp
+CASES = [
+    pytest.param([20] * 800 + [5] * 1200, 4, id="long-then-short-P4"),
+    pytest.param([10] * 1000, 4, id="uniform-P4"),
+    pytest.param([3] * 333, 1, id="P1"),
+    pytest.param([2, 40, 5, 1, 9] * 100, 8, id="mixed-P8"),
+    pytest.param([6] * 5, 4, id="P4-empty-last"),
+    pytest.param([60] * 70 + [1] * 70, 2, id="long-short-P2"),
+]
+
+
+@pytest.mark.parametrize("lengths, P", CASES)
+def test_block_layout_matches_per_block_launches(lengths, P):
+    """block_layout's row and partial offsets are the prefix sums of the
+    blocks' rows and of blocks_for(rows_p, 256 // vec_p), each block keeping
+    its own lanes per row (k1_lanes), as P separate K1 launches lay them
+    out."""
+    A = _rows_of(lengths, 100, seed=P + len(lengths))
+    snm = port.ShardedNormalMatrix(sp.csc_matrix(A), P, CPU)
+    rows = [op.rows for op in snm.op_A]
+    vecs = [kernels.k1_lanes(op) for op in snm.op_A]
+    row_off, blk_off = kernels.block_layout(rows, vecs)
+    per_block = [-(-r // (256 // v)) for r, v in zip(rows, vecs)]
+    assert row_off == [0] + np.cumsum(rows).tolist()
+    assert blk_off == [0] + np.cumsum(per_block).tolist()
+    assert row_off[-1] == A.shape[0]
+    if len(set(vecs)) > 1:      # the one launch keeps each block's VEC
+        assert blk_off[-1] != -(-A.shape[0] // (256 // max(vecs)))
+
+
+@pytest.mark.parametrize("mean, want", [(0.0, 2), (1.0, 2), (2.0, 2),
+                                        (3.9, 2), (4.0, 4), (9.6, 8),
+                                        (12.0, 8), (16.0, 16), (31.0, 16),
+                                        (32.0, 32), (500.0, 32)])
+def test_k1_lanes_is_the_power_of_two_at_or_below_the_mean(mean, want):
+    """K1's lanes per row: the power of two at or below the mean row
+    length, within [2, 32] (lanes_per_row, which K2, K4 and K14v keep,
+    takes the one at or above it)."""
+    class Op:
+        rows = 10
+        vals = torch.empty(int(round(mean * 10)))
+    assert kernels.k1_lanes(Op) == want
+
+
+def test_block_layout_of_the_transportation_pattern():
+    """Rows of 20 then of 5 entries over 4 blocks: K1's lanes per row are
+    16, 8, 4 and 4 (the second block holds both kinds), so the one launch
+    lays out each block at its own lanes."""
+    A = _rows_of([20] * 800 + [5] * 1200, 50, seed=1)
+    snm = port.ShardedNormalMatrix(sp.csc_matrix(A), 4, CPU)
+    vecs = [kernels.k1_lanes(op) for op in snm.op_A]
+    assert vecs == [16, 8, 4, 4]
+    _, blk_off = kernels.block_layout([op.rows for op in snm.op_A], vecs)
+    assert blk_off == [0, 32, 48, 56, 64]
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+    """Fails the test if anything builds or loads the kernel library."""
+    def refuse(*a, **k):
+        raise AssertionError("the kernel library was asked for")
+    monkeypatch.setattr(kernels, "load", refuse)
+    monkeypatch.setattr(kernels._build, "build", refuse)
+
+
+def _cpu_blocks():
+    A = _rows_of([4] * 30, 12, seed=3)
+    snm = port.ShardedNormalMatrix(sp.csc_matrix(A), 3, CPU)
+    z = lambda k: torch.zeros(k, dtype=torch.float64)  # noqa: E731
+    return snm, z
+
+
+def _spmv_plan():
+    snm, z = _cpu_blocks()
+    kernels.SpmvPlan(snm.op_A[0])
+
+
+def _csr_spmv():
+    snm, z = _cpu_blocks()
+    kernels.csr_spmv(snm.op_A[0], z(12))
+
+
+def _block_plan():
+    snm, z = _cpu_blocks()
+    kernels.BlockSpmvPlan(snm.op_A, z(12), z(30), z(30), z(30), z(30))
+
+
+def _batched_cr_step():
+    A = _rows_of([4] * 30, 12, seed=4)
+    nmd = spmv.NormalMatrixDevice(sp.csc_matrix(A), CPU)
+    e = lambda *s: torch.ones(s, dtype=torch.float64)  # noqa: E731
+    kernels.BatchedCrStep(nmd.op_At, nmd.op_A, e(42, 3), e(30, 3), e(30, 3),
+                          e(3), e(30, 3))
+
+
+@pytest.mark.parametrize("make", [_spmv_plan, _csr_spmv, _block_plan,
+                                  _batched_cr_step],
+                         ids=["SpmvPlan", "csr_spmv", "BlockSpmvPlan",
+                              "BatchedCrStep"])
+def test_plans_refuse_cpu_tensors_before_loading(no_library, make):
+    """K1's plans, csr_spmv and K7's step object take CUDA tensors only, and
+    say so before the kernel library is built or loaded."""
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        make()
+
+
+@pytest.mark.parametrize("B", [1, 7, 300])
+def test_batched_cr_plain_meets_each_lane_tolerance(B):
+    """K7's plain version at the lane counts the card tests take (below a
+    warp, not a multiple of 8, past one block of 256 lanes): every lane's
+    scaled residual within its own tolerance, spread over decades so lanes
+    freeze at different trips."""
+    rng = np.random.default_rng(B)
+    A = sp.csc_matrix(_rows_of(list(rng.integers(1, 9, 60)), 90, seed=B))
+    m, n = A.shape
+    nmd = spmv.NormalMatrixDevice(A, CPU)
+    W = rng.uniform(0.5, 2.0, (n + m, B))
+    A2 = A.copy()
+    A2.data **= 2
+    invd = 1.0 / (A2 @ W[:n] + W[n:])
+    rs = 1.0 / np.sqrt(W[n:])
+    rhs = rng.standard_normal((m, B))
+    tol = np.max(np.abs(rs * rhs), axis=0) * 10.0 ** rng.uniform(-8, -2, B)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
+    Y, trips = batch.batched_cr(nmd, t(W), t(invd), t(rs), t(rhs), t(tol),
+                                1000)
+    assert 0 < trips < 1000
+    Yn = Y.numpy()
+    res = rhs - (A @ (W[:n] * (A.T @ Yn)) + W[n:] * Yn)
+    assert np.all(np.max(np.abs(rs * res), axis=0) <= tol * (1 + 1e-6))

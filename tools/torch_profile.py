@@ -44,7 +44,14 @@ with the card's nvidia-smi name and power limit:
   stage    the batched phase 1 of chip_smoke.py phase 6
            (BatchedPhase1Solver(device="cuda"), B = 256, handoff "auto"):
            wall time, device busy share and the ten largest device items,
-           each named by its kernel (K1-K13) where it is one;
+           each named by its kernel (K1-K13) where it is one, and K7's
+           passes by name (kStart, kPassCA, kCheck, ...) with their launches
+           and mean device time;
+  scenarios  chip_smoke.py phase 7: the batched phase 1 of its 4
+           scenarios alone (BatchedPhase1Solver, device="cuda", handoff
+           "auto"; B = 4 lanes, below one warp) with its steps and CR
+           trips, then BatchedScenarioSolver end to end on them: wall
+           times and K7's launches;
   polish   one full shared-basis polish (SharedBasisBatchedPolish,
            device="cuda", 40 steps at most, as BatchedScenarioSolver runs
            it) of 4 scenarios from their batched phase-1 handoff: steps,
@@ -55,7 +62,9 @@ with the card's nvidia-smi name and power limit:
            row blocks of the presolved LP, B = 256 for K14 and K16): host
            wall time and device time per call; then
            LpSolver(shards=4) with device "cuda" and "auto": wall time, and
-           for "cuda" the device busy share and the largest device items;
+           for "cuda" the device busy share, the largest device items and
+           K1's launches per vector apply (one since the block products
+           are one launch);
   entry    one step of ipx_tpu_torch.entry.entry() on the card (K5-K13 at
            m = 32, n = 48, B = 8) and the same step through the plain
            versions: host wall time and device time per call, from copies
@@ -89,7 +98,7 @@ from ipx_tpu_torch.sparse import normal_diag  # noqa: E402
 from ipx_tpu_torch.ops import device_cr, device_cr2, spmv  # noqa: E402
 from ipx_tpu_torch.parallel import batch  # noqa: E402
 
-from chip_smoke import scenarios  # noqa: E402
+from chip_smoke import k7_passes, scenarios  # noqa: E402
 
 INSTANCE = (8000, 12000, 0.001, 1)
 OMP_VARS = ("OMP_NUM_THREADS", "OMP_WAIT_POLICY", "OMP_PROC_BIND",
@@ -479,6 +488,7 @@ def part_stage(data, args, card):
                                     optimality_tol=1e-4, device="cuda")
     ph1._starting_point()           # warm-up
     torch.cuda.synchronize()
+    walls = {}
     for label, prof in (("wall", None),
                         ("profiled", profile(
                             activities=[ProfilerActivity.CUDA]))):
@@ -489,11 +499,19 @@ def part_stage(data, args, card):
             with prof:
                 out = ph1.solve(handoff="auto")
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = walls[label] = time.perf_counter() - t0
         print(f"stage {label} B={blp.batch} steps {int(out['iters'].max())} "
               f"CR trips {int(out['cr'])} wall {wall:.3f} s | {card}",
               flush=True)
     top_items("stage", prof, wall, card)
+    # the profiler slows the host's launches, so the busy share of the
+    # stage as it runs is the device time over the unprofiled wall
+    print(f"stage device {_device_us(prof)[0] / 1e6:.4f} s = "
+          f"{_device_us(prof)[0] / 1e6 / walls['wall']:.2%} of the unprofiled"
+          f" wall {walls['wall']:.3f} s | {card}", flush=True)
+    for (dn, name), (n, us) in sorted(k7_passes(prof).items()):
+        print(f"stage   K7 {dn:6s} {name:8s} count {n:7d} mean {us:8.2f} us"
+              f" | {card}", flush=True)
 
 
 def top_items(part, prof, wall, card, k=10):
@@ -506,6 +524,34 @@ def top_items(part, prof, wall, card, k=10):
         print(f"{part}   {kernel_label(e.key)[:64]:64s} count {e.count:7d} "
               f"total {e.self_device_time_total / 1e3:9.3f} ms, mean "
               f"{e.self_device_time_total / e.count:8.2f} us", flush=True)
+
+
+def part_scenarios(data, args, card):
+    backend.cuda_device()
+    sv = batch.BatchedScenarioSolver(
+        data, scenarios(data, 256)[:4],
+        parameters=Parameters(display=0, device="cuda"))
+    ph1 = batch.BatchedPhase1Solver(
+        sv.blp, feasibility_tol=sv.phase1_tol, optimality_tol=sv.phase1_tol,
+        maxiter=sv.phase1_maxiter, device="cuda")
+    ph1._starting_point()           # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = ph1.solve(handoff="auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"scenarios phase 1 B=4 steps {int(out['iters'].max())} CR trips "
+          f"{int(out['cr'])} wall {wall:.3f} s, K7 launches "
+          f"{kernels.LAUNCHES['batched_cr_step']} | {card}", flush=True)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = sv.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"scenarios end to end B=4 wall {wall:.3f} s, statuses "
+          f"{[st for st, _, _ in res]}, K7 launches "
+          f"{kernels.LAUNCHES['batched_cr_step']} | {card}", flush=True)
 
 
 def part_polish(data, args, card):
@@ -603,12 +649,17 @@ def part_sharded(data, args, card):
     for device in ("cuda", "auto"):
         prof = (profile(activities=[ProfilerActivity.CUDA])
                 if device == "cuda" else None)
+        kernels.reset_launches()
         s, st, wall = solve(data, device, profiler=prof, shards=P)
         i = s.get_info()
+        k1, applies = (kernels.LAUNCHES["csr_spmv"],
+                       kernels.LAUNCHES["block_spmv_sum"])
         times = " ".join(f"{f[5:]} {getattr(i, f):.3f}" for f in PHASES)
         print(f"sharded shards={P} device={device:4s} status {st} wall "
               f"{wall:.3f} s{' (profiled)' if prof else ''} | {times} | IPM "
-              f"{i.iter} CR {i.kktiter1}+{i.kktiter2} | {card}", flush=True)
+              f"{i.iter} CR {i.kktiter1}+{i.kktiter2} | K1 {k1} launches for "
+              f"{applies} vector applies ({k1 / max(applies, 1):.2f} an "
+              f"apply) | {card}", flush=True)
         if prof is not None:
             top_items("sharded", prof, wall, card)
 
@@ -638,7 +689,7 @@ PARTS = {"e2e": part_e2e, "native": part_native, "threads": part_threads,
          "precision": part_precision,
          "kernels": part_kernels,
          "busy": part_busy, "batched": part_batched, "stage": part_stage,
-         "polish": part_polish, "sharded": part_sharded, "entry": part_entry}
+         "scenarios": part_scenarios, "polish": part_polish, "sharded": part_sharded, "entry": part_entry}
 
 
 def main():
