@@ -17,28 +17,40 @@ only: no jax, and no module of ipx_tpu.
      K4 through
      the NntPlan the phase-2 CR builds, in its cooperative and its
      two-launch form in turns, with event and device (torch.profiler) time,
-     both forms bit for bit against each other and from run to run;
+     both forms bit for bit against each other and from run to run; K3's
+     first inner solve of each device CR (f32 mixed, f64) in its
+     cooperative launch and its host-issued passes, in turns, in event and
+     device time, lhs, trips and error code bit for bit;
   3. solves afiro through ipx_tpu_torch.LpSolver(device="cuda");
   4. solves transportation(8000, 12000, 0.001, seed=1) through
      ipx_tpu_torch.LpSolver(device="cuda") with every launch counter set to
      0 just before, and through LpSolver(device="cpu"), the host path that
-     launches none of the kernels, and compares; then a second turn of
-     both, an f64-precision "cuda" solve, and both paths in a subprocess
-     with OMP_NUM_THREADS=4, each wall beside the OpenMP team and the
-     OpenBLAS pools' size in a solve (native/threads.py); it fails if the
-     best "cuda" wall is above 1.15x its best under OMP_NUM_THREADS=4 or
-     above 1.5x the best "cpu" wall;
+     launches none of the kernels, and compares; K3's launches there must
+     equal the inner CR solves, and K2's applies, which run inside them,
+     1 + trips + rechecks of each, with no K2 launch of its own; then an
+     f64-precision "cuda" solve, and "cuda", "cpu", "cuda" in each of three
+     fresh processes under the caller's thread setting and under
+     OMP_NUM_THREADS=4, the processes in turns (default, 4, 4, default,
+     default, 4), each wall beside the OpenMP team and the OpenBLAS pools'
+     size in a solve (native/threads.py); it fails if the best "cuda" wall
+     of the default setting is above 1.15x its best under
+     OMP_NUM_THREADS=4 or above 1.5x the best "cpu" wall;
   5. holds the batched kernels K5-K9 against their plain versions at the
      shapes of that LP as a batch of B = 256 scenarios (m = 20 000,
      n + m = 116 002), in float64 and float32, and K10-K13, the rest of the
      batched IPM step, in float64, and times both (K5 beside a PyTorch
-     sparse product);
+     sparse product, and with two gathers issued together beside its loop
+     of one nonzero at a time, in turns, bit for bit, with the unroll
+     kernels.k5_unroll takes); K6 through its plan in its fused launch and
+     its two K5 launches, in turns, out and partials bit for bit, event and
+     device time beside the bound, with the plan's choice;
   6. runs BatchedPhase1Solver(device="cuda") over those 256 scenarios to
      the handoff (tolerance 1e-4), with the counters set to 0 just before,
-     profiles the first STAGE_STEPS steps of that stage for K7's passes by
-     name (launches and mean device time beside each lane pass's byte
-     bound), and checks a small stage against the same solver with the plain
-     versions on the card;
+     then again, and fails unless both runs take the same steps and CR
+     trips; profiles the first STAGE_STEPS steps of that stage for K7's
+     passes by name (launches and mean device time beside each lane pass's
+     byte bound), and checks a small stage against the same solver with the
+     plain versions on the card;
   7. solves the first 4 scenarios end to end through
      BatchedScenarioSolver(parameters=Parameters(device="cuda")), the
      batched phase 1 and the port's LpSolver finishes, with the counters
@@ -76,7 +88,9 @@ only: no jax, and no module of ipx_tpu.
 
 K1 takes its launches from phase 9's block products, one launch a vector
 apply: in phase 4 every N N' apply is one K4 launch, and nothing else there
-launches K1. It stops
+launches K1. K2 is launched in phase 4 no time: its entry's
+`applies_inside_cr_step` counts the applies that ran inside K3's
+cooperative launches there, as the kernel counts them. It stops
 with a non-zero exit at the first failure. The line before the
 last is a JSON object with one entry per kernel: its launches on its main
 path (phase 4 for K2-K4, phase 7 for K5-K13, the "cuda" solve of phase 9
@@ -159,6 +173,7 @@ def max_abs(a, b):
 # 34 TFLOP/s in float64 outside the tensor cores (these kernels use none).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+FN = {"float32": "f32", "float64": "f64"}
 
 
 def bound(nbytes, flops, dtype):
@@ -213,6 +228,48 @@ def k1_vec_turns(card, op, x, want, tol):
         f"vec {vec}: event {st.median(times[vec]):.4f} ms "
         f"({'/'.join(f'{t:.4f}' for t in times[vec])}), device "
         f"{dev[vec]:.5f} ms" for vec in plans) + f" | {card}", flush=True)
+
+
+def k3_forms(card, solver, rhs, tol, mixed):
+    """K3's two forms on the first inner solve of `solver` (a
+    MixedPrecisionDeviceCR in f32, or a DeviceNormalCR in f64): the
+    cooperative launch and the host-issued passes, held bit for bit (lhs,
+    iterations, error code), timed in turns (cooperative, host-issued,
+    host-issued, cooperative) in event and device time."""
+    import torch
+    from ipx_tpu_torch import kernels
+    if mixed:
+        snorm = float(np.max(np.abs(solver._resscale * rhs)))
+        inner_tol = float(np.float32(max(tol, solver.F32_FLOOR * snorm)))
+        dtype, W, invd, rs = (torch.float32, solver._W32, solver._invd32,
+                              solver._resscale32)
+    else:
+        inner_tol, dtype = tol, torch.float64
+        W, invd, rs = solver._W, solver._invd, solver._resscale
+    r = torch.from_numpy(np.asarray(rhs)).to(dtype).to(solver.device)
+    nmd = solver._nmd
+
+    def form(cooperative):
+        return kernels.CrStep(nmd.op_At, nmd.op_A, W, invd, rs, r).solve(
+            solver.m + 100, inner_tol, cooperative)
+    forms = {"cooperative": lambda: form(True),
+             "host-issued": lambda: form(False)}
+    got = {k: f() for k, f in forms.items()}
+    torch.cuda.synchronize()
+    (y, it, err), (y_h, it_h, err_h) = got["cooperative"], got["host-issued"]
+    check((it, err) == (it_h, err_h) and torch.equal(y, y_h),
+          f"K3: the cooperative form ({it} trips, error {err}) differs from "
+          f"the host-issued one ({it_h}, {err_h})")
+    times = {k: [] for k in forms}
+    for k in ("cooperative", "host-issued", "host-issued", "cooperative"):
+        times[k].append(cuda_ms(forms[k], reps=10, warm=1))
+    dev = {k: device_ms(f, reps=5) for k, f in forms.items()}
+    print(f"  K3 cr_step       inner solve {str(dtype)[6:]}, {it} trips, "
+          f"error {err}, both forms bit for bit; event ms in turns "
+          + "; ".join(f"{k} {'/'.join(f'{t:.4f}' for t in v)}"
+                      for k, v in times.items())
+          + "; device ms " + "; ".join(f"{k} {v:.4f}" for k, v in dev.items())
+          + f" | {card}", flush=True)
 
 
 def main():
@@ -329,7 +386,10 @@ def main():
         if dtype == torch.float32:
             nnz = nmd.op_A.vals.numel()
             rows["normal_apply"] = dict(
-                case="(Cv, v.Cv), f32", max_abs_err=max_abs(Cv, Cv_p),
+                case="(Cv, v.Cv), f32, the stand-alone K2; on the main path "
+                     "it is not launched: its applies run inside cr_step's "
+                     "cooperative launches (applies_inside_cr_step)",
+                max_abs_err=max_abs(Cv, Cv_p),
                 ms=ms, plain_ms=pms, library_ms=None,
                 **bound(op_bytes(nmd.op_A) + op_bytes(nmd.op_At)
                         + nbytes(W, v, Cv) + 4, 4 * nnz + n + 4 * m, "f32"))
@@ -384,12 +444,14 @@ def main():
         else:
             report("K3 cr_step", f"{label} solve", rel_err(yt, ypt), 1e-8,
                    ms, pms)
+        k3_forms(card, kern, rhs, tol, mixed)
         if mixed:
             nmd32 = kern._nmd
             # inputs once (the f32 operands, W, 1/diag, resscale, the f64
             # rhs), y once; per CR iteration K2's flops and ~20 per row
             rows["cr_step"] = dict(
-                case=f"MixedPrecisionDeviceCR solve, {it} iterations",
+                case=f"MixedPrecisionDeviceCR solve, {it} iterations, one "
+                     "cooperative launch an inner solve",
                 max_abs_err=max_abs(yt, ypt), ms=ms, plain_ms=pms,
                 library_ms=None,
                 **bound(op_bytes(nmd32.op_A) + op_bytes(nmd32.op_At)
@@ -473,12 +535,14 @@ def main():
     port = LpSolver(Parameters(display=0, debug=1, device="cuda"))
     check(tg.load_into_solver(data, port) == 0, "load_model failed")
     torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    st = port.solve()
-    torch.cuda.synchronize()
-    t_port = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    with counted_inner_solves() as inner:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        st = port.solve()
+        torch.cuda.synchronize()
+        t_port = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        inside = dict(kernels.INSIDE)
     pi = port.get_info()
 
     # the reference: device="cpu" runs ipx_tpu's host pipeline and launches
@@ -516,11 +580,24 @@ def main():
     for name in SINGLE:
         check(launches[name] > 0, f"kernel {name} was not launched in "
               "phase 4")
+    # each inner CR solve of phase 1 is one cooperative K3 launch, its K2
+    # applies inside it (1 + trips + rechecks each) and none on their own
+    print(f"  K3: {launches['cr_step']} launches for {inner['solves']} "
+          f"inner CR solves ({inner['trips']} trips); K2 applies inside "
+          f"them {inside['normal_apply']} (expected {inner['applies']}), K2 "
+          f"launched on its own {launches['normal_apply']} times", flush=True)
+    check(launches["cr_step"] == inner["solves"] > 0, "phase 4: K3's "
+          "launches are not the inner CR solves")
+    check(inside["normal_apply"] == inner["applies"] > 0
+          and launches["normal_apply"] == 0, "phase 4: K2 did not run "
+          "inside K3's launches alone")
     check("jax" not in sys.modules, "jax was imported")
-    # the launches of K2-K4 on their main path, the single LP
-    path_launches = {k: launches[k] for k in SINGLE}
+    # the launches of K2-K4 on their main path, the single LP: none of K2,
+    # whose applies there run inside K3's launches
+    path_launches = {k: launches[k] for k in SINGLE + ("normal_apply",)}
+    rows["normal_apply"]["applies_inside_cr_step"] = inside["normal_apply"]
     host_objval = ri.objval
-    walls_phase4(card, data, t_port, t_ref, host_objval)
+    walls_phase4(card, data, host_objval)
 
     del port, ref
     t_batched = time.perf_counter()
@@ -591,8 +668,9 @@ REPLACES = {"csr_spmv": "ipx_tpu/ops/spmv.py:93",
             "sharded_batched_cr_step": "ipx_tpu/parallel/sharding.py:429",
             "level_solve": "tools/device_trisolve_proto.py:118",
             "block_spmv_sum": "ipx_tpu/parallel/sharding.py:132"}
-# the kernels of the single LP's main path (phase 4); K1 runs in phase 9
-SINGLE = ("normal_apply", "cr_step", "nnt")
+# the kernels launched on the single LP's main path (phase 4); K1 runs in
+# phase 9, and K2's applies run inside K3's cooperative launches
+SINGLE = ("cr_step", "nnt")
 BATCHED = ("csr_spmm", "normal_apply_batched", "batched_cr_step",
            "step_batch", "ipm_update", "ipm_prologue", "newton_rhs",
            "newton_recover", "starting_point")
@@ -608,16 +686,44 @@ POLISH_STEPS = 3
 STAGE_STEPS = 3     # steps of the stage profiled for K7's passes (phase 6)
 
 
-# phase 4's solves of both paths once each, twice, in a process whose
-# OpenMP setting is the caller's (OMP_NUM_THREADS=4)
-OMP4 = r"""
-import json, time
+class counted_inner_solves:
+    """Within it every inner CR solve of phase 1's device CR classes is
+    counted, with its trips and the K2 applies it runs (1 + trips + one
+    every RECHECK_EVERY trips), through a wrapper of their inner_solve."""
+
+    def __enter__(self):
+        from ipx_tpu_torch.ops import device_cr
+        self.count = dict(solves=0, trips=0, applies=0)
+        self.classes = (device_cr.DeviceNormalCR,
+                        device_cr.MixedPrecisionDeviceCR)
+        self.saved = [c.__dict__["inner_solve"] for c in self.classes]
+
+        def counted(*args, **kw):
+            out = device_cr.cr_solve(*args, **kw)
+            it = out[1]
+            self.count["solves"] += 1
+            self.count["trips"] += it
+            self.count["applies"] += 1 + it + it // device_cr.RECHECK_EVERY
+            return out
+        for c in self.classes:
+            c.inner_solve = staticmethod(counted)
+        return self.count
+
+    def __exit__(self, *exc):
+        for c, saved in zip(self.classes, self.saved):
+            c.inner_solve = saved
+
+
+# phase 4's solves, "cuda", "cpu", "cuda", in a fresh process whose OpenMP
+# setting is its environment's
+WALLS = r"""
+import json, os, time
 import torch
 from ipx_tpu_torch import LpSolver, Parameters, testgen as tg
 from ipx_tpu_torch.native import threads
 data = tg.transportation(8000, 12000, 0.001, seed=1)
 out = {"cuda": [], "cpu": []}
-for device in ("cuda", "cpu", "cpu", "cuda"):
+for device in ("cuda", "cpu", "cuda"):
     s = LpSolver(Parameters(display=0, device=device))
     assert tg.load_into_solver(data, s) == 0
     torch.cuda.synchronize()
@@ -626,84 +732,164 @@ for device in ("cuda", "cpu", "cpu", "cuda"):
     torch.cuda.synchronize()
     out[device].append((st, time.perf_counter() - t0, s.get_info().objval))
 out["team"] = torch.get_num_threads()
-out["blas"] = [get() for get, _ in threads.blas_pools()]
+# the pools' size in a solve: 1 unless the environment sets it
+out["blas"] = (threads.blas_threads(os.environ)
+               or [get() for get, _ in threads.blas_pools()])
 print(json.dumps(out))
 """
 
+# the thread settings phase 4 compares: the caller's, and OMP_NUM_THREADS=4
+SETTINGS = {"default": {}, "omp4": {"OMP_NUM_THREADS": "4"}}
 
-def walls_phase4(card, data, t_port, t_ref, host_objval):
-    """The rest of phase 4: a second turn of the host path ("cpu") and the
-    port ("cuda"), an f64-precision "cuda" solve (the f64 device CR), and
-    both paths twice in a subprocess with OMP_NUM_THREADS=4, each wall
-    beside the OpenMP team and the OpenBLAS pools' size in a solve. Fails
-    if a solve is not at status 1000 with the host objval to 1e-8, or if
-    the best "cuda" wall of the default setting is above 1.15x its best
-    under OMP_NUM_THREADS=4 or above 1.5x the best "cpu" wall."""
+
+def walls_phase4(card, data, host_objval):
+    """The rest of phase 4: an f64-precision "cuda" solve (the f64 device
+    CR), then "cuda", "cpu", "cuda" in each of three fresh processes under
+    each thread setting (the caller's, and OMP_NUM_THREADS=4), the
+    processes in turns (default, 4, 4, default, default, 4) so that a host
+    whose load changes over the call weighs on both settings alike, each
+    wall beside the OpenMP team and the OpenBLAS pools' size in a solve. Fails if a solve is not at status 1000
+    with the host objval to 1e-8, or if the best "cuda" wall of the default
+    setting is above 1.15x its best under OMP_NUM_THREADS=4 or above 1.5x
+    the best "cpu" wall."""
     import torch
     from ipx_tpu_torch import LpSolver, Parameters
     from ipx_tpu_torch import testgen as tg
-    from ipx_tpu_torch.native import threads
 
     def rel(objval):
         return abs(objval - host_objval) / abs(host_objval)
 
-    def timed(**params):
-        s = LpSolver(Parameters(display=0, **params))
-        check(tg.load_into_solver(data, s) == 0, "load_model failed")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = s.solve()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        i = s.get_info()
-        check(st == 1000 and rel(i.objval) <= 1e-8, f"phase 4 {params}: "
-              f"status {st}, objval rel diff {rel(i.objval):.1e}")
-        return wall, i
+    s = LpSolver(Parameters(display=0, device="cuda", precision="f64"))
+    check(tg.load_into_solver(data, s) == 0, "load_model failed")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = s.solve()
+    torch.cuda.synchronize()
+    f64_wall = time.perf_counter() - t0
+    f64 = s.get_info()
+    check(st == 1000 and rel(f64.objval) <= 1e-8, f"phase 4 f64 precision: "
+          f"status {st}, objval rel diff {rel(f64.objval):.1e}")
 
-    blas = threads.blas_threads(os.environ)
-    walls = {"cuda": [t_port], "cpu": [t_ref]}
-    for device in ("cpu", "cuda"):
-        walls[device].append(timed(device=device)[0])
-    f64_wall, f64 = timed(device="cuda", precision="f64")
-    out = subprocess.run([sys.executable, "-c", OMP4], cwd=REPO,
-                         capture_output=True, text=True, timeout=600,
-                         env=dict(os.environ, OMP_NUM_THREADS="4"))
-    check(out.returncode == 0, "phase 4: the OMP_NUM_THREADS=4 run failed: "
-          + out.stderr[-2000:])
-    omp4 = json.loads(out.stdout.strip().splitlines()[-1])
-    for device in ("cuda", "cpu"):
-        for st, _, objval in omp4[device]:
-            check(st == 1000 and rel(objval) <= 1e-8, f"phase 4 "
-                  f"OMP_NUM_THREADS=4 {device}: status {st}, objval rel "
-                  f"diff {rel(objval):.1e}")
-    best = {k: min(v) for k, v in walls.items()}
-    best4 = {k: min(w for _, w, _ in omp4[k]) for k in ("cuda", "cpu")}
+    runs = {k: {"cuda": [], "cpu": []} for k in SETTINGS}
+    for setting in ("default", "omp4", "omp4", "default", "default", "omp4"):
+        out = subprocess.run([sys.executable, "-c", WALLS], cwd=REPO,
+                             capture_output=True, text=True, timeout=300,
+                             env=dict(os.environ, **SETTINGS[setting]))
+        check(out.returncode == 0, f"phase 4: the {setting} walls run "
+              "failed: " + out.stderr[-2000:])
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        for device in ("cuda", "cpu"):
+            for st, wall, objval in got[device]:
+                check(st == 1000 and rel(objval) <= 1e-8, f"phase 4 "
+                      f"{setting} {device}: status {st}, objval rel diff "
+                      f"{rel(objval):.1e}")
+                runs[setting][device].append(wall)
+        runs[setting]["team"], runs[setting]["blas"] = got["team"], got["blas"]
+    best = {k: {d: min(runs[k][d]) for d in ("cuda", "cpu")} for k in runs}
     fmt = lambda v: "/".join(f"{x:.3f}" for x in v)  # noqa: E731
-    print(f"  walls, default setting (OpenMP team "
-          f"{torch.get_num_threads()} of {len(os.sched_getaffinity(0))} "
-          f"CPUs, OpenBLAS pools at {blas} thread in a solve): cuda "
-          f"{fmt(walls['cuda'])} s, cpu "
-          f"{fmt(walls['cpu'])} s; f64-precision cuda {f64_wall:.3f} s "
-          f"(cr1 {f64.time_cr1:.3f} s, CR iters {f64.kktiter1}+"
-          f"{f64.kktiter2}, objval rel diff {rel(f64.objval):.1e}); "
-          f"OMP_NUM_THREADS=4 (OpenMP team {omp4['team']}, OpenBLAS "
-          f"pools {omp4['blas']}): cuda "
-          f"{fmt(w for _, w, _ in omp4['cuda'])} s, cpu "
-          f"{fmt(w for _, w, _ in omp4['cpu'])} s; best cuda / best cpu "
-          f"{best['cuda'] / best['cpu']:.3f}, best cuda / best cuda at "
-          f"OMP_NUM_THREADS=4 {best['cuda'] / best4['cuda']:.3f} | {card}",
+    said = "; ".join(
+        f"{k} (OpenMP team {r['team']} of {len(os.sched_getaffinity(0))} "
+        f"CPUs, OpenBLAS pools {r['blas']} in a solve): cuda "
+        f"{fmt(r['cuda'])} s, cpu {fmt(r['cpu'])} s" for k, r in runs.items())
+    print(f"  f64-precision cuda {f64_wall:.3f} s (cr1 {f64.time_cr1:.3f} s, "
+          f"CR iters {f64.kktiter1}+{f64.kktiter2}, objval rel diff "
+          f"{rel(f64.objval):.1e})\n  walls, fresh processes in turns "
+          f"(default, 4, 4, default, default, 4): {said}; best cuda / best "
+          f"cpu {best['default']['cuda'] / best['default']['cpu']:.3f}, best "
+          f"cuda / best cuda at OMP_NUM_THREADS=4 "
+          f"{best['default']['cuda'] / best['omp4']['cuda']:.3f} | {card}",
           flush=True)
     # the fault this guards against: the native regions waiting on the
     # BLAS pools' spinning workers made the card path 1.8x the host path
     # and about 5x its own time under OMP_NUM_THREADS=4 (PERF.md §5). With
     # the pools quiet the host path, whose whole phase-2 CR is native, is
     # faster than the card path on this LP, so no gate asks the card to win
-    check(best["cuda"] <= 1.15 * best4["cuda"], f"phase 4: the card path "
-          f"({best['cuda']:.3f} s) is above 1.15x its time under "
-          f"OMP_NUM_THREADS=4 ({best4['cuda']:.3f} s)")
-    check(best["cuda"] <= 1.5 * best["cpu"], f"phase 4: the card path "
-          f"({best['cuda']:.3f} s) is above 1.5x the host path "
-          f"({best['cpu']:.3f} s)")
+    check(best["default"]["cuda"] <= 1.15 * best["omp4"]["cuda"],
+          f"phase 4: the card path ({best['default']['cuda']:.3f} s) is "
+          f"above 1.15x its time under OMP_NUM_THREADS=4 "
+          f"({best['omp4']['cuda']:.3f} s)")
+    check(best["default"]["cuda"] <= 1.5 * best["default"]["cpu"],
+          f"phase 4: the card path ({best['default']['cuda']:.3f} s) is "
+          f"above 1.5x the host path ({best['default']['cpu']:.3f} s)")
+
+
+def k6_forms(card, nmd, W, V, b):
+    """K6's two forms at the phase-5 shapes, through the pair's plan: the
+    fused launch and the two K5 launches, out and the partials held bit for
+    bit, timed in turns (fused, two-launch, two-launch, fused) in event and
+    device time beside the bound `b`. Returns the plan's form's event and
+    device ms."""
+    import torch
+    from ipx_tpu_torch import kernels
+    At, A = nmd.op_At, nmd.op_A
+    plan = kernels.normal_plan_of(At, A)
+    m, n, B = nmd.m, nmd.n, V.shape[1]
+    e = lambda *s: torch.empty(s, dtype=V.dtype, device=V.device)  # noqa
+    bufs = {f: (e(m, B), e(*plan.partials_shape(W, V, V))) for f in
+            ("fused", "two-launch")}
+    U = e(n, B)
+    forms = {"fused": lambda: plan(W, V, out=bufs["fused"][0],
+                                   partials=bufs["fused"][1], fused=True),
+             "two-launch": lambda: plan(W, V, out=bufs["two-launch"][0],
+                                        partials=bufs["two-launch"][1], U=U,
+                                        fused=False)}
+    for f in forms.values():
+        f()
+    torch.cuda.synchronize()
+    check(all(torch.equal(bufs["fused"][i], bufs["two-launch"][i])
+              for i in (0, 1)), "K6: the fused launch and the two launches "
+          "differ")
+    times = {k: [] for k in forms}
+    for k in ("fused", "two-launch", "two-launch", "fused"):
+        times[k].append(cuda_ms(forms[k]))
+    dev = {k: device_ms(f) for k, f in forms.items()}
+    kept = "fused" if plan.fused else "two-launch"
+    print(f"  K6 normal_apply_batched {str(V.dtype)[6:]}: the plan takes "
+          f"{kept} (sum of squared column lengths {At.sq_rows} = "
+          f"{At.sq_rows / A.vals.numel():.3f} nnz(A)); fused and two-launch "
+          f"out and partials bit for bit; event ms in turns "
+          + "; ".join(f"{k} {'/'.join(f'{t:.4f}' for t in v)}"
+                      for k, v in times.items())
+          + "; device ms " + "; ".join(f"{k} {v:.5f}" for k, v in dev.items())
+          + f"; bound {b['bound_ms']:.5f} ms ({b['bound_by']}) | {card}",
+          flush=True)
+    del U, bufs
+    return statistics.median(times[kept]), dev[kept]
+
+
+def k5_forms(card, op, X, name):
+    """K5 on `op` with two gathers issued together and with its loop of one
+    nonzero at a time: Y and the epilogues' partials held bit for bit, timed
+    in turns (1, 2, 2, 1) in event and device time, beside the unroll that
+    kernels.k5_unroll takes on `op`."""
+    import torch
+    from ipx_tpu_torch import kernels
+    B = X.shape[1]
+    e = lambda *s: torch.empty(s, dtype=X.dtype, device=X.device)  # noqa
+    Y = {u: e(op.rows, B) for u in (1, 2)}
+    forms = {u: (lambda u=u: kernels._spmm(op, X, Y[u], unroll=u))
+             for u in (1, 2)}
+    w = torch.ones((op.rows, B), dtype=X.dtype, device=X.device)
+    vw = kernels.spmm_width(B, X.dtype, X, w)
+    part = {u: e(kernels.lane_blocks(op.rows, B // vw), B) for u in (1, 2)}
+    for u in (1, 2):
+        forms[u]()
+        Y2 = e(op.rows, B)
+        kernels._spmm(op, X, Y2, addw=w, addv=w, partials=part[u], unroll=u)
+    torch.cuda.synchronize()
+    check(torch.equal(Y[1], Y[2]) and torch.equal(part[1], part[2]),
+          f"K5 {name}: unroll 2 differs from one nonzero at a time")
+    times = {u: [] for u in forms}
+    for u in (1, 2, 2, 1):
+        times[u].append(cuda_ms(forms[u]))
+    dev = {u: device_ms(f) for u, f in forms.items()}
+    print(f"  {'':22s} {name}: unroll 1 and 2 bit for bit, k5_unroll "
+          f"takes {kernels.k5_unroll(op)}; event ms in turns "
+          + "; ".join(f"unroll {u} {'/'.join(f'{t:.4f}' for t in v)}"
+                      for u, v in times.items())
+          + "; device ms " + "; ".join(f"unroll {u} {v:.5f}"
+                                       for u, v in dev.items())
+          + f" | {card}", flush=True)
 
 
 def scenarios(data, B):
@@ -765,9 +951,12 @@ def batched_phases(card, data, dev, rng):
             lms = cuda_ms(lambda: A_lib @ X)
             report("K5 csr_spmm", f"{opname} {dn}", rel_err(Y, Y_p),
                    RTOL[dn], ms, pms)
-            print(f"  {'':22s} library sparse_csr_tensor @ U: {lms:.4f} ms "
-                  f"(rel diff {rel_err(Y_l, Y_p):.1e}) | {card}", flush=True)
+            dms = device_ms(lambda: kernels.csr_spmm(op, X))
+            print(f"  {'':22s} device {dms:.5f} ms; library "
+                  f"sparse_csr_tensor @ U: {lms:.4f} ms (rel diff "
+                  f"{rel_err(Y_l, Y_p):.1e}) | {card}", flush=True)
             check(rel_err(Y_l, Y_p) <= RTOL[dn], "K5: the library differs")
+            k5_forms(card, op, X, f"{opname} {dn}")
             del A_lib, Y_l
             if opname == "A' V" and dtype == torch.float32:
                 rows["csr_spmm"] = dict(
@@ -786,18 +975,20 @@ def batched_phases(card, data, dev, rng):
         err = max(rel_err(out, out_p), float(
             ((dots.double() - dots_p.double()).abs()
              / dots_p.double().abs()).max()))
-        ms = cuda_ms(lambda: spmv.normal_apply_batched(nmd, W, V))
         pms = cuda_ms(lambda: spmv.normal_apply_batched_plain(nmd, W, V))
+        b = bound(op_bytes(nmd.op_A) + op_bytes(nmd.op_At)
+                  + nbytes(W, V, out, dots),
+                  (4 * blp.A.nnz + n + 4 * m) * B, FN[dn])
+        ms, dms = k6_forms(card, nmd, W, V, b)
         report("K6 normal_apply_batch", f"(CV, V.CV) {dn}", err, RTOL[dn],
                ms, pms)
         if dtype == torch.float32:
+            fused = kernels.normal_plan_of(nmd.op_At, nmd.op_A).fused
             rows["normal_apply_batched"] = dict(
-                case="(CV, V.CV), f32, B=256",
+                case="(CV, partials of V.CV), f32, B=256, the plan's form "
+                     f"(fused: {fused}), device {dms:.5f} ms",
                 max_abs_err=max_abs(out, out_p), ms=ms, plain_ms=pms,
-                library_ms=None,
-                **bound(op_bytes(nmd.op_A) + op_bytes(nmd.op_At)
-                        + nbytes(W, V, out, dots),
-                        (4 * blp.A.nnz + n + 4 * m) * B, "f32"))
+                library_ms=None, **b)
 
         # K7: whole batched CR solves, lanes with different tolerances
         Wc = 10.0 ** rng.uniform(-1, 1, (nm, B))
@@ -921,6 +1112,19 @@ def batched_phases(card, data, dev, rng):
     torch.cuda.synchronize()
     t_stage = time.perf_counter() - t0
     stage_launches = dict(kernels.LAUNCHES)
+    # the trip count is deterministic for a given tree: a second run of the
+    # stage takes the same steps and trips
+    t0 = time.perf_counter()
+    again = ph1.solve(handoff="auto")
+    torch.cuda.synchronize()
+    t_again = time.perf_counter() - t0
+    check(int(again["cr"]) == int(out["cr"])
+          and np.array_equal(again["iters"], out["iters"]),
+          f"phase 6: a second run of the stage took {int(again['cr'])} CR "
+          f"trips, the first {int(out['cr'])}")
+    del again
+    k6_form = ("fused" if kernels.normal_plan_of(
+        ph1.nmd32.op_At, ph1.nmd32.op_A).fused else "two-launch")
     finl, finu = np.isfinite(blp.lb)[:, None], np.isfinite(blp.ub)[:, None]
     with np.errstate(invalid="ignore"):
         mu = (np.sum(np.where(finl, out["XL"] * out["ZL"], 0.0), axis=0)
@@ -929,8 +1133,9 @@ def batched_phases(card, data, dev, rng):
     steps = int(out["iters"].max())
     print(f"phase 6: BatchedPhase1Solver(device=\"cuda\", cr_dtype=f32) "
           f"B={B} m={m} n={n}: {steps} steps, {int(out['done'].sum())} "
-          f"lanes converged, {int(out['cr'])} CR trips, wall "
-          f"{t_stage:.3f} s; mu from median {np.median(mu0):.3e} / max "
+          f"lanes converged, {int(out['cr'])} CR trips (the same in a second "
+          f"run, wall {t_again:.3f} s), wall {t_stage:.3f} s; K6 {k6_form}; "
+          f"mu from median {np.median(mu0):.3e} / max "
           f"{mu0.max():.3e} to median {np.median(mu):.3e} / max "
           f"{mu.max():.3e}; launches "
           f"{ {k: stage_launches[k] for k in BATCHED} }; {card}",

@@ -16,9 +16,9 @@ constexpr int kThreads = 256;
 constexpr int kMaxSplit = 8;
 
 // The CR loop keeps its scalars in one small device array of the working
-// type (ops/device_cr.py:_cr_solve_cuda). `cdot` is double-buffered by the
-// parity of the host's trip count, so a pass can read this trip's value
-// while its block 0 writes the next one.
+// type (kernels.CrStep). `cdot` is double-buffered by the parity of the
+// host's trip count, so a pass of the host-issued form can read this trip's
+// value while its block 0 writes the next one.
 enum StateSlot {
   kCdot0 = 0,
   kCdot1 = 1,
@@ -26,6 +26,7 @@ enum StateSlot {
   kIt = 3,     // iterations taken
   kErr = 4,    // error code (ipx_tpu/ops/device_cr.py:52-57)
   kDone = 5,   // nonzero once the loop has stopped; every pass then returns
+  kApplies = 6,  // K2 applies run inside K3's cooperative solve
   kStateLen = 8,
 };
 
@@ -78,23 +79,57 @@ __device__ T block_max(T v, T* red) {
 }
 
 // Sum of n per-block partials, in the same fixed order in every block, so
-// that every block of a pass derives bit-identical scalars from them.
+// that every block of a pass derives bit-identical scalars from them. p is
+// not __restrict__: K3's cooperative solve reads partials that other blocks
+// wrote earlier in the same launch, which the read-only cache may not hold.
 template <typename T>
-__device__ T sum_partials(const T* __restrict__ p, int64_t n, T* red) {
+__device__ T sum_partials(const T* p, int64_t n, T* red) {
   T s = T(0);
   for (int64_t i = threadIdx.x; i < n; i += kThreads) s += p[i];
   return block_sum(s, red);
 }
 
 template <typename T>
-__device__ T max_partials(const T* __restrict__ p, int64_t n, T* red) {
+__device__ T max_partials(const T* p, int64_t n, T* red) {
   T s = T(0);  // the partials are absolute values, so 0 is the identity
   for (int64_t i = threadIdx.x; i < n; i += kThreads) s = nan_max(s, p[i]);
   return block_max(s, red);
 }
 
-inline int64_t blocks_for(int64_t n, int64_t per_block) {
+__host__ __device__ inline int64_t blocks_for(int64_t n,
+                                              int64_t per_block) {
   return (n + per_block - 1) / per_block;
+}
+
+// lanes per row that the CSR row bodies take (K1, K2, K4, K14v)
+inline bool valid_vec(int vec) {
+  return vec == 2 || vec == 4 || vec == 8 || vec == 16 || vec == 32;
+}
+
+// Blocks of the cooperative kernel Kernel (kThreads threads, no dynamic
+// shared memory) that can be resident at once on the current device: its
+// SMs times the kernel's occupancy, found once per device and kernel. K3's
+// and K4's cooperative launches cap their grids at it and walk their blocks
+// grid-stride.
+template <auto Kernel>
+int coop_capacity(int64_t* out) {
+  static int64_t cached[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 0 && dev < 64 && cached[dev] > 0) {
+    *out = cached[dev];
+    return 0;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
+                                                      kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  *out = (int64_t)sms * per_sm;
+  if (dev >= 0 && dev < 64) cached[dev] = *out;
+  return 0;
 }
 
 // -- batched passes over (rows, B) arrays, B contiguous ----------------------
@@ -199,14 +234,16 @@ __device__ __forceinline__ void store_partials(const T (&v)[Q], T* p,
     p[((int64_t)(q0 + q) * B + b) * nblk + blockIdx.x] = v[q];
 }
 
-// The reduction of the nblk partials at p by the 32 threads of one warp:
-// thread t takes p[t], p[t + 32], ... in order, then a shuffle tree; the
-// result is valid in the warp's thread 0. Every thread of the warp calls it.
+// The reduction of the nblk partials p[0], p[stride], p[2 stride], ... by
+// the 32 threads of one warp: thread t takes partials t, t + 32, ... in
+// order, then a shuffle tree; the result is valid in the warp's thread 0.
+// Every thread of the warp calls it.
 template <typename T, typename Op>
 __device__ T warp_partials(const T* __restrict__ p, int64_t nblk, T init,
-                           Op op) {
+                           Op op, int64_t stride = 1) {
   T s = init;
-  for (int64_t k = threadIdx.x & 31; k < nblk; k += 32) s = op(s, p[k]);
+  for (int64_t k = threadIdx.x & 31; k < nblk; k += 32)
+    s = op(s, p[k * stride]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     s = op(s, __shfl_down_sync(0xffffffffu, s, off));

@@ -187,33 +187,6 @@ int launch_split(const Rows& op, const Split& s, const double* x,
   return (int)cudaGetLastError();
 }
 
-// Blocks of nnt_coop_kernel that can be resident at once on the current
-// device: its SMs times the kernel's occupancy, found once per device.
-int coop_capacity(int64_t* out) {
-  static int64_t cached[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 0 && dev < 64 && cached[dev] > 0) {
-    *out = cached[dev];
-    return 0;
-  }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
-                                                      nnt_coop_kernel,
-                                                      kThreads, 0);
-  if (err != cudaSuccess) return (int)err;
-  *out = (int64_t)sms * per_sm;
-  if (dev >= 0 && dev < 64) cached[dev] = *out;
-  return 0;
-}
-
-bool valid_vec(int vec) {
-  return vec == 2 || vec == 4 || vec == 8 || vec == 16 || vec == 32;
-}
-
 // Fills s from P and the P - 1 host bounds; false when they are not a
 // split this file takes.
 bool make_split(int P, const int64_t* bounds, Split* s) {
@@ -274,7 +247,7 @@ extern "C" int ipxt_nnt_f64(int64_t rows_t, const void* indptr_t,
   int64_t grid = need_t > need_n ? need_t : need_n;
   if (grid == 0) return 0;
   int64_t cap = 0;
-  const int err = coop_capacity(&cap);
+  const int err = coop_capacity<nnt_coop_kernel>(&cap);
   if (err != 0) return err;
   if (grid > cap) grid = cap;  // the rows are walked grid-stride
   void* args[] = {&a};

@@ -9,28 +9,53 @@
 // of ipx_tpu/parallel/batch.py _cr_solve.C.
 //
 // What bounds it on the H100: memory. Every nonzero gathers one row of U
-// (B values) and there is one multiply-add per value gathered. At the batched
-// path's full width (m = 20 000, n = 96 002, nnz 192 004, B = 256, f32) one
-// K6 writes and re-reads U = W_s * (A' V) (98 MB each way), reads W_s
-// (98 MB) and moves about 60 MB of (m, B) arrays: about 0.1-0.15 ms at
-// 3.35 TB/s. There is no reuse that a tensor core could exploit.
+// (B values) and there is one multiply-add per value gathered; there is no
+// reuse that a tensor core could exploit. The gathered rows come from L2
+// when U fits (V of the batched path is 20.5 MB in f32, 41 MB in f64, under
+// the 50 MB L2); what then limits a thread is how many gathers it has in
+// flight, since each waits on the load of its column index.
 //
-// Design: a group of threads per output row walks the row's nonzeros; the
+// K5: a group of threads per output row walks the row's nonzeros; the
 // threads of the group split the B lanes, each taking VW adjacent lanes with
 // one 16-byte load (float4 / double2) where B is a multiple of VW and the
 // pointers are aligned, one lane otherwise. A gather of row `col` of U is
 // then contiguous across the group, and the (nnz, B) intermediate of the
 // reference and of the plain version never exists. Blocks stride over the
 // rows (at most kMaxRowBlocks of them), so the per-lane partials of a
-// reduction stay short.
+// reduction stay short. K5's row body (row_gather) takes UNROLL nonzeros at
+// a time, their indices and values loaded, then their gathers issued, then
+// added in CSR order: the same multiply-adds in the same order as one at a
+// time, so every UNROLL gives the same Y bit for bit. kernels.k5_unroll
+// picks 2 on operands with short rows (A' of the transportation LPs, 2 a
+// row), where the second gather no longer waits on the first, and 1
+// elsewhere (PERF.md §6, tools/torch_profile.py --what k5).
 //
-// K6 is two launches with epilogues, as K2 is to K1:
-//   U   = W_s * (A' V)                 (rowscale, an (n, B) array)
-//   out = A U + W_slack * V            (addw, addv)
-// and the second launch writes per-block, per-lane partials of the column
-// dots V.out, shape (blocks, B). They are summed in a fixed order (lane_sum
-// below, or the K7 passes of batch_cr.cu), never with atomics, so a stage
-// repeats bit for bit.
+// K6, C V = A (W_s * (A' V)) + W_slack * V with the column dots V.CV, has two
+// forms, and kernels.NormalBatchedPlan picks one per operand pair:
+//   fused (normal_batched_kernel), one launch over the rows of A on K5's
+//     grid: for each nonzero (i, k) of row i, t = sum_j a_jk V[j, :] over
+//     column k of A (row k of A', in its CSR order, as K5's first launch
+//     sums it), t *= W_s[k, :], acc += a_ik t; then K5's epilogue. The
+//     (n, B) array U = W_s * (A' V) is never written: at m = 20 000,
+//     n = 96 002, B = 256 it is 98 MB in f32 (197 in f64) each way. The
+//     price is that column k's sum is recomputed once per nonzero of the
+//     column, sum_k len_k^2 gathers against 2 nnz(A) for the two launches,
+//     which is why the plan takes it only where that sum is small. A thread
+//     walks its row's nonzeros one at a time and each column's gathers
+//     kInner at a time (row_gather: the indices and values loaded, then the
+//     gathers issued, then added in CSR order, the same multiply-adds in
+//     the same order as one at a time), with four blocks an SM. W_s and
+//     W_slack are read with streaming loads (__ldcs), so they do not push V
+//     out of L2; V is read through the read-only cache (__ldg).
+//   two launches of K5 with epilogues, as K2 is to K1:
+//     U   = W_s * (A' V)                 (rowscale, an (n, B) array)
+//     out = A U + W_slack * V            (addw, addv)
+// The arithmetic of t and acc is the two launches' own, expression for
+// expression, so the two forms give the same out and partials bit for bit.
+// The partials are per row block and lane, shape (blocks, B), at the blocks
+// of K5's grid over the m rows; they are summed in a fixed order (lane_sum
+// below, a warp a lane, or the K7 passes of batch_cr.cu), never with
+// atomics, so a stage repeats bit for bit.
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError() (cudaErrorInvalidValue for arguments it does
@@ -79,6 +104,25 @@ __device__ __forceinline__ void ldg_vec(const T* p, T (&v)[VW]) {
   }
 }
 
+// the same as a streaming load (evict first), for arrays read once that
+// should not push the gathered rows out of L2
+template <typename T, int VW>
+__device__ __forceinline__ void ldcs_vec(const T* p, T (&v)[VW]) {
+  if constexpr (VW == 1) {
+    v[0] = __ldcs(p);
+  } else if constexpr (sizeof(T) == 8) {
+    const double2 d = __ldcs(reinterpret_cast<const double2*>(p));
+    v[0] = d.x;
+    v[1] = d.y;
+  } else {
+    const float4 f = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  }
+}
+
 template <typename T, int VW>
 __device__ __forceinline__ void store_vec(T* p, const T (&v)[VW]) {
   if constexpr (VW == 1) {
@@ -90,7 +134,87 @@ __device__ __forceinline__ void store_vec(T* p, const T (&v)[VW]) {
   }
 }
 
+constexpr int kInner = 2;  // the fused K6's gathers in flight a thread
+
+// acc[0..VW) += sum over k in [begin, end) of vals[k] X[indices[k], lanes],
+// in CSR order, one multiply-add a value: UNROLL indices and values loaded,
+// then their UNROLL gathers issued, then added; the rest one at a time.
+// UNROLL = 1 is the loop of one nonzero at a time.
+template <typename T, int VW, int UNROLL>
+__device__ __forceinline__ void row_gather(int64_t begin, int64_t end,
+                                           const int32_t* __restrict__ indices,
+                                           const T* __restrict__ vals,
+                                           const T* __restrict__ X, int64_t B,
+                                           int64_t lane0, T (&acc)[VW]) {
+  int64_t k = begin;
+  if constexpr (UNROLL > 1) {
+    for (; k + UNROLL <= end; k += UNROLL) {
+      int32_t c[UNROLL];
+      T a[UNROLL], u[UNROLL][VW];
+#pragma unroll
+      for (int q = 0; q < UNROLL; ++q) {
+        c[q] = indices[k + q];
+        a[q] = vals[k + q];
+      }
+#pragma unroll
+      for (int q = 0; q < UNROLL; ++q)
+        ldg_vec<T, VW>(X + (int64_t)c[q] * B + lane0, u[q]);
+#pragma unroll
+      for (int q = 0; q < UNROLL; ++q)
+#pragma unroll
+        for (int j = 0; j < VW; ++j) acc[j] += a[q] * u[q][j];
+    }
+  }
+  for (; k < end; ++k) {
+    const T a = vals[k];
+    T u[VW];
+    ldg_vec<T, VW>(X + (int64_t)indices[k] * B + lane0, u);
+#pragma unroll
+    for (int j = 0; j < VW; ++j) acc[j] += a * u[j];
+  }
+}
+
+// K5's epilogue for one row: acc *= rowscale; acc += addw addv and, into
+// dot, addv acc; then the store. o is the row's offset plus lane0.
+template <typename T, int VW, bool kStream>
+__device__ __forceinline__ void row_epilogue(int64_t o, T (&acc)[VW],
+                                             const T* __restrict__ rowscale,
+                                             const T* __restrict__ addw,
+                                             const T* __restrict__ addv,
+                                             T* __restrict__ Y, T (&dot)[VW]) {
+  if (rowscale != nullptr) {
+    T s[VW];
+    load_vec<T, VW>(rowscale + o, s);
+#pragma unroll
+    for (int j = 0; j < VW; ++j) acc[j] *= s[j];
+  }
+  if (addw != nullptr) {
+    T w[VW], v[VW];
+    if constexpr (kStream)
+      ldcs_vec<T, VW>(addw + o, w);
+    else
+      load_vec<T, VW>(addw + o, w);
+    load_vec<T, VW>(addv + o, v);
+#pragma unroll
+    for (int j = 0; j < VW; ++j) {
+      acc[j] += w[j] * v[j];
+      dot[j] += v[j] * acc[j];
+    }
+  }
+  store_vec<T, VW>(Y + o, acc);
+}
+
+// the per-block, per-lane partials of the column dots, row block blockIdx.x
 template <typename T, int VW>
+__device__ __forceinline__ void store_dots(T (&dot)[VW], T* red, bool lane_ok,
+                                           int64_t B, int64_t lane0,
+                                           T* __restrict__ partials) {
+  lane_reduce<T, VW>(dot, red, AddOp());
+  if (threadIdx.y == 0 && lane_ok)
+    store_vec<T, VW>(partials + (int64_t)blockIdx.x * B + lane0, dot);
+}
+
+template <typename T, int VW, int UNROLL>
 __global__ void __launch_bounds__(kThreads)
 csr_spmm_kernel(int64_t rows, int64_t B, const int64_t* __restrict__ indptr,
                 const int32_t* __restrict__ indices,
@@ -111,70 +235,128 @@ csr_spmm_kernel(int64_t rows, int64_t B, const int64_t* __restrict__ indptr,
       T acc[VW];
 #pragma unroll
       for (int j = 0; j < VW; ++j) acc[j] = T(0);
-      const int64_t end = indptr[row + 1];
-      for (int64_t k = indptr[row]; k < end; ++k) {
-        const T a = vals[k];
-        T u[VW];
-        ldg_vec<T, VW>(U + (int64_t)indices[k] * B + lane0, u);
-#pragma unroll
-        for (int j = 0; j < VW; ++j) acc[j] += a * u[j];
-      }
-      const int64_t o = row * B + lane0;
-      if (rowscale != nullptr) {
-        T s[VW];
-        load_vec<T, VW>(rowscale + o, s);
-#pragma unroll
-        for (int j = 0; j < VW; ++j) acc[j] *= s[j];
-      }
-      if (addw != nullptr) {
-        T w[VW], v[VW];
-        load_vec<T, VW>(addw + o, w);
-        load_vec<T, VW>(addv + o, v);
-#pragma unroll
-        for (int j = 0; j < VW; ++j) {
-          acc[j] += w[j] * v[j];
-          dot[j] += v[j] * acc[j];
-        }
-      }
-      store_vec<T, VW>(Y + o, acc);
+      row_gather<T, VW, UNROLL>(indptr[row], indptr[row + 1], indices, vals,
+                                U, B, lane0, acc);
+      row_epilogue<T, VW, false>(row * B + lane0, acc, rowscale, addw, addv,
+                                 Y, dot);
     }
   }
-  if (partials != nullptr) {
-    lane_reduce<T, VW>(dot, red, AddOp());
-    if (threadIdx.y == 0 && lane_ok)
-      store_vec<T, VW>(partials + (int64_t)blockIdx.x * B + lane0, dot);
-  }
+  if (partials != nullptr) store_dots<T, VW>(dot, red, lane_ok, B, lane0,
+                                             partials);
 }
 
-// out[b] = sum over k of p[k, b], in order; one thread per lane.
+// The fused K6: out = A (W_s * (A' V)) + W_slack * V over the rows of A
+// (A: rows, indptr, indices, vals; A': t_indptr, t_indices, t_vals), with
+// the partials of V.out, on K5's grid over the rows of A. At most 64
+// registers a thread, so that four blocks fit on an SM: the gathers wait on
+// a chain of dependent index loads, and more warps in flight hide it better
+// than deeper unrolling in fewer of them.
+template <typename T, int VW>
+__global__ void __launch_bounds__(kThreads, 4)
+normal_batched_kernel(int64_t rows, int64_t B,
+                      const int64_t* __restrict__ indptr,
+                      const int32_t* __restrict__ indices,
+                      const T* __restrict__ vals,
+                      const int64_t* __restrict__ t_indptr,
+                      const int32_t* __restrict__ t_indices,
+                      const T* __restrict__ t_vals, const T* __restrict__ V,
+                      const T* __restrict__ w_struct,
+                      const T* __restrict__ w_slack, T* __restrict__ out,
+                      T* __restrict__ partials, const T* __restrict__ state) {
+  __shared__ T red[kThreads * VW];
+  if (loop_done(state)) return;
+  const int64_t lane0 = ((int64_t)blockIdx.y * blockDim.x + threadIdx.x) * VW;
+  const bool lane_ok = lane0 < B;
+  T dot[VW];
+#pragma unroll
+  for (int j = 0; j < VW; ++j) dot[j] = T(0);
+  if (lane_ok) {
+    for (int64_t row = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
+         row < rows; row += (int64_t)gridDim.x * blockDim.y) {
+      T acc[VW];
+#pragma unroll
+      for (int j = 0; j < VW; ++j) acc[j] = T(0);
+      const int64_t end = indptr[row + 1];
+      for (int64_t p = indptr[row]; p < end; ++p) {
+        const int32_t col = indices[p];
+        const T a_ik = vals[p];
+        // t = W_s[col] * (row col of A') . V, as K5's first launch sums it
+        T t[VW], ws[VW];
+        ldcs_vec<T, VW>(w_struct + (int64_t)col * B + lane0, ws);
+#pragma unroll
+        for (int j = 0; j < VW; ++j) t[j] = T(0);
+        row_gather<T, VW, kInner>(t_indptr[col], t_indptr[col + 1],
+                                  t_indices, t_vals, V, B, lane0, t);
+#pragma unroll
+        for (int j = 0; j < VW; ++j) t[j] *= ws[j];
+        // as K5's second launch adds a_ik U[col]
+#pragma unroll
+        for (int j = 0; j < VW; ++j) acc[j] += a_ik * t[j];
+      }
+      row_epilogue<T, VW, true>(row * B + lane0, acc, nullptr, w_slack, V,
+                                out, dot);
+    }
+  }
+  if (partials != nullptr) store_dots<T, VW>(dot, red, lane_ok, B, lane0,
+                                             partials);
+}
+
+// out[b] = the sum of the n partials p[k, b]: a warp a lane, thread t of
+// the warp taking k = t, t + 32, ... in order, then a shuffle tree
+// (warp_partials).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 lane_sum_kernel(int64_t n, int64_t B, const T* __restrict__ p,
                 T* __restrict__ out) {
-  const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (b < B) out[b] = lane_partials(p, n, B, b, T(0), AddOp());
+  const int64_t b = warp_lane();
+  if (b >= B) return;  // the same for the whole warp
+  const T s = warp_partials(p + b, n, T(0), AddOp(), B);
+  if ((threadIdx.x & 31) == 0) out[b] = s;
 }
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// Checks the lane width vw against B and the pointers' alignment.
+template <typename T>
+bool width_ok(int64_t B, int vw, std::initializer_list<const void*> ptrs) {
+  constexpr int V = 16 / sizeof(T);
+  if (B < 1 || (vw != 1 && vw != V)) return false;
+  if (vw == V) {
+    if (B % V != 0) return false;
+    for (const void* p : ptrs)
+      if (p != nullptr && !aligned16(p)) return false;
+  }
+  return true;
+}
+
+// csr_spmm_kernel<T, VW, unroll> for unroll 1 or 2
+template <typename T, int VW>
+void launch_spmm(int unroll, dim3 grid, dim3 block, cudaStream_t s,
+                 int64_t rows, int64_t B, const int64_t* ip, const int32_t* ix,
+                 const T* v, const T* u, const T* rs, const T* aw,
+                 const T* av, T* y, T* pp, const T* st) {
+  if (unroll == 2)
+    csr_spmm_kernel<T, VW, 2><<<grid, block, 0, s>>>(rows, B, ip, ix, v, u,
+                                                     rs, aw, av, y, pp, st);
+  else
+    csr_spmm_kernel<T, VW, 1><<<grid, block, 0, s>>>(rows, B, ip, ix, v, u,
+                                                     rs, aw, av, y, pp, st);
+}
+
 template <typename T>
 int csr_spmm(int64_t rows, int64_t B, const void* indptr, const void* indices,
              const void* vals, const void* U, const void* rowscale,
              const void* addw, const void* addv, void* Y, void* partials,
-             const void* state, int vw, void* stream) {
+             const void* state, int vw, int unroll, void* stream) {
   constexpr int V = 16 / sizeof(T);
-  if (B < 1 || (vw != 1 && vw != V)) return (int)cudaErrorInvalidValue;
+  if (!width_ok<T>(B, vw, {U, rowscale, addw, addv, Y, partials}) ||
+      (unroll != 1 && unroll != 2))
+    return (int)cudaErrorInvalidValue;
   if ((addw == nullptr) != (addv == nullptr) ||
       (partials != nullptr && addv == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (vw == V) {
-    if (B % V != 0) return (int)cudaErrorInvalidValue;
-    for (const void* p : {U, rowscale, addw, addv, (const void*)Y,
-                          (const void*)partials})
-      if (p != nullptr && !aligned16(p)) return (int)cudaErrorInvalidValue;
-  }
   const LaneGrid g = lane_grid(rows, B / vw);
   const dim3 grid((unsigned)g.gx, (unsigned)g.gy);
   const dim3 block((unsigned)g.tx, (unsigned)g.ty);
@@ -190,18 +372,53 @@ int csr_spmm(int64_t rows, int64_t B, const void* indptr, const void* indices,
   auto pp = static_cast<T*>(partials);
   auto st = static_cast<const T*>(state);
   if (vw == 1)
-    csr_spmm_kernel<T, 1><<<grid, block, 0, s>>>(rows, B, ip, ix, v, u, rs,
-                                                  aw, av, y, pp, st);
+    launch_spmm<T, 1>(unroll, grid, block, s, rows, B, ip, ix, v, u, rs, aw,
+                      av, y, pp, st);
   else
-    csr_spmm_kernel<T, V><<<grid, block, 0, s>>>(rows, B, ip, ix, v, u, rs,
-                                                  aw, av, y, pp, st);
+    launch_spmm<T, V>(unroll, grid, block, s, rows, B, ip, ix, v, u, rs, aw,
+                      av, y, pp, st);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int normal_batched(int64_t rows, int64_t B, const void* indptr,
+                   const void* indices, const void* vals,
+                   const void* t_indptr, const void* t_indices,
+                   const void* t_vals, const void* V, const void* w_struct,
+                   const void* w_slack, void* out, void* partials,
+                   const void* state, int vw, void* stream) {
+  constexpr int W = 16 / sizeof(T);
+  if (!width_ok<T>(B, vw, {V, w_struct, w_slack, out, partials}))
+    return (int)cudaErrorInvalidValue;
+  const LaneGrid g = lane_grid(rows, B / vw);
+  const dim3 grid((unsigned)g.gx, (unsigned)g.gy);
+  const dim3 block((unsigned)g.tx, (unsigned)g.ty);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto ip = static_cast<const int64_t*>(indptr);
+  auto ix = static_cast<const int32_t*>(indices);
+  auto va = static_cast<const T*>(vals);
+  auto tip = static_cast<const int64_t*>(t_indptr);
+  auto tix = static_cast<const int32_t*>(t_indices);
+  auto tva = static_cast<const T*>(t_vals);
+  auto v = static_cast<const T*>(V);
+  auto ws = static_cast<const T*>(w_struct);
+  auto wl = static_cast<const T*>(w_slack);
+  auto o = static_cast<T*>(out);
+  auto pp = static_cast<T*>(partials);
+  auto st = static_cast<const T*>(state);
+  if (vw == 1)
+    normal_batched_kernel<T, 1><<<grid, block, 0, s>>>(
+        rows, B, ip, ix, va, tip, tix, tva, v, ws, wl, o, pp, st);
+  else
+    normal_batched_kernel<T, W><<<grid, block, 0, s>>>(
+        rows, B, ip, ix, va, tip, tix, tva, v, ws, wl, o, pp, st);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int lane_sum(int64_t n, int64_t B, const void* p, void* out, void* stream) {
   if (B < 1) return (int)cudaErrorInvalidValue;
-  lane_sum_kernel<T><<<(unsigned)blocks_for(B, kThreads), kThreads, 0,
+  lane_sum_kernel<T><<<(unsigned)blocks_for(B, kWarpsPerBlock), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       n, B, static_cast<const T*>(p), static_cast<T*>(out));
   return (int)cudaGetLastError();
@@ -211,7 +428,8 @@ int lane_sum(int64_t n, int64_t B, const void* p, void* out, void* stream) {
 }  // namespace ipxt
 
 // Row blocks of a batched pass over `rows` rows and `chunks` lane chunks (B
-// lanes, or B / VW for K5): the number of per-lane partials it writes.
+// lanes, or B / VW for K5 and K6): the number of per-lane partials it
+// writes.
 extern "C" int64_t ipxt_lane_blocks(int64_t rows, int64_t chunks) {
   return ipxt::lane_grid(rows, chunks).gx;
 }
@@ -220,15 +438,18 @@ extern "C" int64_t ipxt_lane_blocks(int64_t rows, int64_t chunks) {
 //           + addw[i, :] addv[i, :];
 // rowscale, addw/addv, partials and state may each be null; all arrays are
 // row-major with B columns. With partials, partials[blk, :] = sum over the
-// rows of row block blk of addv[i, :] Y[i, :]. vw is 1 or 16 / sizeof(T).
+// rows of row block blk of addv[i, :] Y[i, :]. vw is 1 or 16 / sizeof(T);
+// unroll (1 or 2) is the gathers a thread issues together, the same Y bit
+// for bit either way.
 extern "C" int ipxt_csr_spmm_f64(int64_t rows, int64_t B, const void* indptr,
                                  const void* indices, const void* vals,
                                  const void* U, const void* rowscale,
                                  const void* addw, const void* addv, void* Y,
                                  void* partials, const void* state, int vw,
-                                 void* stream) {
+                                 int unroll, void* stream) {
   return ipxt::csr_spmm<double>(rows, B, indptr, indices, vals, U, rowscale,
-                                addw, addv, Y, partials, state, vw, stream);
+                                addw, addv, Y, partials, state, vw, unroll,
+                                stream);
 }
 
 extern "C" int ipxt_csr_spmm_f32(int64_t rows, int64_t B, const void* indptr,
@@ -236,12 +457,45 @@ extern "C" int ipxt_csr_spmm_f32(int64_t rows, int64_t B, const void* indptr,
                                  const void* U, const void* rowscale,
                                  const void* addw, const void* addv, void* Y,
                                  void* partials, const void* state, int vw,
-                                 void* stream) {
+                                 int unroll, void* stream) {
   return ipxt::csr_spmm<float>(rows, B, indptr, indices, vals, U, rowscale,
-                               addw, addv, Y, partials, state, vw, stream);
+                               addw, addv, Y, partials, state, vw, unroll,
+                               stream);
 }
 
-// out[b] = sum of p[0..n, b] in order, for the n x B partials of a launch.
+// The fused K6: out[i, :] = sum over the nonzeros (i, k) of A of
+// vals[k] W_s[k, :] (sum over the nonzeros (k, j) of A' of t_vals V[j, :])
+// + W_slack[i, :] V[i, :], A given by (rows = m, indptr, indices, vals) and
+// A' by (t_indptr, t_indices, t_vals); V, W_slack and out (m, B), W_s
+// (n, B), all row-major. With partials, partials[blk, :] = sum over the rows
+// of row block blk of V[i, :] out[i, :], the layout of the second K5 launch
+// of the two-launch form at the same vw. partials and state may be null.
+extern "C" int ipxt_normal_batched_f64(
+    int64_t rows, int64_t B, const void* indptr, const void* indices,
+    const void* vals, const void* t_indptr, const void* t_indices,
+    const void* t_vals, const void* V, const void* w_struct,
+    const void* w_slack, void* out, void* partials, const void* state,
+    int vw, void* stream) {
+  return ipxt::normal_batched<double>(rows, B, indptr, indices, vals,
+                                      t_indptr, t_indices, t_vals, V,
+                                      w_struct, w_slack, out, partials, state,
+                                      vw, stream);
+}
+
+extern "C" int ipxt_normal_batched_f32(
+    int64_t rows, int64_t B, const void* indptr, const void* indices,
+    const void* vals, const void* t_indptr, const void* t_indices,
+    const void* t_vals, const void* V, const void* w_struct,
+    const void* w_slack, void* out, void* partials, const void* state,
+    int vw, void* stream) {
+  return ipxt::normal_batched<float>(rows, B, indptr, indices, vals,
+                                     t_indptr, t_indices, t_vals, V, w_struct,
+                                     w_slack, out, partials, state, vw,
+                                     stream);
+}
+
+// out[b] = the sum of p[0..n, b], a warp a lane, for the n x B partials of
+// a launch.
 extern "C" int ipxt_lane_sum_f64(int64_t n, int64_t B, const void* p,
                                  void* out, void* stream) {
   return ipxt::lane_sum<double>(n, B, p, out, stream);

@@ -29,17 +29,20 @@
 // mean (ops/spmv.py lanes_per_row), for K1's plans the one at or below it
 // (kernels.k1_lanes; on A of the 20k LP 8 lanes, not 16, take 18-20% less
 // device time). The row sum is a fixed shuffle tree, so results repeat
-// exactly from run to run. spmv_block holds one CUDA block's rows; both
-// kernels below run it, so they round alike.
+// exactly from run to run. spmv_block (spmv_block.cuh) holds one CUDA
+// block's rows; both kernels below run it, and so do the K2 applies inside
+// K3's cooperative solve (cr.cu), so they all round alike.
 //
 // K2 is two launches of the same kernel with epilogues:
 //   u   = W_s * (A' v)                 (rowscale)
 //   out = A u + W_slack * v            (addw, addv)
 // and the second launch writes each block's partial of v.out; those are
 // summed in a fixed order by reduce_sum below, or by the CR passes of cr.cu,
-// never with atomics, so a run is repeatable. The solver's CR loop sums them
-// in cr.cu; reduce_sum serves the stand-alone K2 wrapper that the tests and
-// chip_smoke.py call.
+// never with atomics, so a run is repeatable. On the solver's path both
+// halves run inside K3's one cooperative launch per CR solve (cr.cu), at
+// the same lanes per row and into the same partial slots; this stand-alone
+// K2 and reduce_sum serve the wrapper that the tests and chip_smoke.py
+// call, and K3's host-issued comparison form.
 //
 // The block products (block_spmv_kernel): out_p = A_p u + W_slack_p v_p over
 // the P <= kMaxSplit row blocks of a row-blocked apply, with the partials of
@@ -57,51 +60,10 @@
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError().
 
-#include "common.cuh"
+#include "spmv_block.cuh"
 
 namespace ipxt {
 namespace {
-
-// One CUDA block's rows of a product: local block `blk` of an operand of
-// `rows` rows takes rows blk * (kThreads / VEC) + threadIdx.x / VEC, each
-// summed by VEC lanes with a fixed shuffle tree, then
-//   y[row] = sum * rowscale[row] + addw[row] * addv[row]
-// (rowscale, addw / addv may be null). With `partial`, *partial is the
-// block's fixed-order sum of addv[row] * y[row]. y, rowscale, addw and addv
-// point at the operand's row 0. Every thread of the block calls it.
-template <typename T, int VEC>
-__device__ __forceinline__ void spmv_block(
-    int64_t rows, int64_t blk, const int64_t* __restrict__ indptr,
-    const int32_t* __restrict__ indices, const T* __restrict__ vals,
-    const T* __restrict__ x, const T* __restrict__ rowscale,
-    const T* __restrict__ addw, const T* __restrict__ addv,
-    T* __restrict__ y, T* __restrict__ partial, T* red) {
-  const int lane = threadIdx.x % VEC;
-  const int64_t row = blk * (kThreads / VEC) + threadIdx.x / VEC;
-  T sum = T(0);
-  if (row < rows) {
-    const int64_t end = indptr[row + 1];
-    for (int64_t k = indptr[row] + lane; k < end; k += VEC)
-      sum += vals[k] * __ldg(x + indices[k]);
-  }
-  // every lane of the warp takes part in the shuffles, rows past the end
-  // with a zero sum
-#pragma unroll
-  for (int off = VEC / 2; off > 0; off >>= 1)
-    sum += __shfl_down_sync(0xffffffffu, sum, off, VEC);
-  T dot = T(0);
-  if (lane == 0 && row < rows) {
-    T out = sum;
-    if (rowscale != nullptr) out *= rowscale[row];
-    if (addw != nullptr) out += addw[row] * addv[row];
-    y[row] = out;
-    if (partial != nullptr) dot = addv[row] * out;
-  }
-  if (partial != nullptr) {
-    const T b = block_sum(dot, red);
-    if (threadIdx.x == 0) *partial = b;
-  }
-}
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -113,10 +75,9 @@ csr_spmv_kernel(int64_t rows, const int64_t* __restrict__ indptr,
                 T* __restrict__ partials, const T* __restrict__ state) {
   __shared__ T red[kThreads];
   if (loop_done(state)) return;
-  spmv_block<T, VEC>(rows, blockIdx.x, indptr, indices, vals, x, rowscale,
-                     addw, addv, y,
-                     partials != nullptr ? partials + blockIdx.x : nullptr,
-                     red);
+  spmv_block<T, VEC, true>(
+      rows, blockIdx.x, indptr, indices, vals, x, rowscale, addw, addv, y,
+      partials != nullptr ? partials + blockIdx.x : nullptr, red);
 }
 
 // The P row blocks of a row-blocked apply, by value: block p holds rows
@@ -165,11 +126,11 @@ block_spmv_kernel(BlockOps o, const double* __restrict__ x,
   double* part = partials != nullptr ? partials + g : nullptr;
   const int64_t rows = r1 - r0, blk = g - b0;
   switch (vec) {  // the same for every thread of the block
-    case 2: spmv_block<double, 2>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
-    case 4: spmv_block<double, 4>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
-    case 8: spmv_block<double, 8>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
-    case 16: spmv_block<double, 16>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
-    default: spmv_block<double, 32>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
+    case 2: spmv_block<double, 2, true>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
+    case 4: spmv_block<double, 4, true>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
+    case 8: spmv_block<double, 8, true>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
+    case 16: spmv_block<double, 16, true>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
+    default: spmv_block<double, 32, true>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
   }
 }
 
@@ -286,8 +247,7 @@ extern "C" int ipxt_block_spmv_f64(int P, const int64_t* row_off,
   }
   for (int p = 0; p < P; ++p) {
     const int v = vec[p];
-    if (v != 2 && v != 4 && v != 8 && v != 16 && v != 32)
-      return (int)cudaErrorInvalidValue;
+    if (!valid_vec(v)) return (int)cudaErrorInvalidValue;
     const int64_t rows = row_off[p + 1] - row_off[p];
     if (rows < 0 || blk_off[p + 1] - blk_off[p] != blocks_for(rows, kThreads / v))
       return (int)cudaErrorInvalidValue;

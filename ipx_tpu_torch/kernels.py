@@ -13,9 +13,12 @@ tensor raises.
 Kernels: K1 ``csr_spmv`` (SpmvPlan, checked once per operand and one
 ctypes call a launch; BlockSpmvPlan, the P block products of a row-blocked
 vector apply in one launch), K2 ``normal_apply`` (csrc/spmv.cu), K3
-``cr_step`` (csrc/cr.cu), K4 ``nnt`` (NntKernel, one C call per N N' apply
-over P >= 1 column blocks, csrc/nnt.cu); for the batched
-phase 1, K5 ``csr_spmm``, K6 ``normal_apply_batched`` (csrc/spmm.cu), K7
+``cr_step`` (CrStep: a whole CR solve, its K2 applies inside, in one
+cooperative launch, csrc/cr.cu), K4 ``nnt`` (NntKernel, one C call per N N'
+apply over P >= 1 column blocks, csrc/nnt.cu); for the batched
+phase 1, K5 ``csr_spmm``, K6 ``normal_apply_batched`` (NormalBatchedPlan:
+one fused launch an apply where the operand's column lengths allow it,
+csrc/spmm.cu), K7
 ``batched_cr_step`` (csrc/batch_cr.cu), K8 ``step_batch`` and K9
 ``ipm_update`` (csrc/ipm_step.cu); for the rest of the batched IPM step, in
 float64, K10 ``ipm_prologue`` (csrc/ipm_prologue.cu), K11 ``newton_rhs``
@@ -45,14 +48,20 @@ LAUNCHES = dict.fromkeys(("csr_spmv", "normal_apply", "cr_step", "nnt",
                           "starting_point", "block_sum", "sharded_cr_step",
                           "sharded_batched_cr_step", "level_solve",
                           "block_spmv_sum"), 0)
+# K2 applies that ran inside K3's cooperative launches since the last
+# reset_launches(), as the kernel counts them in its state and CrStep.solve
+# reads it once a solve: on the solver's path K2's body runs there and is
+# not launched on its own. Not launches: LAUNCHES counts those.
+INSIDE = {"normal_apply": 0}
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _lib = None
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, INSIDE):
+        for name in counts:
+            counts[name] = 0
 
 
 def load() -> ctypes.CDLL:
@@ -78,8 +87,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         f = getattr(lib, f"ipxt_cr_step_{t}")
         f.argtypes = [I, I64, I64, I64, D] + [P] * 11 + [I64, P, P]
         f.restype = I
+        f = getattr(lib, f"ipxt_cr_solve_{t}")
+        f.argtypes = ([I64, I64, D] + [P] * 11 + [I64, P, I64] + [P] * 3
+                      + [I] + [P] * 3 + [I, P, P, P])
+        f.restype = I
         f = getattr(lib, f"ipxt_csr_spmm_{t}")
-        f.argtypes = [I64, I64] + [P] * 10 + [I, P]
+        f.argtypes = [I64, I64] + [P] * 10 + [I, I, P]
+        f.restype = I
+        f = getattr(lib, f"ipxt_normal_batched_{t}")
+        f.argtypes = [I64, I64] + [P] * 12 + [I, P]
         f.restype = I
         f = getattr(lib, f"ipxt_lane_sum_{t}")
         f.argtypes = [I64, I64, P, P, P]
@@ -405,59 +421,116 @@ class NntKernel:
 
 # -- K3 -----------------------------------------------------------------------
 class CrStep:
-    """K3: the passes of one CR solve (csrc/cr.cu) on one card.
+    """K3: one CR solve (csrc/cr.cu) on one card, on C = A diag(W[:n]) A' +
+    diag(W[n:]) with preconditioner 1/invd. `At` is A' as a CSR operand (n
+    rows), `A` is A (m rows), both summed at their own lanes per row (op.vec,
+    K2's).
 
-    Owns the loop's m-vectors, the per-block partials and the scalar state,
-    all allocated once per solve. `residual` starts as a copy of `rhs`.
-    `npc` is the length of the partials K2 writes (spmv_blocks of A).
-    """
+    Owns the loop's m-vectors, the per-block partials, K2's (n,) scratch u
+    and the scalar state, all allocated once per solve. `residual` starts as
+    a copy of `rhs`. solve() runs the whole loop, its K2 applies inside, in
+    one cooperative launch; solve(cooperative=False) runs the host-issued
+    passes and K2 launches instead, which the solvers never ask for: the card
+    tests and chip_smoke.py hold the two forms bit for bit."""
 
     PRECOND, INIT, PASS_A, PASS_B, PASS_C, RECHECK = range(6)
     # state slots (csrc/common.cuh)
-    IT, ERR, DONE = 3, 4, 5
+    IT, ERR, DONE, APPLIES = 3, 4, 5, 6
+    RECHECK_EVERY = 5   # kRecheckEvery of csrc/cr.cu
+    POLL = 5            # trips between the host-issued form's reads of done
 
-    def __init__(self, invd: torch.Tensor, resscale: torch.Tensor,
-                 rhs: torch.Tensor, npc: int):
+    def __init__(self, At, A, W: torch.Tensor, invd: torch.Tensor,
+                 resscale: torch.Tensor, rhs: torch.Tensor):
         device, dtype = _device_of(rhs), rhs.dtype
         lib = load()
         m = rhs.numel()
         _check(rhs, "rhs", device, dtype, m)
         _check(invd, "invd", device, dtype, m)
         _check(resscale, "resscale", device, dtype, m)
+        _check_operand(At, device, dtype)
+        _check_operand(A, device, dtype)
+        n = At.rows
+        if (A.rows, At.cols, A.cols) != (m, m, n):
+            raise ValueError(f"At is {At.rows} x {At.cols}, A {A.rows} x "
+                             f"{A.cols}: not A' and A of {m} rows")
+        _check(W, "W", device, dtype, n + m)
         e = lambda k: torch.empty(k, dtype=dtype, device=device)  # noqa: E731
-        nblk = int(lib.ipxt_cr_blocks(m))
-        self.m = m
+        nblk, npc = int(lib.ipxt_cr_blocks(m)), spmv_blocks(A)
+        self.At, self.A, self.W = At, A, W
+        self.m, self.device, self.dtype = m, device, dtype
         self.residual = rhs.clone()
         self.lhs, self.sres, self.csres, self.step, self.cstep = (
             e(m) for _ in range(5))
+        self.u = e(n)
         self.pa, self.pr, self.pc = e(2 * nblk), e(nblk), e(npc)
         # zeros made on the host: the state is copied up, not filled by a
         # device kernel
         self.state = torch.zeros(int(lib.ipxt_cr_state_len()),
                                  dtype=dtype).to(device)
-        self._invd, self._resscale = invd, resscale   # keep alive
+        self._keep = (invd, resscale)   # alive while the pointers are used
         self._fn = getattr(lib, f"ipxt_cr_step_{_SUFFIX[dtype]}")
+        self._solve = getattr(lib, f"ipxt_cr_solve_{_SUFFIX[dtype]}")
         self._stream = _stream(device)
-        self._args = (invd.data_ptr(), resscale.data_ptr(),
+        self._bufs = (invd.data_ptr(), resscale.data_ptr(),
                       self.lhs.data_ptr(), self.residual.data_ptr(),
                       self.sres.data_ptr(), self.csres.data_ptr(),
                       self.step.data_ptr(), self.cstep.data_ptr(),
                       self.pa.data_ptr(), self.pr.data_ptr(),
-                      self.pc.data_ptr(), npc, self.state.data_ptr(),
-                      self._stream)
+                      self.pc.data_ptr(), npc, self.state.data_ptr())
+        self._ops = (n, At.indptr.data_ptr(), At.indices.data_ptr(),
+                     At.vals.data_ptr(), At.vec, A.indptr.data_ptr(),
+                     A.indices.data_ptr(), A.vals.data_ptr(), A.vec,
+                     W.data_ptr(), self.u.data_ptr())
 
-    def launch(self, phase: int, k: int, maxiter: int, tol: float) -> None:
-        err = self._fn(phase, self.m, k, maxiter, tol, *self._args)
+    def solve(self, maxiter: int, tol: float, cooperative: bool = True):
+        """Runs the loop from the start and returns (lhs on the card,
+        iterations, error code of the loop) from one read of the state. The
+        cooperative launch adds the K2 applies it ran to INSIDE; a refused
+        launch raises."""
+        if not cooperative:
+            return self._host_issued(maxiter, tol)
+        err = self._solve(self.m, maxiter, tol, *self._bufs, *self._ops,
+                          self._stream)
+        _raise_if(err, "cr_step (cooperative solve)")
+        LAUNCHES["cr_step"] += 1
+        st = self.state.cpu()
+        INSIDE["normal_apply"] += int(st[self.APPLIES])
+        return self.lhs, int(st[self.IT]), int(st[self.ERR])
+
+    def _launch(self, phase: int, k: int, maxiter: int, tol: float) -> None:
+        """One pass of the host-issued form."""
+        err = self._fn(phase, self.m, k, maxiter, tol, *self._bufs,
+                       self._stream)
         _raise_if(err, f"cr_step phase {phase}")
         LAUNCHES["cr_step"] += 1
 
-    def done(self) -> bool:
-        return bool(self.state[self.DONE].item())
+    def _host_issued(self, maxiter: int, tol: float):
+        """The host issues each trip's passes and two K2 launches, and reads
+        the stop flag every POLL trips."""
+        def C_sres():   # Csres = C sres, partials of sres.Csres into pc
+            normal_apply(self.At, self.A, self.W, self.sres, out=self.csres,
+                         u=self.u, partials=self.pc, state=self.state)
 
-    def result(self):
-        """(lhs on the card, iterations, error code of the loop)."""
-        st = self.state.cpu()
-        return self.lhs, int(st[self.IT]), int(st[self.ERR])
+        self._launch(self.PRECOND, 0, maxiter, tol)
+        C_sres()
+        self._launch(self.INIT, 0, maxiter, tol)
+        k = 0
+        while True:
+            for phase in (self.PASS_A, self.PASS_B):
+                self._launch(phase, k, maxiter, tol)
+            C_sres()
+            self._launch(self.PASS_C, k, maxiter, tol)
+            if (k + 1) % self.RECHECK_EVERY == 0:
+                self._launch(self.PRECOND, k, maxiter, tol)
+                C_sres()
+                self._launch(self.RECHECK, k, maxiter, tol)
+            k += 1
+            # trip `maxiter` always stops, so the loop ends by trip
+            # maxiter + 1
+            if (k % self.POLL == 0 or k > maxiter) and bool(
+                    self.state[self.DONE].item()):
+                st = self.state.cpu()
+                return self.lhs, int(st[self.IT]), int(st[self.ERR])
 
 
 # -- K5 / K6 ------------------------------------------------------------------
@@ -475,9 +548,25 @@ def spmm_width(B: int, dtype: torch.dtype, *tensors) -> int:
     return v if B % v == 0 and aligned else 1
 
 
+# K5's gathers a thread issues together (row_gather in csrc/spmm.cu): 2 on an
+# operand whose rows average fewer than K5_UNROLL_BELOW nonzeros, 1 (one at a
+# time) elsewhere; the same Y bit for bit either way. On the card 2 took 5-7%
+# less device time on A' of the 20k LP (2 nonzeros a row), 1-4% less at 2 a
+# row on other operands, 1-5% more at 3 to 5 a row, and 7% more on the LP's
+# A U in f64 (9.6 a row) (PERF.md §6, tools/torch_profile.py --what k5).
+K5_UNROLL_BELOW = 3.0
+
+
+def k5_unroll(op) -> int:
+    """The unroll K5 takes on operand `op`, from its mean row length."""
+    return 2 if op.vals.numel() < K5_UNROLL_BELOW * op.rows else 1
+
+
 def _spmm(op, U, Y, rowscale=None, addw=None, addv=None, partials=None,
-          state=None) -> None:
-    """One launch of the batched CSR kernel with its optional epilogues."""
+          state=None, unroll=None) -> None:
+    """One launch of the batched CSR kernel with its optional epilogues, at
+    `unroll` gathers a thread issues together (by default k5_unroll(op);
+    the card tests and tools/torch_profile.py --what k5 ask for 1 or 2)."""
     device, dtype = U.device, U.dtype
     lib = load()
     _check_operand(op, device, dtype)
@@ -501,7 +590,7 @@ def _spmm(op, U, Y, rowscale=None, addw=None, addv=None, partials=None,
     err = fn(op.rows, B, op.indptr.data_ptr(), op.indices.data_ptr(),
              op.vals.data_ptr(), U.data_ptr(), _ptr(rowscale), _ptr(addw),
              _ptr(addv), Y.data_ptr(), _ptr(partials), _ptr(state), vw,
-             _stream(device))
+             k5_unroll(op) if unroll is None else unroll, _stream(device))
     _raise_if(err, "csr_spmm")
 
 
@@ -520,33 +609,125 @@ def csr_spmm(op, U: torch.Tensor, out=None, addw=None, addv=None,
     return Y
 
 
-def normal_partials_shape(A, W, V, out, U) -> tuple:
-    """Shape of the per-lane partials that K6's second launch writes for
-    these buffers."""
-    B = _lanes(V, "V")
-    vw = spmm_width(B, V.dtype, U, out, W[W.shape[0] - A.rows:], V)
-    return (lane_blocks(A.rows, B // vw), B)
+# The fused K6 gathers sum_k len_k^2 rows of V, len_k the nonzeros of column
+# k of A, where the two launches gather 2 nnz(A) and write and read back the
+# (n, B) array U. It runs where sum_k len_k^2 <= K6_FUSED_RATIO * nnz(A):
+# the transportation LPs (every column 2 nonzeros) have a ratio of 2; one
+# dense column of an m-row LP makes it about m. 4 admits columns of up to 4
+# nonzeros on average, the longest at which the fused launch still beat the
+# two launches on the card (PERF.md §6, tools/torch_profile.py --what k6).
+K6_FUSED_RATIO = 4.0
+
+
+def k6_fused(At) -> bool:
+    """The rule of NormalBatchedPlan on the operand A' (whose rows are the
+    columns of A), from its row lengths on the host (CsrOperand.sq_rows)."""
+    return At.sq_rows <= K6_FUSED_RATIO * At.vals.numel()
+
+
+class NormalBatchedPlan:
+    """K6 bound to one operand pair, float64 or float32: C V = A (W[:n] *
+    (A' V)) + W[n:] * V for V of shape (m, B), with the per-block partials of
+    the column dots V.CV. `At` is A' as a CSR operand (n rows), `A` is A
+    (m rows). The operands are checked, the form picked (k6_fused: one fused
+    launch that never writes U = W[:n] * (A' V), or the two K5 launches) and
+    the C arguments packed once, here. A failed launch raises; nothing
+    retries it in the other form."""
+
+    def __init__(self, At, A):
+        device, dtype = _device_of(A.vals), A.vals.dtype
+        _check_operand(At, device, dtype)
+        _check_operand(A, device, dtype)
+        if (At.rows, At.cols) != (A.cols, A.rows):
+            raise ValueError(f"At is {At.rows} x {At.cols}, A is {A.rows} x "
+                             f"{A.cols}: not A' and A")
+        lib = load()
+        self.At, self.A, self.device, self.dtype = At, A, device, dtype
+        self.n, self.m = At.rows, A.rows
+        self.fused = k6_fused(At)
+        self._fused_fn = getattr(lib, f"ipxt_normal_batched_{_SUFFIX[dtype]}")
+        self._ops = (A.indptr.data_ptr(), A.indices.data_ptr(),
+                     A.vals.data_ptr(), At.indptr.data_ptr(),
+                     At.indices.data_ptr(), At.vals.data_ptr())
+
+    def width(self, W, V, out, partials=None) -> int:
+        """Lanes a thread takes (spmm_width): the second launch's of the
+        two-launch form, whose U torch.empty aligns, and the fused one's."""
+        return spmm_width(V.shape[1], self.dtype, V, W, W[self.n:], out,
+                          partials)
+
+    def partials_shape(self, W, V, out) -> tuple:
+        """Shape of the per-lane partials for these buffers: the row blocks
+        of K5's grid over the m rows at this width, by B."""
+        B = _lanes(V, "V")
+        return (lane_blocks(self.m, B // self.width(W, V, out)), B)
+
+    def __call__(self, W, V, out=None, U=None, partials=None, state=None,
+                 fused=None) -> torch.Tensor:
+        """out = C V, into `out` if given, with the partials of V.out in
+        `partials` if given. `fused` overrides the plan's form (chip_smoke.py
+        and the card tests time and hold the two against each other); `U`
+        is the two-launch form's (n, B) scratch, allocated if not given.
+        `state` is a CR loop's: once it says done, the launch returns at
+        once."""
+        n, m = self.n, self.m
+        B = _lanes(V, "V")
+        device, dtype = self.device, self.dtype
+        _check(V, "V", device, dtype, (m, B))
+        _check(W, "W", device, dtype, (n + m, B))
+        out = torch.empty((m, B), dtype=dtype, device=device) \
+            if out is None else out
+        _check(out, "out", device, dtype, (m, B))
+        fused = self.fused if fused is None else fused
+        if not fused:
+            U = torch.empty((n, B), dtype=dtype, device=device) \
+                if U is None else U
+            _spmm(self.At, V, U, rowscale=W[:n], state=state)
+            _spmm(self.A, U, out, addw=W[n:], addv=V, partials=partials,
+                  state=state)
+            return out
+        vw = self.width(W, V, out, partials)
+        if partials is not None:
+            _check(partials, "partials", device, dtype,
+                   (lane_blocks(m, B // vw), B))
+        if state is not None:
+            _check(state, "state", device, dtype,
+                   int(_lib.ipxt_bcr_state_len(B)))
+        err = self._fused_fn(m, B, *self._ops, V.data_ptr(), W.data_ptr(),
+                             W[n:].data_ptr(), out.data_ptr(),
+                             _ptr(partials), _ptr(state), vw,
+                             _stream(device))
+        _raise_if(err, "normal_apply_batched (fused)")
+        return out
+
+
+def normal_plan_of(At, A) -> NormalBatchedPlan:
+    """The NormalBatchedPlan of the pair (At, A), built at its first use and
+    kept on A (the plan holds At, so the key stays At's)."""
+    plans = A.__dict__.setdefault("_k6_plans", {})
+    if id(At) not in plans:
+        plans[id(At)] = NormalBatchedPlan(At, A)
+    return plans[id(At)]
 
 
 def normal_apply_batched(At, A, W: torch.Tensor, V: torch.Tensor, out=None,
                          U=None, partials=None, state=None, dots=None):
     """K6: out = A (W[:n] * (A' V)) + W[n:] * V for V of shape (m, B), with
     the per-block partials of the column dots V.out in `partials`; with
-    `dots` (a (B,) tensor) also their sums. The batched CR passes
-    `partials`, never `dots`: the sum (lane_sum in csrc/spmm.cu) serves
+    `dots` (a (B,) tensor) also their sums, a warp a lane. Through the
+    pair's plan (normal_plan_of): one fused launch, or two K5 launches where
+    the plan's rule says so. The batched CR passes `partials`, never
+    `dots`: the sum (lane_sum in csrc/spmm.cu) serves
     spmv.normal_apply_batched."""
     device = _device_of(V)
-    n, m = At.rows, A.rows
-    B = _lanes(V, "V")
-    _check(W, "W", device, V.dtype, (n + m, B))
-    e = lambda *s: torch.empty(s, dtype=V.dtype, device=device)  # noqa: E731
-    out = e(m, B) if out is None else out
-    U = e(n, B) if U is None else U
+    plan = normal_plan_of(At, A)
     if partials is None:
-        partials = e(*normal_partials_shape(A, W, V, out, U))
-    _spmm(At, V, U, rowscale=W[:n], state=state)
-    _spmm(A, U, out, addw=W[n:], addv=V, partials=partials, state=state)
+        out = torch.empty_like(V) if out is None else out
+        partials = torch.empty(plan.partials_shape(W, V, out),
+                               dtype=V.dtype, device=device)
+    out = plan(W, V, out=out, U=U, partials=partials, state=state)
     if dots is not None:
+        B = _lanes(V, "V")
         _check(dots, "dots", device, V.dtype, B)
         fn = getattr(_lib, f"ipxt_lane_sum_{_SUFFIX[V.dtype]}")
         _raise_if(fn(partials.shape[0], B, partials.data_ptr(),
@@ -559,11 +740,12 @@ def normal_apply_batched(At, A, W: torch.Tensor, V: torch.Tensor, out=None,
 class BatchedCrStep:
     """K7: the passes of one batched CR solve (csrc/batch_cr.cu) on one card.
 
-    Owns the loop's (m, B) arrays, the K6 scratch, the per-lane partials and
-    the state, all allocated once per solve. `R` starts as a copy of `rhs`.
-    `invd` and `resscale` are (m, B) and `tol` is (B,), all of rhs's dtype;
-    `W` is the (n + m, B) weight of the K6 that the host launches on `S`
-    between kPassB and kBeta (`normal_apply`)."""
+    Owns the loop's (m, B) arrays, the per-lane partials, the state and,
+    where K6's plan takes the two launches, their (n, B) scratch U, all
+    allocated once per solve. `R` starts as a copy of `rhs`. `invd` and
+    `resscale` are (m, B) and `tol` is (B,), all of rhs's dtype; `W` is the
+    (n + m, B) weight of the K6 that the host launches on `S` between kPassB
+    and kBeta (`normal_apply`)."""
 
     INIT, START, PASS_CA, CHECK, PASS_B, BETA = range(6)
     # state slots (csrc/common.cuh)
@@ -586,10 +768,13 @@ class BatchedCrStep:
         self.m, self.B = m, B
         self.R = rhs.clone()
         self.Y, self.S, self.CS, self.D, self.CD = (e(m, B) for _ in range(5))
-        self.U = e(n, B)
+        self.plan = normal_plan_of(At, A)
+        # the fused K6 never writes U: 98 MB in f32 at m = 20 000,
+        # n = 96 002, B = 256
+        self.U = None if self.plan.fused else e(n, B)
         self.npa = lane_blocks(m, B)
         self.pa = e(2, B, self.npa)     # lane-major (csrc/batch_cr.cu)
-        self.pc = e(*normal_partials_shape(A, W, self.S, self.CS, self.U))
+        self.pc = e(*self.plan.partials_shape(W, self.S, self.CS))
         # zeros made on the host: the state is copied up, not filled by a
         # device kernel
         self.state = torch.zeros(int(lib.ipxt_bcr_state_len(B)),

@@ -3,13 +3,18 @@ device (port of ipx_tpu/ops/device_cr.py).
 
 The kernel here is K3 ``cr_solve``: the Jacobi-preconditioned CR loop of
 ``ipx_tpu/ops/device_cr.py:_build_cr_fn.cr``, where the TPU runs the whole
-loop as one ``lax.while_loop``. On the card the host issues each trip's
-passes of the hand-written ``cr_step`` kernel (csrc/cr.cu) and two K2
-launches; the loop's scalars stay on the card, and the host reads the stop
-flag only every ``POLL`` trips, so a trip costs no host synchronisation.
-What bounds it on the H100 is launch latency: at m = 20 000 each pass
-moves well under a megabyte. The plain version, ``cr_solve_plain``, is the
-same loop in PyTorch operations with the scalar tests on the host.
+loop as one ``lax.while_loop``. On the card the whole loop, its K2 applies
+inside, is one cooperative launch of the hand-written ``cr_step`` kernel
+(csrc/cr.cu) per solve, and the host reads the loop's state once after it.
+What bounds a trip on the H100 is latency: at m = 20 000 each pass moves
+well under a megabyte, and the grid barriers between the passes take the
+place of the host-issued form's five launches a trip. That form (the host
+issues each trip's passes and two K2 launches and reads the stop flag every
+few trips) stays at the kernel layer, ``kernels.CrStep.solve(...,
+cooperative=False)``, which the solvers never ask for: the card tests and
+chip_smoke.py hold the two bit for bit. The plain version,
+``cr_solve_plain``, is the same loop in PyTorch operations with the scalar
+tests on the host.
 
 Termination, error codes and their priority, and keep-on-stop follow the
 reference exactly: converged > iteration limit > not posdef > precond not
@@ -47,7 +52,6 @@ _ERRFLAG_MAP = {
 }
 
 RECHECK_EVERY = 5   # monotonicity recheck of the preconditioned residual
-POLL = 5            # trips between host reads of the stop flag
 
 
 def cr_solve_plain(nmd: NormalMatrixDevice, W, invd, resscale, rhs,
@@ -100,43 +104,15 @@ def cr_solve_plain(nmd: NormalMatrixDevice, W, invd, resscale, rhs,
                 return lhs, it, _NO_PROGRESS
 
 
-def _cr_solve_cuda(nmd: NormalMatrixDevice, W, invd, resscale, rhs,
-                   tol: float, maxiter: int):
-    """K3 on the card: cr_step passes and K2 launches, host-issued."""
-    At, A = nmd.op_At, nmd.op_A
-    cr = kernels.CrStep(invd, resscale, rhs, kernels.spmv_blocks(A))
-    u = torch.empty(nmd.n, dtype=rhs.dtype, device=rhs.device)
-
-    def C_sres():       # Csres = C sres, partials of sres.Csres into pc
-        kernels.normal_apply(At, A, W, cr.sres, out=cr.csres, u=u,
-                             partials=cr.pc, state=cr.state)
-
-    cr.launch(cr.PRECOND, 0, maxiter, tol)
-    C_sres()
-    cr.launch(cr.INIT, 0, maxiter, tol)
-    k = 0
-    while True:
-        cr.launch(cr.PASS_A, k, maxiter, tol)
-        cr.launch(cr.PASS_B, k, maxiter, tol)
-        C_sres()
-        cr.launch(cr.PASS_C, k, maxiter, tol)
-        if (k + 1) % RECHECK_EVERY == 0:
-            cr.launch(cr.PRECOND, k, maxiter, tol)
-            C_sres()
-            cr.launch(cr.RECHECK, k, maxiter, tol)
-        k += 1
-        # trip `maxiter` always stops, so the loop ends by trip maxiter + 1
-        if (k % POLL == 0 or k > maxiter) and cr.done():
-            return cr.result()
-
-
 def cr_solve(nmd: NormalMatrixDevice, W, invd, resscale, rhs, tol: float,
              maxiter: int):
     """K3: CR on (A W A') y = rhs with preconditioner 1/invd, on the device
-    of `rhs`. Returns (lhs, iterations, loop error code)."""
+    of `rhs`; on the card one cooperative launch. Returns (lhs, iterations,
+    loop error code)."""
     if rhs.device.type == "cpu":
         return cr_solve_plain(nmd, W, invd, resscale, rhs, tol, maxiter)
-    return _cr_solve_cuda(nmd, W, invd, resscale, rhs, tol, maxiter)
+    return kernels.CrStep(nmd.op_At, nmd.op_A, W, invd, resscale,
+                          rhs).solve(maxiter, tol)
 
 
 def _upload(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:

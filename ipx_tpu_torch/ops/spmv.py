@@ -16,8 +16,10 @@ version beside it:
   (a take of the rows of U and a sorted segment_sum) for A, A' and A.^2.
 * K6 ``normal_apply_batched``: C V = A (W_s * (A' V)) + W_slack * V for V of
   shape (m, B) and per-lane weights W of shape (n+m, B), with the column dots
-  V.CV (two launches of K5 with epilogues). Replaces
-  ``NormalMatrixDevice.apply_batched`` / ``normal_apply_batched_tree``.
+  V.CV: one fused launch that never writes W_s * (A' V) where A's columns
+  are short (kernels.NormalBatchedPlan), else two launches of K5 with
+  epilogues. Replaces ``NormalMatrixDevice.apply_batched`` /
+  ``normal_apply_batched_tree``.
 
 All four are memory-bound on the H100: K1 and K2 move about 12-16 bytes of
 index and value per nonzero plus a gather of x that stays in L2, K5 and K6
@@ -64,7 +66,9 @@ class CsrOperand:
     being those with a column in [bounds[p], bounds[p + 1]); the column
     indices of each row must then be sorted, so that a block's entries are
     one segment of the row. Without, P = 1. `slots` is each nonzero's place
-    in the (P, rows) per-segment sums of the plain version."""
+    in the (P, rows) per-segment sums of the plain version. `sq_rows` is
+    the sum of the squared row lengths, which K6's plan reads on A' (the
+    gathers of its fused form)."""
 
     def __init__(self, indptr, indices, data, num_cols: int,
                  device: torch.device, dtype: torch.dtype, bounds=None):
@@ -73,6 +77,7 @@ class CsrOperand:
         self.rows = len(indptr) - 1
         self.cols = int(num_cols)
         self.vec = lanes_per_row(indptr)
+        self.sq_rows = int(np.sum(np.diff(indptr) ** 2))
         self.indptr = torch.from_numpy(indptr).to(device)
         self.indices = torch.from_numpy(indices).to(device)
         self.vals = torch.from_numpy(

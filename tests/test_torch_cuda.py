@@ -192,11 +192,17 @@ def _cr_inputs(dev, dtype, W_sign=1.0, diag_sign=1.0):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cr_solve_matches_plain(dev, dtype):
+    """K3 on the card, one cooperative launch a solve with its K2 applies
+    inside (1 + the trips + a recheck's every 5th, as its state counts
+    them, and no K2 launch of its own), against the plain version."""
     nmd, W, invd, resscale, rhs = _cr_inputs(dev, dtype)
     tol = 1e-10 if dtype == torch.float64 else 1e-4
-    before = kernels.LAUNCHES["cr_step"]
+    before = dict(kernels.LAUNCHES)
+    inside = kernels.INSIDE["normal_apply"]
     y, it, err = device_cr.cr_solve(nmd, W, invd, resscale, rhs, tol, 1000)
-    assert kernels.LAUNCHES["cr_step"] > before
+    assert kernels.LAUNCHES["cr_step"] == before["cr_step"] + 1
+    assert kernels.LAUNCHES["normal_apply"] == before["normal_apply"]
+    assert kernels.INSIDE["normal_apply"] == inside + 1 + it + it // 5
     y_p, it_p, err_p = device_cr.cr_solve_plain(nmd, W, invd, resscale, rhs,
                                                 tol, 1000)
     assert err == err_p == 0
@@ -224,6 +230,65 @@ def test_cr_solve_stop_codes_match_plain(dev, case):
                                     maxiter)
     assert got[1:] == want[1:]
     assert _rel(got[0], want[0]) <= 1e-10 or float(want[0].abs().max()) == 0
+
+
+# the cases of the cooperative K3 against its host-issued form: the stop
+# codes above, a tolerance no trip meets (the loop ends by stagnation or
+# the trip limit), and a solve that converges after more than 5 rechecks
+COOP_CASES = ["iter_limit", "not_posdef", "precond_not_posdef",
+              "converged_first", "unreachable", "converged_f64",
+              "converged_f32"]
+
+
+def _coop_case(case):
+    """Runs K3 in both forms on `case` and asserts them equal bit for bit:
+    lhs, iterations and error code. Run in a subprocess by the test below,
+    so that a grid that deadlocks fails on its time limit."""
+    from ipx_tpu_torch import backend
+    dev = backend.cuda_device()
+    dtype = torch.float32 if case == "converged_f32" else torch.float64
+    kw, tol, maxiter = {}, 1e-14, 1000
+    if case == "iter_limit":
+        maxiter = 7
+    elif case == "not_posdef":
+        kw = dict(W_sign=-1.0, diag_sign=-1.0)
+    elif case == "precond_not_posdef":
+        kw = dict(diag_sign=-1.0)
+    elif case == "unreachable":
+        tol, maxiter = 0.0, 400
+    elif case in ("converged_f64", "converged_f32"):
+        tol = 1e-9 if dtype == torch.float64 else 1e-4
+    nmd, W, invd, resscale, rhs = _cr_inputs(dev, dtype, **kw)
+    if case == "converged_first":
+        rhs = torch.zeros_like(rhs)
+        maxiter = 0
+    got = device_cr.cr_solve(nmd, W, invd, resscale, rhs, tol, maxiter)
+    want = kernels.CrStep(nmd.op_At, nmd.op_A, W, invd, resscale, rhs).solve(
+        maxiter, tol, cooperative=False)
+    torch.cuda.synchronize()
+    assert got[1:] == want[1:], (got[1:], want[1:])
+    assert torch.equal(got[0], want[0])
+    if case == "converged_f64":     # more than 5 rechecks
+        assert got[2] == 0 and got[1] > 6 * 5, got[1:]
+    elif case == "converged_f32":
+        assert got[2] == 0, got[1:]
+    print(case, got[1:])
+
+
+@pytest.mark.parametrize("case", COOP_CASES)
+def test_cr_solve_cooperative_matches_host_issued(dev, case):
+    """K3's cooperative launch against its host-issued passes, bit for bit,
+    in a subprocess with a time limit."""
+    import os
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {here!r}); "
+            f"import test_torch_cuda as t; t._coop_case({case!r})")
+    out = subprocess.run([sys.executable, "-c", code],
+                         cwd=os.path.dirname(here), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
 
 
 def _nnt_operands(dev, P, seed=4, m=500, n=800):
@@ -335,6 +400,40 @@ def test_csr_spmm(dev, dtype, B):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [1, 7, 256])
+def test_csr_spmm_unrolled_matches_one_at_a_time(dev, dtype, B):
+    """K5 with two gathers issued together against its loop of one nonzero
+    at a time, bit for bit, with and without the epilogues (rowscale, addw
+    and addv, the partials), on A (long and empty rows) and A' of a random
+    matrix and on A' of the transportation pattern (2 nonzeros a row, where
+    k5_unroll takes 2)."""
+    A, rng = _matrix(700, 1500, 0.01, seed=8)
+    ops = [spmv.NormalMatrixDevice(A, dev, dtype),
+           _transportation_nmd(dev, dtype)]
+    assert kernels.k5_unroll(ops[1].op_At) == 2
+    assert kernels.k5_unroll(ops[0].op_A) == 1
+    t = lambda x: torch.from_numpy(x).to(dtype).to(dev)  # noqa: E731
+    for op in (ops[0].op_A, ops[0].op_At, ops[1].op_At):
+        U = t(rng.standard_normal((op.cols, B)))
+        rows = t(rng.uniform(0.1, 3.0, (3, op.rows, B)))
+        vw = kernels.spmm_width(B, dtype, U, *rows)
+        got = {}
+        for unroll in (1, 2):
+            Y, Y2 = (torch.full((op.rows, B), 7.0, dtype=dtype, device=dev)
+                     for _ in range(2))
+            p = torch.full((kernels.lane_blocks(op.rows, B // vw), B), 7.0,
+                           dtype=dtype, device=dev)
+            kernels._spmm(op, U, Y, unroll=unroll)
+            kernels._spmm(op, U, Y2, rowscale=rows[0], addw=rows[1],
+                          addv=rows[2], partials=p, unroll=unroll)
+            got[unroll] = (Y, Y2, p)
+        torch.cuda.synchronize()
+        for a, b in zip(got[1], got[2]):
+            assert torch.equal(a, b)
+        assert _rel(got[2][0], spmv.csr_spmm_plain(op, U)) <= RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B", [3, 8])
 def test_normal_apply_batched_is_right_and_repeatable(dev, dtype, B):
     A, rng = _matrix(700, 1500, 0.01, seed=8)
@@ -350,6 +449,83 @@ def test_normal_apply_batched_is_right_and_repeatable(dev, dtype, B):
                      <= RTOL[dtype] * want_dots.double().abs())
     # fixed-order reductions: bit-identical from run to run
     assert torch.equal(out, out2) and torch.equal(dots, dots2)
+
+
+def _transportation_nmd(dev, dtype):
+    """A' and A of a small transportation LP: every column of A has 2
+    nonzeros, the pattern on which K6's plan takes the fused launch."""
+    from ipx_tpu_torch import testgen as tg
+    data = tg.transportation(40, 60, 0.1, seed=5)
+    A = sp.csc_matrix((data["Ax"], data["Ai"], data["Ap"]),
+                      shape=(data["num_constr"], data["num_var"]))
+    return spmv.NormalMatrixDevice(A, dev, dtype)
+
+
+@pytest.mark.parametrize("state", [None, "running", "done"])
+@pytest.mark.parametrize("B", [1, 7, 256])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_normal_apply_batched_fused_matches_two_launches(dev, dtype, B,
+                                                         state):
+    """K6's fused launch against its two K5 launches: out and the partials
+    bit for bit, at B = 1, 7 (no vector loads) and 256, on an operand with
+    long and empty rows (the two-launch pattern of the plan) and on the
+    transportation pattern (the fused one); within RTOL of the plain
+    version; the wrapper takes the plan's form and counts one apply; with a
+    done CR state neither form writes out."""
+    A, rng = _matrix(700, 1500, 0.01, seed=8)
+    for nmd in (spmv.NormalMatrixDevice(A, dev, dtype),
+                _transportation_nmd(dev, dtype)):
+        m, n = nmd.m, nmd.n
+        t = lambda x: torch.from_numpy(x).to(dtype).to(dev)  # noqa: E731
+        W, V = t(rng.uniform(0.1, 3.0, (n + m, B))), t(
+            rng.standard_normal((m, B)))
+        st = None
+        if state is not None:
+            st = torch.zeros(int(kernels.load().ipxt_bcr_state_len(B)),
+                             dtype=dtype, device=dev)
+            st[5] = float(state == "done")          # kDone
+        plan = kernels.normal_plan_of(nmd.op_At, nmd.op_A)
+        outs, parts = {}, {}
+        for fused in (True, False, None):
+            out = torch.full((m, B), 7.0, dtype=dtype, device=dev)
+            p = torch.full(plan.partials_shape(W, V, out), 7.0, dtype=dtype,
+                           device=dev)
+            if fused is None:       # the wrapper, in the plan's form
+                before = kernels.LAUNCHES["normal_apply_batched"]
+                kernels.normal_apply_batched(nmd.op_At, nmd.op_A, W, V,
+                                             out=out, partials=p, state=st)
+                assert kernels.LAUNCHES["normal_apply_batched"] == before + 1
+            else:
+                plan(W, V, out=out, partials=p, state=st, fused=fused)
+            outs[fused], parts[fused] = out, p
+        torch.cuda.synchronize()
+        for form in (False, None):
+            assert torch.equal(outs[True], outs[form])
+            assert torch.equal(parts[True], parts[form])
+        if state == "done":
+            assert bool((outs[True] == 7.0).all())
+            continue
+        want, want_dots = spmv.normal_apply_batched_plain(nmd, W, V)
+        assert _rel(outs[True], want) <= RTOL[dtype]
+        dots = parts[True].double().sum(0)
+        assert torch.all((dots - want_dots.double()).abs()
+                         <= RTOL[dtype] * (V * want).double().abs().sum(0))
+
+
+def test_k6_plan_takes_the_fused_form_by_column_lengths(dev):
+    """On the transportation pattern the plan takes the fused launch and
+    K7's step object allocates no U; on an operand with a dense row (a
+    column length of m in A') the two launches and U."""
+    A, _ = _matrix(700, 1500, 0.01, seed=8)
+    for nmd, fused in ((_transportation_nmd(dev, torch.float32), True),
+                       (spmv.NormalMatrixDevice(A.T.tocsc(), dev,
+                                                torch.float32), False)):
+        m, n = nmd.m, nmd.n
+        assert kernels.normal_plan_of(nmd.op_At, nmd.op_A).fused is fused
+        e = lambda *s: torch.ones(s, dtype=torch.float32, device=dev)  # noqa
+        cr = kernels.BatchedCrStep(nmd.op_At, nmd.op_A, e(n + m, 8), e(m, 8),
+                                   e(m, 8), e(8), e(m, 8))
+        assert (cr.U is None) is fused
 
 
 def _batched_cr_inputs(dev, dtype, B=4):

@@ -1,7 +1,9 @@
-"""The host side of K1's plans (ipx_tpu_torch/kernels.py), on the CPU: the
-layout of the block products' one launch over P row blocks, which must give
-each block the CUDA blocks and partial slots of its own K1 launch, and the
-plans' refusal of CPU tensors before the kernel library is built or loaded.
+"""The host side of the kernels' plans (ipx_tpu_torch/kernels.py), on the
+CPU: the layout of the block products' one launch over P row blocks, which
+must give each block the CUDA blocks and partial slots of its own K1
+launch; the rule by which K6's plan takes its fused launch; and the plans'
+and K3's refusal of CPU tensors before the kernel library is built or
+loaded.
 
 The layout is held exactly against blocks_for(rows, 256 // vec) per block,
 computed here, on the row blocks that ShardedNormalMatrix cuts (the blocks'
@@ -91,6 +93,46 @@ def test_block_layout_of_the_transportation_pattern():
     assert blk_off == [0, 32, 48, 56, 64]
 
 
+def _columns_of(lengths, m, seed):
+    """A CSC matrix with m rows whose column k holds lengths[k] entries."""
+    return sp.csc_matrix(_rows_of(lengths, m, seed).T)
+
+
+def _transportation():
+    from ipx_tpu_torch import testgen as tg
+    data = tg.transportation(30, 45, 0.1, seed=3)
+    return sp.csc_matrix((data["Ax"], data["Ai"], data["Ap"]),
+                         shape=(data["num_constr"], data["num_var"]))
+
+
+# (matrix, whether K6's plan takes the fused launch): the transportation
+# pattern (sum of squared column lengths 2 nnz), columns of 4 (4 nnz, the
+# limit) and of 5, and one dense column among short ones
+K6_CASES = [
+    pytest.param(_transportation, True, id="transportation"),
+    pytest.param(lambda: _columns_of([4] * 50, 30, seed=6), True,
+                 id="columns-of-4"),
+    pytest.param(lambda: _columns_of([5] * 50, 30, seed=7), False,
+                 id="columns-of-5"),
+    pytest.param(lambda: _columns_of([2] * 60 + [200], 200, seed=8), False,
+                 id="one-dense-column"),
+]
+
+
+@pytest.mark.parametrize("make, fused", K6_CASES)
+def test_k6_plan_rule_by_column_lengths(make, fused):
+    """K6's rule (kernels.k6_fused) on A': the fused launch where the sum
+    of A's squared column lengths is at most K6_FUSED_RATIO nnz(A), the two
+    launches otherwise; CsrOperand.sq_rows is that sum."""
+    A = make()
+    nmd = spmv.NormalMatrixDevice(A, CPU)
+    lengths = np.diff(A.indptr)
+    assert nmd.op_At.sq_rows == int(np.sum(lengths ** 2))
+    assert kernels.k6_fused(nmd.op_At) is fused
+    if make is _transportation:
+        assert nmd.op_At.sq_rows == 2 * A.nnz
+
+
 @pytest.fixture
 def no_library(monkeypatch):
     """Fails the test if anything builds or loads the kernel library."""
@@ -130,13 +172,39 @@ def _batched_cr_step():
                           e(3), e(30, 3))
 
 
+def _normal_operands():
+    A = _rows_of([4] * 30, 12, seed=4)
+    nmd = spmv.NormalMatrixDevice(sp.csc_matrix(A), CPU)
+    e = lambda *s: torch.ones(s, dtype=torch.float64)  # noqa: E731
+    return nmd, e
+
+
+def _normal_plan():
+    nmd, _ = _normal_operands()
+    kernels.NormalBatchedPlan(nmd.op_At, nmd.op_A)
+
+
+def _normal_apply_batched():
+    nmd, e = _normal_operands()
+    kernels.normal_apply_batched(nmd.op_At, nmd.op_A, e(42, 3), e(30, 3))
+
+
+def _cr_step():
+    nmd, e = _normal_operands()
+    kernels.CrStep(nmd.op_At, nmd.op_A, e(42), e(30), e(30), e(30))
+
+
 @pytest.mark.parametrize("make", [_spmv_plan, _csr_spmv, _block_plan,
-                                  _batched_cr_step],
+                                  _batched_cr_step, _normal_plan,
+                                  _normal_apply_batched, _cr_step],
                          ids=["SpmvPlan", "csr_spmv", "BlockSpmvPlan",
-                              "BatchedCrStep"])
+                              "BatchedCrStep", "NormalBatchedPlan",
+                              "normal_apply_batched", "CrStep"])
 def test_plans_refuse_cpu_tensors_before_loading(no_library, make):
-    """K1's plans, csr_spmv and K7's step object take CUDA tensors only, and
-    say so before the kernel library is built or loaded."""
+    """K1's plans, csr_spmv, K7's step object, K6's plan and wrapper and
+    K3's step object (its cooperative solve and host-issued passes) take
+    CUDA tensors only, and say so before the kernel library is built or
+    loaded."""
     with pytest.raises(ValueError, match="CUDA tensors"):
         make()
 

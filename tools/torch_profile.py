@@ -18,7 +18,9 @@ with the card's nvidia-smi name and power limit:
 
   e2e      the port (device="cuda") and the host path (device="cpu") in
            turns, `--turns` solves each: wall time, Info's phase times and
-           the iteration counts, with the OpenMP settings in force;
+           the iteration counts, with the OpenMP settings in force, and for
+           "cuda" the launches of K3's cooperative solve (one an inner CR
+           solve), the K2 applies it ran inside and K2's launches alone;
   native   milliseconds per call of the native vector kernels of
            ipx_tpu_torch/native (ipxlu.cc) inside one port solve and one host
            solve, and the 25 functions with the most time of their own and
@@ -44,9 +46,20 @@ with the card's nvidia-smi name and power limit:
   stage    the batched phase 1 of chip_smoke.py phase 6
            (BatchedPhase1Solver(device="cuda"), B = 256, handoff "auto"):
            wall time, device busy share and the ten largest device items,
-           each named by its kernel (K1-K13) where it is one, and K7's
-           passes by name (kStart, kPassCA, kCheck, ...) with their launches
-           and mean device time;
+           each named by its kernel (K1-K13) where it is one (K6's fused
+           launch as "K6 fused"), and K7's passes by name (kStart, kPassCA,
+           kCheck, ...) with their launches and mean device time;
+  k6       K6's two forms (the fused launch and the two K5 launches) in
+           turns, f32 and f64, B = 256, on operands of m = 20 000 rows whose
+           n columns hold L nonzeros each (nnz about 192 000, as the LP's
+           A), L = 2, 3, 4, 5, 6, 8: device and event time of each form, the
+           ratio by which K6's plan chooses (kernels.K6_FUSED_RATIO);
+  k5       K5 with one nonzero at a time and with two gathers issued
+           together (csrc/spmm.cu row_gather) in turns, f32 and f64,
+           B = 256, on A U and A' V of the batched path's LP and on A' V of
+           the k6 part's operands (rows of L nonzeros in A'): device and
+           event time of each, beside the unroll kernels.k5_unroll takes
+           (the evidence for kernels.K5_UNROLL_BELOW);
   scenarios  chip_smoke.py phase 7: the batched phase 1 of its 4
            scenarios alone (BatchedPhase1Solver, device="cuda", handoff
            "auto"; B = 4 lanes, below one warp) with its steps and CR
@@ -98,7 +111,8 @@ from ipx_tpu_torch.sparse import normal_diag  # noqa: E402
 from ipx_tpu_torch.ops import device_cr, device_cr2, spmv  # noqa: E402
 from ipx_tpu_torch.parallel import batch  # noqa: E402
 
-from chip_smoke import k7_passes, scenarios  # noqa: E402
+from chip_smoke import (cuda_ms, device_ms, k7_passes,  # noqa: E402
+                        scenarios)
 
 INSTANCE = (8000, 12000, 0.001, 1)
 OMP_VARS = ("OMP_NUM_THREADS", "OMP_WAIT_POLICY", "OMP_PROC_BIND",
@@ -178,6 +192,7 @@ def part_e2e(data, args, card):
     for _ in range(args.turns):
         for device in ("cuda", "cpu"):
             c0, th0 = os.times(), thread_cpu()
+            kernels.reset_launches()
             s, st, wall = solve(data, device)
             c1, th1 = os.times(), thread_cpu()
             cpu = (c1.user - c0.user) + (c1.system - c0.system)
@@ -193,6 +208,13 @@ def part_e2e(data, args, card):
                   f"process cpu {cpu} | objval {i.objval!r} | "
                   f"{times} | IPM {i.iter} CR {i.kktiter1}+{i.kktiter2} | "
                   f"{card}", flush=True)
+            if device == "cuda":
+                print(f"e2e   launches: K3 cooperative "
+                      f"{kernels.LAUNCHES['cr_step']} (one an inner CR "
+                      f"solve), K2 applies inside it "
+                      f"{kernels.INSIDE['normal_apply']}, K2 alone "
+                      f"{kernels.LAUNCHES['normal_apply']}, K4 "
+                      f"{kernels.LAUNCHES['nnt']} | {card}", flush=True)
 
 
 def part_native(data, args, card):
@@ -262,7 +284,9 @@ def part_threads(data, args, card):
 
 # the port's kernel of each CUDA function of csrc/, by name prefix
 KERNEL_OF = (("csr_spmv", "K1/K2"), ("reduce_sum", "K2"),
-             ("cr_step", "K3"), ("csr_spmm", "K5/K6"), ("lane_sum", "K6"),
+             ("cr_step", "K3 host-issued"), ("cr_solve", "K3 cooperative"),
+             ("csr_spmm", "K5/K6"), ("normal_batched", "K6 fused"),
+             ("lane_sum", "K6"),
              ("bcr_", "K7"), ("step_", "K8"), ("muaff", "K8"),
              ("ipm_update", "K9"), ("prologue_", "K10"), ("mu_", "K10"),
              ("newton_rhs", "K11"), ("normal_rhs", "K11"),
@@ -514,6 +538,92 @@ def part_stage(data, args, card):
               f" | {card}", flush=True)
 
 
+def _columns_of(m, L, nnz, seed):
+    """A CSC matrix of m rows whose nnz // L columns hold L nonzeros each,
+    at L rows m // L apart from a random first one, values uniform in
+    [0.5, 1.5]."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    n = nnz // L
+    rows = (rng.integers(0, m, n)[:, None] + np.arange(L) * (m // L)) % m
+    rows.sort(axis=1)
+    return sp.csc_matrix((rng.uniform(0.5, 1.5, n * L), rows.ravel(),
+                          np.arange(0, n * L + 1, L)), shape=(m, n))
+
+
+def part_k6(data, args, card):
+    """K6's forms against the column length L of A, in turns."""
+    dev = backend.cuda_device()
+    m, B, nnz = 20000, 256, 192004
+    rng = np.random.default_rng(args.seed)
+    for L in (2, 3, 4, 5, 6, 8):
+        A = _columns_of(m, L, nnz, seed=L)
+        for dtype in (torch.float32, torch.float64):
+            nmd = spmv.NormalMatrixDevice(A, dev, dtype)
+            n = nmd.n
+            t = lambda x: torch.from_numpy(x).to(dtype).to(dev)  # noqa
+            W, V = t(10.0 ** rng.uniform(-2, 2, (n + m, B))), t(
+                rng.standard_normal((m, B)))
+            plan = kernels.normal_plan_of(nmd.op_At, nmd.op_A)
+            e = lambda *s: torch.empty(s, dtype=dtype, device=dev)  # noqa
+            out, U = e(m, B), e(n, B)
+            p = e(*plan.partials_shape(W, V, out))
+            forms = {f: (lambda f=f: plan(W, V, out=out, U=U, partials=p,
+                                          fused=f == "fused"))
+                     for f in ("fused", "two-launch")}
+            ev = {f: [] for f in forms}
+            for f in ("fused", "two-launch", "two-launch", "fused"):
+                ev[f].append(cuda_ms(forms[f]))
+            dv = {f: device_ms(forms[f], reps=20) for f in forms}
+            print(f"k6 L={L} {str(dtype)[6:]} m={m} n={n} B={B} sum len^2 / "
+                  f"nnz {nmd.op_At.sq_rows / A.nnz:.2f} (plan: "
+                  f"{'fused' if plan.fused else 'two-launch'}) | " + "; ".join(
+                      f"{f} device {dv[f]:.5f} ms, event "
+                      f"{'/'.join(f'{x:.4f}' for x in ev[f])} ms"
+                      for f in forms)
+                  + f" | fused / two-launch device "
+                  f"{dv['fused'] / dv['two-launch']:.3f} | {card}",
+                  flush=True)
+            del nmd, W, V, out, U, p, forms
+            torch.cuda.empty_cache()
+
+
+def part_k5(data, args, card):
+    """K5 with one nonzero at a time and with two gathers issued together,
+    in turns, on A U and A' V of the batched path's LP and on A' V of
+    operands whose columns hold L nonzeros (rows of L in A')."""
+    dev = backend.cuda_device()
+    A_lp = _batch(data).A
+    m, B, nnz = A_lp.shape[0], 256, 192004
+    rng = np.random.default_rng(args.seed)
+    cases = [("LP", A_lp)] + [(f"L={L}", _columns_of(m, L, nnz, seed=L))
+                              for L in (2, 3, 4, 5, 6, 8)]
+    for label, A in cases:
+        for dtype in (torch.float32, torch.float64):
+            nmd = spmv.NormalMatrixDevice(A, dev, dtype)
+            ops = (("A U", nmd.op_A), ("A'V", nmd.op_At))
+            for opname, op in ops if label == "LP" else ops[1:]:
+                X = torch.from_numpy(rng.standard_normal((op.cols, B))).to(
+                    dtype).to(dev)
+                Y = torch.empty((op.rows, B), dtype=dtype, device=dev)
+                forms = {u: (lambda u=u: kernels._spmm(op, X, Y, unroll=u))
+                         for u in (1, 2)}
+                ev = {u: [] for u in forms}
+                for u in (1, 2, 2, 1):
+                    ev[u].append(cuda_ms(forms[u]))
+                dv = {u: device_ms(forms[u], reps=20) for u in forms}
+                print(f"k5 {label} {opname} {str(dtype)[6:]} B={B} mean row "
+                      f"{op.vals.numel() / op.rows:.2f} (k5_unroll "
+                      f"{kernels.k5_unroll(op)}) | " + "; ".join(
+                          f"unroll {u} device {dv[u]:.5f} ms, event "
+                          f"{'/'.join(f'{x:.4f}' for x in ev[u])} ms"
+                          for u in forms)
+                      + f" | 2 / 1 device {dv[2] / dv[1]:.3f} | {card}",
+                      flush=True)
+            del nmd
+            torch.cuda.empty_cache()
+
+
 def top_items(part, prof, wall, card, k=10):
     """The device busy share of a profiled window and its k largest
     device items."""
@@ -689,7 +799,9 @@ PARTS = {"e2e": part_e2e, "native": part_native, "threads": part_threads,
          "precision": part_precision,
          "kernels": part_kernels,
          "busy": part_busy, "batched": part_batched, "stage": part_stage,
-         "scenarios": part_scenarios, "polish": part_polish, "sharded": part_sharded, "entry": part_entry}
+         "scenarios": part_scenarios, "polish": part_polish,
+         "sharded": part_sharded, "entry": part_entry, "k6": part_k6,
+         "k5": part_k5}
 
 
 def main():
