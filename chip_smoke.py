@@ -70,11 +70,19 @@ only: no jax, and no module of ipx_tpu.
      bit for bit, and one vector apply both ways, in turns, in event and
      device time; K14-K16 against their
      plain versions at the phase-2 LP (B = 256 for K16), trip by trip;
-     LpSolver(shards=4) with device "cuda" and "auto" on the phase-4 LP
-     (row blocks in phase 1, column blocks in phase 2, on the card), each
-     with the counters set to 0 just before, against the host path's
-     objval, and K1's launches there equal to its vector applies;
-     sharded_batched_cr_solve at B = 256;
+     K15's cooperative launch and its host-issued passes on 20 trips, and
+     K16's fused apply and its three-stage form (2P + 1 launches), alone
+     and in 10-trip solves, each pair bit for bit and timed in turns in
+     event and device time; LpSolver(shards=4) with device "cuda" and
+     "auto" on the phase-4 LP (row blocks in phase 1, column blocks in
+     phase 2, on the card), each with the counters set to 0 just before,
+     against the host path's objval, with K15's launches there equal to
+     the sharded CR solves, K14v and K1 launched no time, their applies
+     inside K15 one each a solve and a trip; "cuda" again with K15's
+     host-issued form, which must take the same phase-1 CR iterations;
+     sharded_batched_cr_solve at B = 256 with K16's fused apply (no K5 or
+     K14 launch, K14's sum inside each apply), and again with the
+     three-stage apply, the same trips and Y bit for bit;
  10. the level-scheduled triangular solves of tools/torch_trisolve_proto.py
      (ops/trisolve.py) on L and U of splu of the final basis of phase 4's
      host solve: full solves (the L sweep, then the U sweep) through K17
@@ -86,11 +94,15 @@ only: no jax, and no module of ipx_tpu.
      with the card hidden (CUDA_VISIBLE_DEVICES=""), where ipx_solve
      returns 1004 and raises nothing.
 
-K1 takes its launches from phase 9's block products, one launch a vector
-apply: in phase 4 every N N' apply is one K4 launch, and nothing else there
-launches K1. K2 is launched in phase 4 no time: its entry's
-`applies_inside_cr_step` counts the applies that ran inside K3's
-cooperative launches there, as the kernel counts them. It stops
+K2 is launched in phase 4 no time: its entry's `applies_inside_cr_step`
+counts the applies that ran inside K3's cooperative launches there, as the
+kernel counts them. Likewise K1 and K14v are launched no time on the
+sharded solve of phase 9 (in phase 4 every N N' apply is one K4 launch,
+and nothing else there launches K1): their entries'
+`applies_inside_sharded_cr_step` count the applies that ran inside K15's
+launches; and K14 none on the batched solve of phase 9, whose entry's
+`applies_inside_sharded_batched_cr_step` counts the sums inside K16's
+fused applies. It stops
 with a non-zero exit at the first failure. The line before the
 last is a JSON object with one entry per kernel: its launches on its main
 path (phase 4 for K2-K4, phase 7 for K5-K13, the "cuda" solve of phase 9
@@ -270,6 +282,46 @@ def k3_forms(card, solver, rhs, tol, mixed):
                       for k, v in times.items())
           + "; device ms " + "; ".join(f"{k} {v:.4f}" for k, v in dev.items())
           + f" | {card}", flush=True)
+
+
+def batch_ms(fn, reps):
+    """Milliseconds a call of fn() over `reps` calls issued back to back
+    between two CUDA events: the device's time where the card, not the
+    host, sets the pace."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def forms_in_turns(forms, order, reps=REPS):
+    """Two forms of one computation timed in turns (a, b, b, a): event
+    milliseconds of each turn by form, one call between two events; device
+    milliseconds (torch.profiler) and back-to-back milliseconds (batch_ms)
+    of each turn by form."""
+    a, b = order
+    ev, dv, bb = ({k: [] for k in order} for _ in range(3))
+    for k in (a, b, b, a):
+        ev[k].append(cuda_ms(forms[k], reps=reps, warm=1))
+    for k in (a, b, b, a):
+        dv[k].append(device_ms(forms[k], reps=reps))
+        bb[k].append(batch_ms(forms[k], reps))
+    return ev, dv, bb
+
+
+def turns_line(ev, dv, bb):
+    def each(d, fmt):
+        return "; ".join(f"{k} {'/'.join(fmt.format(x) for x in v)}"
+                         for k, v in d.items())
+    return (f"event ms in turns {each(ev, '{:.4f}')}; device ms "
+            f"{each(dv, '{:.5f}')}; back-to-back ms {each(bb, '{:.4f}')}")
 
 
 def main():
@@ -612,6 +664,13 @@ def main():
                                            host_objval, dev)
     rows.update(sharded_rows)
     path_launches.update({k: launches[k] for k in SHARDED + ("csr_spmv",)})
+    # K14v's and K1's applies run inside K15's launches on the sharded
+    # solve, and K14's sums inside K16's fused applies on the batched one
+    inside = launches["inside"]
+    for name in ("block_spmv_sum", "csr_spmv"):
+        rows[name]["applies_inside_sharded_cr_step"] = inside[name]
+    rows["block_sum"]["applies_inside_sharded_batched_cr_step"] = \
+        inside["block_sum"]
     print(f"phase 9 took {time.perf_counter() - t_sharded:.1f} s; the "
           f"script {time.perf_counter() - T_START:.1f} s", flush=True)
 
@@ -1770,8 +1829,9 @@ def sharded_phase(card, data, md, N2, host_objval, dev):
         del parts, scale, got, want
     torch.cuda.empty_cache()
 
-    # K15: five trips against the plain version, trip by trip, then a
-    # fixed number of trips timed
+    # K15: five trips against the plain version, trip by trip, then its
+    # cooperative launch and its host-issued passes on a fixed number of
+    # trips, bit for bit, in turns
     W = 10.0 ** rng.uniform(-2, 2, n + m)
     A2 = A.copy()
     A2.data **= 2
@@ -1789,28 +1849,88 @@ def sharded_phase(card, data, md, N2, host_objval, dev):
               f"K15 trip {trips}: {it}/{err} against plain {it_p}/{err_p}")
         worst = max(worst, rel_err(y, y_p))
     timed = 20
-    y, it, _, _ = sharding.sharded_cr(snm, Ws, Wl, invd, rs, rhs, 0.0, timed)
+    k15 = {"cooperative": lambda: sharding.sharded_cr(
+        snm, Ws, Wl, invd, rs, rhs, 0.0, timed),
+        "host-issued": lambda: kernels.ShardedCrStep(
+            snm.op_At_split, snm.op_A, Ws, Wl, invd, rs, rhs, True).solve(
+            timed, 0.0, cooperative=False)}
+    got = {k: f() for k, f in k15.items()}
     y_p, _, _, _ = sharding.sharded_cr_plain(snm, Ws, Wl, invd, rs, rhs, 0.0,
                                              timed)
     torch.cuda.synchronize()
-    ms = cuda_ms(lambda: sharding.sharded_cr(snm, Ws, Wl, invd, rs, rhs, 0.0,
-                                             timed), reps=5, warm=1)
+    (y, it, err, res), (y_h, it_h, err_h, res_h) = (got["cooperative"],
+                                                    got["host-issued"])
+    check(it == timed and (it, err, res) == (it_h, err_h, res_h)
+          and torch.equal(y, y_h),
+          f"K15: the cooperative form ({it} trips, error {err}) differs from "
+          f"the host-issued one ({it_h}, {err_h})")
+    ev, dv, bb = forms_in_turns(k15, ("cooperative", "host-issued"), reps=5)
+    ms = statistics.median(ev["cooperative"])
     pms = cuda_ms(lambda: sharding.sharded_cr_plain(
         snm, Ws, Wl, invd, rs, rhs, 0.0, timed), reps=5, warm=1)
     report("K15 sharded_cr_step", f"trips 1-5 and {timed}, f64",
            max(worst, rel_err(y, y_p)), 1e-12, ms, pms)
+    print(f"  {'':26s} {it} trips, both forms bit for bit; "
+          + turns_line(ev, dv, bb) + f" | {card}", flush=True)
     rows["sharded_cr_step"] = dict(
-        case=f"ShardedDiagCR recurrence, P={P}, {timed} trips, f64",
-        max_abs_err=max_abs(y, y_p), ms=ms, plain_ms=pms, library_ms=None,
+        case=f"ShardedDiagCR recurrence, P={P}, {timed} trips, f64, one "
+             f"cooperative launch",
+        max_abs_err=max_abs(y, y_p), ms=ms,
+        back_to_back_ms=statistics.median(bb["cooperative"]),
+        host_issued_ms=statistics.median(ev["host-issued"]),
+        host_issued_back_to_back_ms=statistics.median(bb["host-issued"]),
+        plain_ms=pms,
+        library_ms=None,
         **bound(ops_k15 + 8 * (n + 5 * m), timed * (4 * A.nnz + n + 20 * m),
                 "f64"))
+    del got, k15
 
-    # K16: five trips against the plain version, then a fixed number timed
+    # K16's apply: the fused launch against the three-stage form's 2P + 1
+    # launches, out and partials bit for bit, in turns
     Wb = t(rng.uniform(0.5, 2.0, (n + m, B)))
     diag_b = A2 @ Wb[:n].cpu().numpy() + Wb[n:].cpu().numpy()
     Wbs, Wbl, invd_b = Wb[:n].contiguous(), Wb[n:].contiguous(), t(
         1.0 / diag_b)
+    del Wb
     R = t(rng.standard_normal((m, B)))
+    plan = kernels.block_plan_of(snm.op_At_split, snm.op_At, snm.op_A)
+    check(plan.fused, "K16's plan did not take the fused apply on the "
+          "transportation LP")
+    e = lambda *s: torch.empty(s, dtype=f64, device=dev)  # noqa: E731
+    npc = sum(plan.partials_rows(B, plan.width(Wbs, Wbl, R, R)))
+    outs = {f: e(m, B) for f in (True, False)}
+    pcs = {f: e(npc, B) for f in (True, False)}
+    parts, U = e(P, n, B), e(n, B)
+    apply = {"fused": lambda: plan(Wbs, Wbl, R, out=outs[True],
+                                   partials=pcs[True], fused=True),
+             "three-stage": lambda: plan(Wbs, Wbl, R, out=outs[False],
+                                         partials=pcs[False], parts=parts,
+                                         U=U, fused=False)}
+    for f in apply.values():
+        f()
+    want = sharding._block_apply_plain(snm, Wbs, Wbl, R, spmv.csr_spmm_plain)
+    torch.cuda.synchronize()
+    check(torch.equal(outs[True], outs[False])
+          and torch.equal(pcs[True], pcs[False]),
+          "K16: the fused apply differs from the three-stage one")
+    a_err = rel_err(outs[True], want)
+    a_ev, a_dv, a_bb = forms_in_turns(apply, ("fused", "three-stage"))
+    a_pms = cuda_ms(lambda: sharding._block_apply_plain(
+        snm, Wbs, Wbl, R, spmv.csr_spmm_plain), reps=5, warm=1)
+    a_bound = bound(ops_k15 + nbytes(R, Wbs, Wbl, outs[True], pcs[True]),
+                    2 * B * (int(snm.op_At_split.sq_rows) + A.nnz)
+                    + 3 * m * B, "f64")
+    report("K16 apply", f"C V over P={P} blocks, B={B} f64",
+           a_err, 1e-12, statistics.median(a_ev["fused"]), a_pms)
+    print(f"  {'':26s} fused and three-stage bit for bit (out, partials); "
+          + turns_line(a_ev, a_dv, a_bb)
+          + f"; bound {a_bound['bound_ms']:.4f} ms "
+          f"({a_bound['bound_by']}) | {card}", flush=True)
+    del parts, U, outs, pcs, want, apply
+    torch.cuda.empty_cache()
+
+    # K16: five trips against the plain version, then a fixed number of
+    # trips in both forms of its apply, bit for bit, in turns
     worst = 0.0
     for trips in range(1, 6):
         Y, it = sharding.sharded_batched_cr(snm, Wbs, Wbl, invd_b, R, 0.0,
@@ -1821,64 +1941,123 @@ def sharded_phase(card, data, md, N2, host_objval, dev):
         worst = max(worst, rel_err(Y, Y_p))
     del Y_p
     timed = 10
-    Y, _ = sharding.sharded_batched_cr(snm, Wbs, Wbl, invd_b, R, 0.0, timed)
+
+    def k16(fused):
+        return kernels.ShardedBatchedCrStep(
+            snm.op_At_split, snm.op_At, snm.op_A, Wbs, Wbl, invd_b, R,
+            fused=fused).solve(timed, 0.0)
+    k16_forms = {"fused": lambda: k16(True),
+                 "three-stage": lambda: k16(False)}
+    (Y, it), (Y_3, it_3) = k16(True), k16(False)
+    Y, Y_3 = Y.clone(), Y_3.clone()
     Y_p, _ = sharding.sharded_batched_cr_plain(snm, Wbs, Wbl, invd_b, R, 0.0,
                                                timed)
     torch.cuda.synchronize()
-    ms = cuda_ms(lambda: sharding.sharded_batched_cr(
-        snm, Wbs, Wbl, invd_b, R, 0.0, timed), reps=3, warm=1)
+    check(it == it_3 == timed and torch.equal(Y, Y_3),
+          "K16: the solve with the fused apply differs from the three-stage "
+          "one")
+    ev, dv, bb = forms_in_turns(k16_forms, ("fused", "three-stage"), reps=3)
+    ms = statistics.median(ev["fused"])
     pms = cuda_ms(lambda: sharding.sharded_batched_cr_plain(
         snm, Wbs, Wbl, invd_b, R, 0.0, timed), reps=3, warm=1)
     report("K16 sharded_batched_cr", f"trips 1-5 and {timed}, f64, B={B}",
            max(worst, rel_err(Y, Y_p)), 1e-12, ms, pms)
+    print(f"  {'':26s} {timed} trips, the fused and three-stage applies bit "
+          f"for bit; " + turns_line(ev, dv, bb) + f" | {card}", flush=True)
     rows["sharded_batched_cr_step"] = dict(
-        case=f"batched recurrence, P={P}, B={B}, {timed} trips, f64",
-        max_abs_err=max_abs(Y, Y_p), ms=ms, plain_ms=pms, library_ms=None,
+        case=f"batched recurrence, P={P}, B={B}, {timed} trips, f64, one "
+             f"fused apply a trip",
+        max_abs_err=max_abs(Y, Y_p), ms=ms,
+        back_to_back_ms=statistics.median(bb["fused"]),
+        three_stage_ms=statistics.median(ev["three-stage"]),
+        three_stage_back_to_back_ms=statistics.median(bb["three-stage"]),
+        apply_ms=statistics.median(a_ev["fused"]),
+        apply_back_to_back_ms=statistics.median(a_bb["fused"]),
+        apply_three_stage_back_to_back_ms=statistics.median(
+            a_bb["three-stage"]),
+        apply_bound_ms=a_bound["bound_ms"], plain_ms=pms, library_ms=None,
         **bound(ops_k16 + 8 * (n + 4 * m) * B,
                 timed * (4 * A.nnz + n + 20 * m) * B, "f64"))
-    del Y, Y_p, Wb, Wbs, Wbl, invd_b, R
+    del Y, Y_3, Y_p, Wbs, Wbl, invd_b, R, k16_forms
     torch.cuda.empty_cache()
 
-    # the main path: LpSolver(shards=4), device "cuda" then "auto"
-    for device in ("cuda", "auto"):
-        s = LpSolver(Parameters(display=0, device=device, shards=P))
+    # the main path: LpSolver(shards=4), device "cuda" then "auto", then
+    # "cuda" with K15's host-issued form (a comparison, not counted)
+    host_issued = {}
+    for device in ("cuda", "auto", "host-issued"):
+        s = LpSolver(Parameters(display=0, shards=P, device="cuda"
+                                if device == "host-issued" else device))
         check(tg.load_into_solver(data, s) == 0, "load_model failed")
         torch.cuda.synchronize()
         kernels.reset_launches()
-        t0 = time.perf_counter()
-        st = s.solve()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launched = dict(kernels.LAUNCHES)
-        if device == "cuda":
-            launches.update(launched)
+        solve_k15 = kernels.ShardedCrStep.solve
+        if device == "host-issued":
+            kernels.ShardedCrStep.solve = (
+                lambda self, maxiter, tol, cooperative=True:
+                solve_k15(self, maxiter, tol, cooperative=False))
+        try:
+            t0 = time.perf_counter()
+            st = s.solve()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            kernels.ShardedCrStep.solve = solve_k15
+        launched, inside = dict(kernels.LAUNCHES), dict(kernels.INSIDE)
         i = s.get_info()
         e = abs(i.objval - host_objval) / abs(host_objval)
         cr = s.model._sharded_cr[1]
+        if device == "host-issued":
+            host_issued = dict(kktiter1=i.kktiter1, objval=i.objval,
+                               wall=wall, cr1=i.time_cr1)
+            print(f"  LpSolver(shards={P}, device='cuda') with K15's "
+                  f"host-issued form: status {st}, objval {i.objval!r}, wall "
+                  f"{wall:.3f} s, CR iters {i.kktiter1}+{i.kktiter2}, cr1 "
+                  f"{i.time_cr1:.3f} s, K15 launches "
+                  f"{launched['sharded_cr_step']}, K14v "
+                  f"{launched['block_spmv_sum']}, K1 {launched['csr_spmv']} "
+                  f"| {card}", flush=True)
+            check(st == 1000 and i.kktiter1 == cuda_kkt[0]
+                  and abs(i.objval - cuda_kkt[1]) <= 1e-8 * abs(cuda_kkt[1]),
+                  f"shards={P}: K15's host-issued form took {i.kktiter1} CR "
+                  f"iterations in phase 1 (objval {i.objval!r}) against the "
+                  f"cooperative form's {cuda_kkt[0]} ({cuda_kkt[1]!r})")
+            del s
+            continue
+        if device == "cuda":
+            launches.update(launched)
+            launches["inside"] = inside
+            cuda_kkt = (i.kktiter1, i.objval)
         nnt = getattr(s.model, "_sharded_nnt", None)
         applies = nnt[1].applies if nnt is not None else 0
         print(f"  LpSolver(shards={P}, device={device!r}) on transportation"
               f"(8000, 12000, 0.001, 1): status {st}, objval {i.objval!r} "
               f"(host {host_objval!r}, rel {e:.1e}), wall {wall:.3f} s, IPM "
               f"iters {i.iter}, CR iters {i.kktiter1}+{i.kktiter2}, sharded "
-              f"CR solves {cr.solves} on {cr.device}, sharded N N' applies "
-              f"{applies}; ipm1 {i.time_ipm1:.3f} s, ipm2 {i.time_ipm2:.3f} "
-              f"s, cr1 {i.time_cr1:.3f} s, cr2 {i.time_cr2:.3f} s (NNt "
+              f"CR solves {cr.solves} ({cr.iterations} trips) on "
+              f"{cr.device}, sharded N N' applies {applies}; ipm1 "
+              f"{i.time_ipm1:.3f} s, ipm2 {i.time_ipm2:.3f} s, cr1 "
+              f"{i.time_cr1:.3f} s, cr2 {i.time_cr2:.3f} s (NNt "
               f"{i.time_cr2_NNt:.3f} s); launches "
-              f"{ {k: v for k, v in launched.items() if v} }; {card}",
-              flush=True)
+              f"{ {k: v for k, v in launched.items() if v} }; applies inside "
+              f"K15: K14v {inside['block_spmv_sum']}, K1 "
+              f"{inside['csr_spmv']}; {card}", flush=True)
         check(st == 1000, f"shards={P} {device}: status {st}")
         check(e <= 1e-8, f"shards={P} {device}: objval differs by {e:.1e}")
         check(i.kktiter1 > 0 and cr.solves > 0 and cr.device.type == "cuda",
               f"shards={P} {device}: the sharded CR did not run on the card")
-        for name in ("block_spmv_sum", "csr_spmv", "sharded_cr_step", "nnt"):
-            check(launched[name] > 0, f"shards={P} {device}: {name} was not "
-                  "launched")
+        check(launched["sharded_cr_step"] == cr.solves,
+              f"shards={P} {device}: {launched['sharded_cr_step']} K15 "
+              f"launches for {cr.solves} sharded CR solves, not one each")
+        check(launched["block_spmv_sum"] == launched["csr_spmv"] == 0,
+              f"shards={P} {device}: K14v or K1 was launched on its own")
+        check(inside["block_spmv_sum"] == inside["csr_spmv"]
+              == cr.solves + cr.iterations,
+              f"shards={P} {device}: the applies inside K15 (K14v "
+              f"{inside['block_spmv_sum']}, K1 {inside['csr_spmv']}) are "
+              f"not one each a solve and a trip ({cr.solves} + "
+              f"{cr.iterations})")
         check(launched["block_sum"] == 0, f"shards={P} {device}: K14 ran on "
               "a vector path")
-        check(launched["csr_spmv"] == launched["block_spmv_sum"],
-              f"shards={P} {device}: {launched['csr_spmv']} K1 launches for "
-              f"{launched['block_spmv_sum']} vector applies, not one each")
         check(applies > 0 and nnt[1].device.type == "cuda"
               and launched["nnt"] == applies,
               f"shards={P} {device}: the sharded N N' did not run on the "
@@ -1886,7 +2065,7 @@ def sharded_phase(card, data, md, N2, host_objval, dev):
         del s
 
     # sharded_batched_cr_solve at full width, weights as in
-    # tests/test_sharded.py
+    # tests/test_sharded.py, then the same solve with the three-stage apply
     brng = np.random.default_rng(1)
     W = brng.uniform(0.5, 2.0, size=(n + m, B))
     diag = A2 @ W[:n] + W[n:]
@@ -1898,23 +2077,47 @@ def sharded_phase(card, data, md, N2, host_objval, dev):
                                                  RHS, 1e-10, 2000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    batched = dict(kernels.LAUNCHES)
+    k14_inside = kernels.INSIDE["block_sum"]
     for name in ("sharded_batched_cr_step", "block_sum"):
-        launches[name] = kernels.LAUNCHES[name]
-    Wt, Yt = t(W), t(Y)
-    res = (t(RHS) - snm.apply(Wt[:n].contiguous(), Wt[n:].contiguous(), Yt)
-           ).abs().amax(0).cpu().numpy()
-    worst = float(np.max(res / np.abs(RHS).max(axis=0)))
+        launches[name] = batched[name]
+    launches["inside"]["block_sum"] = k14_inside
+    Wt = t(W)
+    Y3, iters3 = kernels.ShardedBatchedCrStep(
+        snm.op_At_split, snm.op_At, snm.op_A, Wt[:n].contiguous(),
+        Wt[n:].contiguous(), t(1.0 / diag), t(RHS), fused=False).solve(
+        2000, 1e-10)
+    Y3 = Y3.cpu().numpy()
+    torch.cuda.synchronize()
+    Yt = t(Y)
+
+    def worst_of(Yt):
+        res = (t(RHS) - snm.apply(Wt[:n].contiguous(), Wt[n:].contiguous(),
+                                  Yt)).abs().amax(0).cpu().numpy()
+        return float(np.max(res / np.abs(RHS).max(axis=0)))
+    worst, worst3 = worst_of(Yt), worst_of(t(Y3))
     print(f"  sharded_batched_cr_solve P={P} B={B}: {iters} trips, wall "
-          f"{wall:.3f} s, worst lane residual / max|rhs| {worst:.2e} (tol "
-          f"1e-9); launches "
-          f"{ {k: v for k, v in kernels.LAUNCHES.items() if v} }; {card}",
-          flush=True)
+          f"{wall:.3f} s, worst lane residual / max|rhs| {worst!r} (tol "
+          f"1e-9); with the three-stage apply {iters3} trips, "
+          f"{worst3!r}; launches "
+          f"{ {k: v for k, v in batched.items() if v} }, K14 sums inside "
+          f"K16's fused applies {k14_inside}; {card}", flush=True)
     check(worst <= 1e-9, f"sharded batched CR: residual {worst:.2e}")
-    check(launches["sharded_batched_cr_step"] > 0
-          and launches["block_sum"] > 0, "K16 or K14 was not launched")
+    check(iters == iters3 and np.array_equal(Y, Y3),
+          "sharded batched CR: the fused apply's solve differs from the "
+          "three-stage one's")
+    check(batched["sharded_batched_cr_step"] > 0
+          and batched["block_sum"] == batched["csr_spmm"] == 0
+          and k14_inside == 1 + iters,
+          "sharded batched CR: the applies were not K16's fused launches, "
+          "K14's sum inside each")
     bad = sorted(k for k in sys.modules
                  if k.split(".")[0] in ("ipx_tpu", "jax", "jaxlib"))
     check(not bad, f"modules of ipx_tpu or jax were imported: {bad[:5]}")
+    rows["sharded_batched_cr_step"].update(full_solve_trips=iters,
+                                           full_solve_worst=worst)
+    rows["sharded_cr_step"].update(
+        host_issued_kktiter1=host_issued["kktiter1"])
     return rows, launches
 
 

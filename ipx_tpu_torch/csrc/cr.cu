@@ -247,19 +247,10 @@ __global__ void __launch_bounds__(kThreads) cr_step_kernel(int phase,
 }
 
 // -- the cooperative form: a whole solve in one launch ----------------------
-// one CSR operand of K2, summed at its own lanes per row (op.vec)
-struct Rows {
-  int64_t rows;
-  const int64_t* indptr;
-  const int32_t* indices;
-  const void* vals;
-  int vec;
-};
-
 template <typename T>
 struct SolveArgs {
   CrArgs<T> cr;
-  Rows at, a;          // A' (n rows) and A (m rows)
+  Rows at, a;          // A' (n rows) and A (m rows), K2's: at op.vec
   const T* w_struct;   // W[:n]
   const T* w_slack;    // W[n:]
   T* u;                // K2's (n,) scratch
@@ -417,17 +408,6 @@ int cr_step(int phase, int64_t m, int64_t k, int64_t maxiter, double tol,
   cr_step_kernel<T><<<(unsigned)grid, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(phase, a);
   return (int)cudaGetLastError();
-}
-
-Rows make_rows(int64_t rows, const void* indptr, const void* indices,
-               const void* vals, int vec) {
-  Rows r;
-  r.rows = rows;
-  r.indptr = static_cast<const int64_t*>(indptr);
-  r.indices = static_cast<const int32_t*>(indices);
-  r.vals = vals;
-  r.vec = vec;
-  return r;
 }
 
 template <typename T>

@@ -10,15 +10,11 @@
 // them; on one card the join needs neither a parts array nor a pass of its
 // own.
 //
-// The split layout (ops/spmv.py CsrOperand with bounds): one CSR operand of
-// the whole matrix and P - 1 column bounds c_1 <= ... <= c_{P-1} (c_0 = 0,
-// c_P = cols). The entries of row i with column in [c_p, c_{p+1}) are block
-// p's; the column indices of a row are sorted, so they form one segment.
-// Each entry finds its block by comparing its column with the bounds, which
-// sit in registers (P <= kMaxSplit), and adds into that block's register
-// sum; each block's sum is then a fixed shuffle tree over the row's lanes,
-// and the row's value is ((s_0 + s_1) + s_2) + ... + s_{P-1}, in block
-// order, times the row's scale:
+// The split layout (ops/spmv.py CsrOperand with bounds, split_rows in
+// spmv_block.cuh): one CSR operand of the whole matrix, each row's entries
+// cut at P - 1 column bounds into the blocks' segments, each block's segment
+// summed by its own lane tree, the blocks' sums added in block order, times
+// the row's scale:
 //
 //   K4   z = sum_p N_p (N_p' w): first u = N' w over the rows of N' (the
 //        column blocks' u_p lie end to end, so this half needs no sum over
@@ -31,6 +27,9 @@
 //        with the row blocks' bounds and x = v: the P K1 launches into a
 //        (P, n) parts array and K14's pass over it become one launch that
 //        writes u alone. It honours a CR loop's done flag as K14 does.
+//        On the solver's path split_rows runs inside K15's cooperative
+//        solve (sharded.cu); this launch serves K15's host-issued
+//        comparison form, the tests and chip_smoke.py.
 //
 // What bounds them on the H100: memory, as K1. Per nonzero a 4-byte index,
 // an 8-byte value and a gather of x that stays in L2; per row the row
@@ -52,97 +51,12 @@
 
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "spmv_block.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace ipxt {
 namespace {
-
-// the P - 1 interior bounds of a split, by value in the kernel's arguments
-struct Split {
-  int64_t bound[kMaxSplit - 1];
-  int P;
-};
-
-// one CSR operand; vec lanes (a power of two in [2, 32]) sum a row
-struct Rows {
-  int64_t rows;
-  const int64_t* indptr;
-  const int32_t* indices;
-  const double* vals;
-  int vec;
-};
-
-// y[i] = scale[i] * (split sum of row i of op times x), rows walked
-// grid-stride. kReadOnly: x is not written during the kernel, so its gathers
-// may take the read-only cache; the cooperative kernel reads u, which its
-// first half wrote, with plain loads.
-template <int VEC, bool kReadOnly>
-__device__ __forceinline__ void split_rows(const Rows& op, const Split& s,
-                                           const double* x,
-                                           const double* scale, double* y) {
-  constexpr int kRowsPerBlock = kThreads / VEC;
-  const int lane = threadIdx.x % VEC;
-  const int64_t stride = (int64_t)gridDim.x * kRowsPerBlock;
-  // the first row of this thread's warp: the loop's test is the warp's, so
-  // every lane of a warp runs the shuffles together, rows past the end with
-  // zero sums
-  const int64_t warp_row = (int64_t)blockIdx.x * kRowsPerBlock +
-                           (threadIdx.x / 32) * (32 / VEC);
-  const int group = (threadIdx.x % 32) / VEC;
-  for (int64_t base = warp_row; base < op.rows; base += stride) {
-    const int64_t row = base + group;
-    double acc[kMaxSplit];
-#pragma unroll
-    for (int q = 0; q < kMaxSplit; ++q) acc[q] = 0.0;
-    if (row < op.rows) {
-      const int64_t end = op.indptr[row + 1];
-      for (int64_t k = op.indptr[row] + lane; k < end; k += VEC) {
-        const int32_t c = op.indices[k];
-        const double t = op.vals[k] * (kReadOnly ? __ldg(x + c) : x[c]);
-        int p = 0;
-#pragma unroll
-        for (int q = 0; q < kMaxSplit - 1; ++q)
-          p += (q < s.P - 1 && c >= s.bound[q]) ? 1 : 0;
-#pragma unroll
-        for (int q = 0; q < kMaxSplit; ++q)
-          if (q == p) acc[q] += t;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kMaxSplit; ++q) {
-      if (q < s.P) {  // the same for every thread
-#pragma unroll
-        for (int off = VEC / 2; off > 0; off >>= 1)
-          acc[q] += __shfl_down_sync(0xffffffffu, acc[q], off, VEC);
-      }
-    }
-    if (lane == 0 && row < op.rows) {
-      double total = acc[0];
-#pragma unroll
-      for (int q = 1; q < kMaxSplit; ++q)
-        if (q < s.P) total += acc[q];
-      if (scale != nullptr) total *= scale[row];
-      y[row] = total;
-    }
-  }
-}
-
-template <bool kReadOnly>
-__device__ __forceinline__ void split_rows_any(const Rows& op,
-                                               const Split& s,
-                                               const double* x,
-                                               const double* scale,
-                                               double* y) {
-  switch (op.vec) {
-    case 2: split_rows<2, kReadOnly>(op, s, x, scale, y); break;
-    case 4: split_rows<4, kReadOnly>(op, s, x, scale, y); break;
-    case 8: split_rows<8, kReadOnly>(op, s, x, scale, y); break;
-    case 16: split_rows<16, kReadOnly>(op, s, x, scale, y); break;
-    default: split_rows<32, kReadOnly>(op, s, x, scale, y); break;
-  }
-}
 
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -185,30 +99,6 @@ int launch_split(const Rows& op, const Split& s, const double* x,
     default: split_kernel<32><<<g, kThreads, 0, stream>>>(op, s, x, scale, y, state); break;
   }
   return (int)cudaGetLastError();
-}
-
-// Fills s from P and the P - 1 host bounds; false when they are not a
-// split this file takes.
-bool make_split(int P, const int64_t* bounds, Split* s) {
-  if (P < 1 || P > kMaxSplit) return false;
-  *s = Split{};
-  s->P = P;
-  for (int q = 0; q + 1 < P; ++q) {
-    s->bound[q] = bounds[q];
-    if (q > 0 && bounds[q] < bounds[q - 1]) return false;
-  }
-  return true;
-}
-
-Rows make_rows(int64_t rows, const void* indptr, const void* indices,
-               const void* vals, int vec) {
-  Rows r;
-  r.rows = rows;
-  r.indptr = static_cast<const int64_t*>(indptr);
-  r.indices = static_cast<const int32_t*>(indices);
-  r.vals = static_cast<const double*>(vals);
-  r.vec = vec;
-  return r;
 }
 
 }  // namespace

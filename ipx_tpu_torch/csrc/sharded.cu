@@ -15,29 +15,58 @@
 //                   psum of A_p' v_p (scaled by W_struct), of A_p' V_p, and
 //                   of N_p (N_p' w). Replaces the psum of
 //                   sharding.py:122-136, 162-175 and 560-569.
-//   K15 sharded_cr_step  the passes of one ShardedDiagCR or
-//                   sharded_cr_solve loop (sharding.py:221-273, 348-385):
-//                   the host issues them, the loop's scalars stay on the
-//                   card, every dot is the ordered sum over the blocks of
-//                   the block's partials, and the residual norm is the max
-//                   over all of them (the pmax).
+//   K15 sharded_cr_step  one ShardedDiagCR or sharded_cr_solve loop
+//                   (sharding.py:221-273, 348-385) in one cooperative launch
+//                   (scr_solve_kernel), as K3's CR (cr.cu): the trips run in
+//                   the kernel, each trip's normal apply inside it (K14v's
+//                   split sum, split_rows, then the block products, K1's row
+//                   body at each block's own lanes a row, block_rows; both
+//                   spmv_block.cuh), with grid-wide barriers after kSPassA,
+//                   kSPassB and each half of the apply, four a trip. Every
+//                   dot is the ordered sum over the blocks of the block's
+//                   partials, and the residual norm is the max over all of
+//                   them (the pmax).
 //   K16 sharded_batched_cr_step  the passes of sharded_batched_cr_solve
 //                   (sharding.py:429-475): the lane-masked CR over (m, B)
 //                   arrays, B contiguous. Its lane reductions run across
 //                   blocks as K10's do (common.cuh): a reducing pass writes
 //                   per-block, per-lane partials and a finishing launch
 //                   gives every lane one warp. K7's one-thread-per-lane
-//                   pass is not copied.
+//                   pass is not copied. Its normal apply is one fused launch
+//                   a trip (block_normal_kernel) where the columns of A are
+//                   short (kernels.BlockNormalBatchedPlan), as K6's (spmm.cu):
+//                   each row block on its own K5 grid, each column's P
+//                   first-pass products and K14's sum of them recomputed per
+//                   nonzero, so the (P, n, B) parts and the (n, B) U are
+//                   never written; elsewhere the three-stage form, P K5
+//                   launches on the A_p', K14, P K5 launches on the A_p.
 //
-// What bounds them on the H100: memory and launch latency. K14 reads P + 1
-// arrays and writes one, one add per value read. K15's passes stream two to
-// six m-vectors for a few flops per entry; at m = 20 000 a pass moves well
-// under a megabyte, so launch latency sets a trip's time, as for K3. K16's
-// elementwise passes stream 4-9 (m, B) arrays, 41 MB each at m = 20 000,
-// B = 256 in f64, and are memory bound; its lane passes read the partials
-// once. What the designs do about it: K15 fuses a trip's vector work into
-// three passes as K3 does, K16 folds the D / CD update of a trip into the
-// reducing pass of the next, and K14 is one pass over the parts.
+// Stopping, in K15's one launch. Every block derives each stop decision (the
+// loop test, the iteration limit, the ladder of ShardedDiagCR) from the same
+// partials summed in the same order and from scalars it holds itself (k,
+// cdot, the error code of the trip before), so all blocks leave on the same
+// trip; only block 0 writes the state, which the host reads once. A grid
+// is what fits on the card (coop_capacity); each physical block walks the
+// virtual blocks of a pass grid-stride and a virtual block writes the
+// partial slot that the separate launch writes, so every sum keeps its
+// order. An element falls to the same thread in every elementwise pass, so
+// kSPassC needs no barrier before the next kSPassA. The host-issued form
+// (scr_step_kernel, one pass a launch, the apply as a K14v and a K1 launch)
+// stays for comparison only; both run the same pass bodies and row bodies
+// and agree bit for bit.
+//
+// What bounds them on the H100. K14 reads P + 1 arrays and writes one, one
+// add per value read: memory. K15's passes stream two to six m-vectors for
+// a few flops per entry, and its apply reads A' and the A_p, about 6 MB at
+// m = 20 000: a few microseconds of bytes a trip, so the four grid barriers
+// and the loads' latency set its time, as for K3; the host-issued form paid
+// five launches and ctypes calls a trip instead. K16's elementwise passes stream
+// 4-9 (m, B) arrays, 41 MB each at m = 20 000, B = 256 in f64, and are
+// memory bound, its lane passes read the partials once, and its fused apply
+// is bound as K6's: the chain of dependent index loads before each gather
+// of a row of V. A trip is about a millisecond of device time against
+// about a dozen launches, so K16's loop stays host-issued. K14 is one pass
+// over the parts.
 //
 // Blocks of rows. Row block p holds rows [row_off[p], row_off[p + 1]), and
 // the CUDA blocks of a pass are laid out block by block (blk_off), so no
@@ -48,7 +77,12 @@
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError().
 
-#include "common.cuh"
+#include <cooperative_groups.h>
+
+#include "spmm_row.cuh"
+#include "spmv_block.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace ipxt {
 namespace {
@@ -66,9 +100,11 @@ __device__ __forceinline__ int64_t block_of(const int64_t* __restrict__ off,
 // The ordered sum over the row blocks of the block sums of their partials:
 // ((s_0 + s_1) + s_2) + ..., s_p the fixed-order sum of part[off[p] ..
 // off[p + 1]). Every block of a pass derives the same value.
+// part is not __restrict__: K15's cooperative solve reads partials that
+// other blocks wrote earlier in the same launch.
 template <typename T>
-__device__ T blocks_sum(const T* __restrict__ part,
-                        const int64_t* __restrict__ off, int64_t P, T* red) {
+__device__ T blocks_sum(const T* part, const int64_t* __restrict__ off,
+                        int64_t P, T* red) {
   T total = T(0);
   for (int64_t p = 0; p < P; ++p) {
     const T s = sum_partials(part + off[p], off[p + 1] - off[p], red);
@@ -100,14 +136,15 @@ enum ScrPhase { kSInit = 0, kSStart = 1, kSPassA = 2, kSPassB = 3,
                 kSPassC = 4 };
 
 // slots of the state beyond common.cuh's: the error code of the running
-// trip (kErr holds that of the trip before), and the residual norm the
+// trip in the host-issued form (kErr holds that of the trip before; K15 has
+// no recheck, so it takes the slot of K3's rpn), and the residual norm the
 // loop stopped at
-enum ScrSlot { kErrTrip = 6, kResnorm = 7 };
+enum ScrSlot { kErrTrip = kRpn, kResnorm = 7 };
 
 template <typename T>
 struct ScrArgs {
   int64_t m, P;
-  int64_t k;          // the host's trip count; equals `it` while it runs
+  int64_t k;          // the host's trip count (host-issued form only)
   int64_t maxiter;
   T tol;
   int ladder;         // ShardedDiagCR: scaled norm and the error ladder
@@ -119,15 +156,140 @@ struct ScrArgs {
   T* y;
   T* r;
   T* s;
-  const T* cs;        // C s, written by the block products
+  T* cs;              // C s, written by the block products
   T* d;
   T* cd;
   T* pa;              // (2, nblk): sums of cd.(cd / diag), then maxima
   int64_t nblk;
-  const T* pc;
+  T* pc;
   T* state;
 };
 
+// -- the pass bodies, for virtual block vb of an elementwise pass -----------
+// Element i of virtual block vb: row block p's blocks lie end to end
+// (blk_off), so an element always falls to the same thread of the same
+// virtual block, in every pass and in both forms.
+template <typename T>
+__device__ __forceinline__ int64_t scr_row(const ScrArgs<T>& a, int64_t vb,
+                                           bool* in) {
+  const int64_t p = block_of(a.blk_off, a.P, vb);
+  const int64_t i =
+      a.row_off[p] + (vb - a.blk_off[p]) * kThreads + threadIdx.x;
+  *in = i < a.row_off[p + 1];
+  return i;
+}
+
+// kSInit: s = r / diag, y = 0; r holds the right-hand side
+template <typename T>
+__device__ __forceinline__ void scr_init(const ScrArgs<T>& a, int64_t vb) {
+  bool in;
+  const int64_t i = scr_row(a, vb, &in);
+  if (in) {
+    a.s[i] = a.r[i] * a.invd[i];
+    a.y[i] = T(0);
+  }
+}
+
+// kSStart, after C s: d = s, cd = C s
+template <typename T>
+__device__ __forceinline__ void scr_start(const ScrArgs<T>& a, int64_t vb) {
+  bool in;
+  const int64_t i = scr_row(a, vb, &in);
+  if (in) {
+    a.d[i] = a.s[i];
+    a.cd[i] = a.cs[i];
+  }
+}
+
+// kSPassA: the partials of cd.(cd / diag) and of the residual norm
+template <typename T>
+__device__ __forceinline__ void scr_pass_a(const ScrArgs<T>& a, int64_t vb,
+                                           T* red) {
+  bool in;
+  const int64_t i = scr_row(a, vb, &in);
+  T dsum = T(0), rmax = T(0);
+  if (in) {
+    const T c = a.cd[i];
+    dsum = c * (c * a.invd[i]);
+    rmax = abs_val(a.resscale != nullptr ? a.resscale[i] * a.r[i] : a.r[i]);
+  }
+  const T bs = block_sum(dsum, red);
+  const T bm = block_max(rmax, red);
+  if (threadIdx.x == 0) {
+    a.pa[vb] = bs;
+    a.pa[a.nblk + vb] = bm;
+  }
+}
+
+// kSPassB's test on trip k, with cdot and the error code `err` of the trip
+// before: true when the loop stops (the reference's while_loop test: a NaN
+// norm stops it), with the residual norm; else the step length and the
+// trip's own error code (ShardedDiagCR's ladder: 202, 203, 205). Every
+// thread of every block gets the same answer from the same partials.
+template <typename T>
+__device__ __forceinline__ bool scr_stop(const ScrArgs<T>& a, int64_t k,
+                                         T cdot, T err, T* red, T* resnorm,
+                                         T* alpha, T* err_trip) {
+  const T pdot = blocks_sum(a.pa, a.blk_off, a.P, red);
+  *resnorm = max_partials(a.pa + a.nblk, a.nblk, red);
+  if (!(*resnorm > a.tol) || k >= a.maxiter || err != T(0)) return true;
+  T al = cdot / pdot;
+  int e = 0;
+  if (a.ladder) {
+    if (cdot <= T(0)) e = 202;
+    if (pdot <= T(0)) e = 203;
+    if (!isfinite(al)) e = 205;
+    if (e != 0) al = T(0);
+  }
+  *alpha = al;
+  *err_trip = T(e);
+  return false;
+}
+
+// kSPassB's update: y += alpha d, r -= alpha cd, s -= alpha cd / diag
+template <typename T>
+__device__ __forceinline__ void scr_pass_b(const ScrArgs<T>& a, int64_t vb,
+                                           T alpha) {
+  bool in;
+  const int64_t i = scr_row(a, vb, &in);
+  if (in) {
+    const T c = a.cd[i];
+    a.y[i] += alpha * a.d[i];
+    a.r[i] -= alpha * c;
+    a.s[i] -= alpha * (c * a.invd[i]);
+  }
+}
+
+// kSPassC's scalars, after C s: beta from cdot_new, and the trip's error
+// code (*err): beta follows the trip's own error, as the reference's `ok`
+// does, and a cdot_new that is not finite is 205
+template <typename T>
+__device__ __forceinline__ T scr_beta(const ScrArgs<T>& a, T cdot_n, T cdot,
+                                      T err_trip, T* err) {
+  T beta = cdot_n / cdot;
+  T e = T(0);
+  if (a.ladder) {
+    e = err_trip;
+    if (e != T(0)) beta = T(0);
+    else if (!isfinite(cdot_n)) e = T(205);
+  }
+  *err = e;
+  return beta;
+}
+
+// kSPassC's update: d = s + beta d, cd = C s + beta cd
+template <typename T>
+__device__ __forceinline__ void scr_pass_c(const ScrArgs<T>& a, int64_t vb,
+                                           T beta) {
+  bool in;
+  const int64_t i = scr_row(a, vb, &in);
+  if (in) {
+    a.d[i] = a.s[i] + beta * a.d[i];
+    a.cd[i] = a.cs[i] + beta * a.cd[i];
+  }
+}
+
+// -- the host-issued form: one pass a launch --------------------------------
 template <typename T>
 __global__ void __launch_bounds__(kThreads) scr_step_kernel(int phase,
                                                             ScrArgs<T> a) {
@@ -135,86 +297,40 @@ __global__ void __launch_bounds__(kThreads) scr_step_kernel(int phase,
   T* st = a.state;
   if (loop_done(st)) return;
   const int64_t g = blockIdx.x;
-  const int64_t p = block_of(a.blk_off, a.P, g);
-  const int64_t i = a.row_off[p] + (g - a.blk_off[p]) * kThreads + threadIdx.x;
-  const bool in = i < a.row_off[p + 1];
   const bool lead = g == 0 && threadIdx.x == 0;
+  const T cdot = st[kCdot0 + (a.k & 1)];
   switch (phase) {
-    case kSInit: {  // s = r / diag, y = 0; r holds the right-hand side
-      if (in) {
-        a.s[i] = a.r[i] * a.invd[i];
-        a.y[i] = T(0);
-      }
+    case kSInit:
+      scr_init(a, g);
+      break;
+    case kSStart: {
+      const T cdot0 = blocks_sum(a.pc, a.pc_off, a.P, red);
+      scr_start(a, g);
+      if (lead) st[kCdot0] = cdot0;
       break;
     }
-    case kSStart: {  // after C s: cdot, d = s, cd = C s
-      const T cdot = blocks_sum(a.pc, a.pc_off, a.P, red);
-      if (in) {
-        a.d[i] = a.s[i];
-        a.cd[i] = a.cs[i];
-      }
-      if (lead) st[kCdot0] = cdot;
+    case kSPassA:
+      scr_pass_a(a, g, red);
       break;
-    }
-    case kSPassA: {  // partials of cd.(cd / diag) and of the residual norm
-      T dsum = T(0), rmax = T(0);
-      if (in) {
-        const T c = a.cd[i];
-        dsum = c * (c * a.invd[i]);
-        rmax = abs_val(a.resscale != nullptr ? a.resscale[i] * a.r[i]
-                                             : a.r[i]);
-      }
-      const T bs = block_sum(dsum, red);
-      const T bm = block_max(rmax, red);
-      if (threadIdx.x == 0) {
-        a.pa[g] = bs;
-        a.pa[a.nblk + g] = bm;
-      }
-      break;
-    }
-    case kSPassB: {  // the loop test, the ladder, the y / r / s update
-      const T pdot = blocks_sum(a.pa, a.blk_off, a.P, red);
-      const T resnorm = max_partials(a.pa + a.nblk, a.nblk, red);
-      const T cdot = st[kCdot0 + (a.k & 1)];
-      // the reference's while_loop test: a NaN norm stops it
-      if (!(resnorm > a.tol) || a.k >= a.maxiter || st[kErr] != T(0)) {
+    case kSPassB: {
+      T resnorm, alpha, err_trip;
+      if (scr_stop(a, a.k, cdot, st[kErr], red, &resnorm, &alpha,
+                   &err_trip)) {
         if (lead) {
           st[kResnorm] = resnorm;
           st[kDone] = T(1);
         }
         return;
       }
-      T alpha = cdot / pdot;
-      if (a.ladder) {
-        int err = 0;
-        if (cdot <= T(0)) err = 202;
-        if (pdot <= T(0)) err = 203;
-        if (!isfinite(alpha)) err = 205;
-        if (err != 0) alpha = T(0);
-        if (lead) st[kErrTrip] = T(err);
-      }
-      if (in) {
-        const T c = a.cd[i];
-        a.y[i] += alpha * a.d[i];
-        a.r[i] -= alpha * c;
-        a.s[i] -= alpha * (c * a.invd[i]);
-      }
+      if (lead) st[kErrTrip] = err_trip;
+      scr_pass_b(a, g, alpha);
       break;
     }
-    case kSPassC: {  // after C s: cdot_new, beta, the d / cd update
+    case kSPassC: {
       const T cdot_n = blocks_sum(a.pc, a.pc_off, a.P, red);
-      const T cdot = st[kCdot0 + (a.k & 1)];
-      T beta = cdot_n / cdot;
-      T err = T(0);
-      if (a.ladder) {  // beta follows the trip's own error, as ok does
-        err = st[kErrTrip];
-        if (err != T(0)) beta = T(0);
-        else if (!isfinite(cdot_n)) err = T(205);
-      }
-      if (in) {
-        a.d[i] = a.s[i] + beta * a.d[i];
-        a.cd[i] = a.cs[i] + beta * a.cd[i];
-      }
+      T err;
+      const T beta = scr_beta(a, cdot_n, cdot, st[kErrTrip], &err);
+      scr_pass_c(a, g, beta);
       if (lead) {
         st[kCdot0 + ((a.k + 1) & 1)] = cdot_n;
         st[kIt] = T(a.k + 1);
@@ -223,6 +339,207 @@ __global__ void __launch_bounds__(kThreads) scr_step_kernel(int phase,
       break;
     }
   }
+}
+
+// -- the cooperative form: a whole solve in one launch ----------------------
+struct ScrSolveArgs {
+  ScrArgs<double> a;
+  Rows at;            // the whole A' (n rows), split at the row bounds
+  Split split;
+  BlockOps ops;       // the blocks' A_p, K1's layout of the block products
+  const double* w_struct;
+  const double* w_slack;
+  double* u;          // (n,) scratch
+};
+
+// cs = C s and the block products' partials of s.cs in pc, K14v's half and
+// the block products' half with a barrier after each; the caller has put a
+// barrier after the pass that wrote s.
+__device__ __forceinline__ void scr_apply(const ScrSolveArgs& s,
+                                          cg::grid_group& grid, double* red) {
+  const ScrArgs<double>& a = s.a;
+  split_rows_any<false>(s.at, s.split, a.s, s.w_struct, s.u);
+  grid.sync();
+  for (int64_t vb = blockIdx.x; vb < s.ops.nblk; vb += gridDim.x)
+    block_rows<false>(s.ops, vb, s.u, s.w_slack, a.s, a.cs, a.pc, red);
+  grid.sync();
+}
+
+__global__ void __launch_bounds__(kThreads) scr_solve_kernel(ScrSolveArgs s) {
+  __shared__ double red[kThreads];
+  cg::grid_group grid = cg::this_grid();
+  const ScrArgs<double>& a = s.a;
+  double* st = a.state;
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  const int64_t g0 = blockIdx.x, gs = gridDim.x;
+  for (int64_t vb = g0; vb < a.nblk; vb += gs) scr_init(a, vb);
+  grid.sync();
+  scr_apply(s, grid, red);
+  double cdot = blocks_sum(a.pc, a.pc_off, a.P, red);
+  for (int64_t vb = g0; vb < a.nblk; vb += gs) scr_start(a, vb);
+  double err = 0.0;
+  int64_t applies = 1;
+  for (int64_t k = 0;; ++k) {
+    for (int64_t vb = g0; vb < a.nblk; vb += gs) scr_pass_a(a, vb, red);
+    grid.sync();
+    double resnorm, alpha, err_trip;
+    if (scr_stop(a, k, cdot, err, red, &resnorm, &alpha, &err_trip)) {
+      if (lead) {
+        st[kIt] = double(k);
+        st[kErr] = err;
+        st[kResnorm] = resnorm;
+        st[kApplies] = double(applies);
+        st[kDone] = 1.0;
+      }
+      return;  // every block, on this same trip
+    }
+    for (int64_t vb = g0; vb < a.nblk; vb += gs) scr_pass_b(a, vb, alpha);
+    grid.sync();
+    scr_apply(s, grid, red);
+    ++applies;
+    const double cdot_n = blocks_sum(a.pc, a.pc_off, a.P, red);
+    const double beta = scr_beta(a, cdot_n, cdot, err_trip, &err);
+    for (int64_t vb = g0; vb < a.nblk; vb += gs) scr_pass_c(a, vb, beta);
+    cdot = cdot_n;
+  }
+}
+
+// -- K16's fused block normal apply ----------------------------------------
+
+// The row block that row c of A falls in: the interior bounds row_off[1 ..
+// P - 1] at or below c, compared with constant indices.
+__device__ __forceinline__ int row_block_of(const BlockOps& o, int64_t c) {
+  int q = 0;
+#pragma unroll
+  for (int r = 1; r < kMaxSplit; ++r)
+    q += (r < o.P && c >= o.row_off[r]) ? 1 : 0;
+  return q;
+}
+
+// Folds row block q's sum t into s as K14 sums the parts, s = t at q = 0,
+// else s = add_rn(s, t); then t = 0.
+template <int VW>
+__device__ __forceinline__ void fold_block(int q, double (&s)[VW],
+                                           double (&t)[VW]) {
+#pragma unroll
+  for (int j = 0; j < VW; ++j) {
+    s[j] = q == 0 ? t[j] : add_rn(s[j], t[j]);
+    t[j] = 0.0;
+  }
+}
+
+// s = K14's sum over the row blocks q = 0..P-1 of (A_q' V_q)[col, lanes]
+// for a column col of A whose entries are [begin, end) of the whole A'
+// split at the row blocks' bounds (its CSR order, rows ascending, so block
+// q's entries are one segment and in the order of row col of A_q'): each
+// segment summed as K5's launch on A_q' sums its row col, an empty segment
+// a zero, two gathers in flight (loaded, issued, then added in order, as
+// K5's row_gather).
+template <int VW>
+__device__ __forceinline__ void column_sum(
+    const BlockOps& o, int64_t begin, int64_t end,
+    const int32_t* __restrict__ t_indices, const double* __restrict__ t_vals,
+    const double* __restrict__ V, int64_t B, int64_t lane0, double (&s)[VW]) {
+  double t[VW];
+#pragma unroll
+  for (int j = 0; j < VW; ++j) s[j] = t[j] = 0.0;
+  int q = 0;
+  int64_t k = begin;
+  for (; k + 2 <= end; k += 2) {
+    const int32_t c0 = t_indices[k], c1 = t_indices[k + 1];
+    const double a0 = t_vals[k], a1 = t_vals[k + 1];
+    double u0[VW], u1[VW];
+    ldg_vec<double, VW>(V + (int64_t)c0 * B + lane0, u0);
+    ldg_vec<double, VW>(V + (int64_t)c1 * B + lane0, u1);
+    for (const int q0 = row_block_of(o, c0); q < q0; ++q) fold_block(q, s, t);
+#pragma unroll
+    for (int j = 0; j < VW; ++j) t[j] += a0 * u0[j];
+    for (const int q1 = row_block_of(o, c1); q < q1; ++q) fold_block(q, s, t);
+#pragma unroll
+    for (int j = 0; j < VW; ++j) t[j] += a1 * u1[j];
+  }
+  if (k < end) {
+    const int32_t c0 = t_indices[k];
+    const double a0 = t_vals[k];
+    double u0[VW];
+    ldg_vec<double, VW>(V + (int64_t)c0 * B + lane0, u0);
+    for (const int q0 = row_block_of(o, c0); q < q0; ++q) fold_block(q, s, t);
+#pragma unroll
+    for (int j = 0; j < VW; ++j) t[j] += a0 * u0[j];
+  }
+  for (; q < o.P; ++q) fold_block(q, s, t);
+}
+
+// out = C V over the row blocks of o, with the partials of V.out: CUDA
+// block (g, y) runs block g - blk_off[p] of row block p's K5 launch on A_p,
+// at its grid. For each nonzero (i, col) of A_p: t = W_s[col] * column_sum
+// (K14's scaled sum of the P first-pass products), acc += a_icol t (K5's
+// second launch); then K5's epilogue with W_slack and V. The (P, n, B) parts
+// and the (n, B) U of the three-stage form are never written. At most 64
+// registers a thread, four blocks an SM, as K6's fused kernel.
+template <int VW>
+__global__ void __launch_bounds__(kThreads, 4)
+block_normal_kernel(BlockOps o, int64_t B,
+                    const int64_t* __restrict__ t_indptr,
+                    const int32_t* __restrict__ t_indices,
+                    const double* __restrict__ t_vals,
+                    const double* __restrict__ V,
+                    const double* __restrict__ w_struct,
+                    const double* __restrict__ w_slack,
+                    double* __restrict__ out, double* __restrict__ partials,
+                    const double* __restrict__ state) {
+  __shared__ double red[kThreads * VW];
+  if (loop_done(state)) return;
+  const int64_t g = blockIdx.x;
+  const int p = block_of_ops(o, g);
+  int64_t r0 = o.row_off[0], r1 = o.row_off[1], b0 = o.blk_off[0],
+          b1 = o.blk_off[1];
+  const int64_t* ip = o.indptr[0];
+  const int32_t* ix = o.indices[0];
+  const double* va = o.vals[0];
+#pragma unroll
+  for (int q = 1; q < kMaxSplit; ++q) {
+    if (q == p) {
+      r0 = o.row_off[q];
+      r1 = o.row_off[q + 1];
+      b0 = o.blk_off[q];
+      b1 = o.blk_off[q + 1];
+      ip = o.indptr[q];
+      ix = o.indices[q];
+      va = o.vals[q];
+    }
+  }
+  const int64_t lane0 = ((int64_t)blockIdx.y * blockDim.x + threadIdx.x) * VW;
+  const bool lane_ok = lane0 < B;
+  double dot[VW];
+#pragma unroll
+  for (int j = 0; j < VW; ++j) dot[j] = 0.0;
+  if (lane_ok) {
+    const int64_t rows = r1 - r0, gx = b1 - b0;
+    for (int64_t row = (g - b0) * blockDim.y + threadIdx.y; row < rows;
+         row += gx * blockDim.y) {
+      double acc[VW];
+#pragma unroll
+      for (int j = 0; j < VW; ++j) acc[j] = 0.0;
+      const int64_t end = ip[row + 1];
+      for (int64_t k = ip[row]; k < end; ++k) {
+        const int32_t col = ix[k];
+        const double a_ik = va[k];
+        double ws[VW], t[VW];
+        ldcs_vec<double, VW>(w_struct + (int64_t)col * B + lane0, ws);
+        column_sum<VW>(o, t_indptr[col], t_indptr[col + 1], t_indices,
+                       t_vals, V, B, lane0, t);
+#pragma unroll
+        for (int j = 0; j < VW; ++j) t[j] = mul_rn(t[j], ws[j]);
+#pragma unroll
+        for (int j = 0; j < VW; ++j) acc[j] += a_ik * t[j];
+      }
+      row_epilogue<double, VW, true>((r0 + row) * B + lane0, acc, nullptr,
+                                     w_slack, V, out, dot);
+    }
+  }
+  if (partials != nullptr)
+    store_dots<double, VW>(dot, red, lane_ok, B, lane0, partials);
 }
 
 // -- K16 ---------------------------------------------------------------------
@@ -436,16 +753,15 @@ extern "C" int64_t ipxt_scr_blocks(int64_t rows) {
   return blocks_for(rows, kThreads);
 }
 
-extern "C" int ipxt_scr_step_f64(int phase, int64_t m, int64_t P, int64_t k,
-                                 int64_t maxiter, double tol, int ladder,
-                                 const void* row_off, const void* blk_off,
-                                 const void* pc_off, const void* invd,
-                                 const void* resscale, void* y, void* r,
-                                 void* s, const void* cs, void* d, void* cd,
-                                 void* pa, int64_t nblk, const void* pc,
-                                 void* state, void* stream) {
-  if (phase < kSInit || phase > kSPassC || nblk < 1)
-    return (int)cudaErrorInvalidValue;
+// The arguments of a K15 pass; cs and pc are written by the block products.
+static ScrArgs<double> scr_args(int64_t m, int64_t P, int64_t k,
+                                int64_t maxiter, double tol, int ladder,
+                                const void* row_off, const void* blk_off,
+                                const void* pc_off, const void* invd,
+                                const void* resscale, void* y, void* r,
+                                void* s, void* cs, void* d, void* cd,
+                                void* pa, int64_t nblk, void* pc,
+                                void* state) {
   ScrArgs<double> a;
   a.m = m;
   a.P = P;
@@ -461,15 +777,139 @@ extern "C" int ipxt_scr_step_f64(int phase, int64_t m, int64_t P, int64_t k,
   a.y = static_cast<double*>(y);
   a.r = static_cast<double*>(r);
   a.s = static_cast<double*>(s);
-  a.cs = static_cast<const double*>(cs);
+  a.cs = static_cast<double*>(cs);
   a.d = static_cast<double*>(d);
   a.cd = static_cast<double*>(cd);
   a.pa = static_cast<double*>(pa);
   a.nblk = nblk;
-  a.pc = static_cast<const double*>(pc);
+  a.pc = static_cast<double*>(pc);
   a.state = static_cast<double*>(state);
+  return a;
+}
+
+// The host-issued form: one pass (`phase`) of trip k. The solvers never ask
+// for it; the card tests and chip_smoke.py hold the cooperative form
+// against it.
+extern "C" int ipxt_scr_step_f64(int phase, int64_t m, int64_t P, int64_t k,
+                                 int64_t maxiter, double tol, int ladder,
+                                 const void* row_off, const void* blk_off,
+                                 const void* pc_off, const void* invd,
+                                 const void* resscale, void* y, void* r,
+                                 void* s, void* cs, void* d, void* cd,
+                                 void* pa, int64_t nblk, void* pc,
+                                 void* state, void* stream) {
+  if (phase < kSInit || phase > kSPassC || nblk < 1)
+    return (int)cudaErrorInvalidValue;
+  const ScrArgs<double> a =
+      scr_args(m, P, k, maxiter, tol, ladder, row_off, blk_off, pc_off, invd,
+               resscale, y, r, s, cs, d, cd, pa, nblk, pc, state);
   scr_step_kernel<double><<<(unsigned)nblk, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(phase, a);
+  return (int)cudaGetLastError();
+}
+
+// A whole K15 solve in one cooperative launch: the buffers of the passes
+// (the device offsets row_off, blk_off and pc_off), then K14v's operand,
+// the whole A' (rows_t = n rows) split at the P - 1 interior row bounds
+// `bounds` (host) and summed at vec_t lanes a row, then the block products'
+// operands as ipxt_block_spmv_f64 takes them (host arrays: h_row_off and
+// h_pc_off, P + 1 each, the layout of P K1 launches; vec, indptr, indices,
+// vals, P each), W_struct (n), W_slack (m) and the (n,) scratch u. nblk must
+// be the elementwise passes' blocks over the row blocks (ipxt_scr_blocks of
+// each). The state must hold zeros; on return (asynchronously) it holds the
+// iterations, the error code, the residual norm, done and the applies the
+// launch ran, each one K14v half and one block products half. A refused
+// launch is returned as such.
+extern "C" int ipxt_scr_solve_f64(
+    int64_t m, int P, int64_t maxiter, double tol, int ladder,
+    const void* row_off, const void* blk_off, const void* pc_off,
+    const void* invd, const void* resscale, void* y, void* r, void* s,
+    void* cs, void* d, void* cd, void* pa, int64_t nblk, void* pc,
+    void* state, int64_t rows_t, const void* indptr_t, const void* indices_t,
+    const void* vals_t, int vec_t, const int64_t* bounds,
+    const int64_t* h_row_off, const int64_t* h_pc_off, const int* vec,
+    const void* const* indptr, const void* const* indices,
+    const void* const* vals, const void* w_struct, const void* w_slack,
+    void* u, void* stream) {
+  ScrSolveArgs sa;
+  if (!valid_vec(vec_t) || !make_split(P, bounds, &sa.split) ||
+      !make_block_ops(P, h_row_off, h_pc_off, vec, indptr, indices, vals,
+                      &sa.ops) ||
+      !k1_layout(sa.ops) || h_row_off[P] != m)
+    return (int)cudaErrorInvalidValue;
+  int64_t want = 0;
+  for (int p = 0; p < P; ++p)
+    want += blocks_for(h_row_off[p + 1] - h_row_off[p], kThreads);
+  if (nblk < 1 || nblk != want) return (int)cudaErrorInvalidValue;
+  sa.a = scr_args(m, P, 0, maxiter, tol, ladder, row_off, blk_off, pc_off,
+                  invd, resscale, y, r, s, cs, d, cd, pa, nblk, pc, state);
+  sa.at = make_rows(rows_t, indptr_t, indices_t, vals_t, vec_t);
+  sa.w_struct = static_cast<const double*>(w_struct);
+  sa.w_slack = static_cast<const double*>(w_slack);
+  sa.u = static_cast<double*>(u);
+  int64_t grid = nblk;
+  const int64_t nt = blocks_for(rows_t, kThreads / vec_t);
+  if (nt > grid) grid = nt;
+  if (sa.ops.nblk > grid) grid = sa.ops.nblk;
+  int64_t cap = 0;
+  const int err = coop_capacity<scr_solve_kernel>(&cap);
+  if (err != 0) return err;
+  if (grid > cap) grid = cap;  // the virtual blocks are walked grid-stride
+  void* args[] = {&sa};
+  const cudaError_t launched = cudaLaunchCooperativeKernel(
+      (const void*)scr_solve_kernel, dim3((unsigned)grid), dim3(kThreads),
+      args, 0, static_cast<cudaStream_t>(stream));
+  // read and clear the last error too, so that a refusal is reported here
+  // and not by the next launch of another entry point
+  const cudaError_t last = cudaGetLastError();
+  return (int)(launched != cudaSuccess ? launched : last);
+}
+
+// K16's fused block normal apply: out[i, :] = (A_p (W_s * sum_q A_q' V_q))
+// [i - row_off[p]] + W_slack[i, :] V[i, :] for the rows i of each row block
+// p, the sum over the blocks q as K14 takes it, with partials[g, :] the
+// sum of V[i, :] out[i, :] over the rows of K5 row block g. The blocks'
+// A_p are given as ipxt_block_spmv_f64 takes them (host arrays row_off and
+// blk_off, P + 1 each; indptr, indices and vals, P each), blk_off being the
+// layout of P K5 launches at lane width vw (ipxt_lane_blocks(rows_p,
+// B / vw) each); the whole A' (n rows) split at the row bounds by t_indptr,
+// t_indices and t_vals. V, W_slack and out (m, B), W_struct (n, B),
+// row-major. partials and state may be null.
+extern "C" int ipxt_block_normal_batched_f64(
+    int P, const int64_t* row_off, const int64_t* blk_off,
+    const void* const* indptr, const void* const* indices,
+    const void* const* vals, int64_t B, const void* t_indptr,
+    const void* t_indices, const void* t_vals, const void* V,
+    const void* w_struct, const void* w_slack, void* out, void* partials,
+    const void* state, int vw, void* stream) {
+  BlockOps o;
+  if (!make_block_ops(P, row_off, blk_off, nullptr, indptr, indices, vals,
+                      &o) ||
+      !width_ok<double>(B, vw, {V, w_struct, w_slack, out, partials}))
+    return (int)cudaErrorInvalidValue;
+  for (int p = 0; p < P; ++p)
+    if (blk_off[p + 1] - blk_off[p] !=
+        lane_grid(row_off[p + 1] - row_off[p], B / vw).gx)
+      return (int)cudaErrorInvalidValue;
+  const LaneGrid g = lane_grid(1, B / vw);  // tx, ty and gy: B's alone
+  const dim3 grid((unsigned)o.nblk, (unsigned)g.gy);
+  const dim3 block((unsigned)g.tx, (unsigned)g.ty);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto tip = static_cast<const int64_t*>(t_indptr);
+  auto tix = static_cast<const int32_t*>(t_indices);
+  auto tva = static_cast<const double*>(t_vals);
+  auto v = static_cast<const double*>(V);
+  auto ws = static_cast<const double*>(w_struct);
+  auto wl = static_cast<const double*>(w_slack);
+  auto y = static_cast<double*>(out);
+  auto pp = static_cast<double*>(partials);
+  auto sp = static_cast<const double*>(state);
+  if (vw == 1)
+    block_normal_kernel<1><<<grid, block, 0, st>>>(o, B, tip, tix, tva, v, ws,
+                                                   wl, y, pp, sp);
+  else
+    block_normal_kernel<2><<<grid, block, 0, st>>>(o, B, tip, tix, tva, v, ws,
+                                                   wl, y, pp, sp);
   return (int)cudaGetLastError();
 }
 

@@ -61,78 +61,10 @@
 // returns cudaGetLastError() (cudaErrorInvalidValue for arguments it does
 // not take).
 
-#include <initializer_list>
-
-#include "common.cuh"
+#include "spmm_row.cuh"
 
 namespace ipxt {
 namespace {
-
-// VW values from p: one 16-byte load when VW > 1 (p is then aligned).
-template <typename T, int VW>
-__device__ __forceinline__ void load_vec(const T* p, T (&v)[VW]) {
-  if constexpr (VW == 1) {
-    v[0] = p[0];
-  } else if constexpr (sizeof(T) == 8) {
-    const double2 d = *reinterpret_cast<const double2*>(p);
-    v[0] = d.x;
-    v[1] = d.y;
-  } else {
-    const float4 f = *reinterpret_cast<const float4*>(p);
-    v[0] = f.x;
-    v[1] = f.y;
-    v[2] = f.z;
-    v[3] = f.w;
-  }
-}
-
-// the same through the read-only cache, for the gathered rows of U
-template <typename T, int VW>
-__device__ __forceinline__ void ldg_vec(const T* p, T (&v)[VW]) {
-  if constexpr (VW == 1) {
-    v[0] = __ldg(p);
-  } else if constexpr (sizeof(T) == 8) {
-    const double2 d = __ldg(reinterpret_cast<const double2*>(p));
-    v[0] = d.x;
-    v[1] = d.y;
-  } else {
-    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = f.x;
-    v[1] = f.y;
-    v[2] = f.z;
-    v[3] = f.w;
-  }
-}
-
-// the same as a streaming load (evict first), for arrays read once that
-// should not push the gathered rows out of L2
-template <typename T, int VW>
-__device__ __forceinline__ void ldcs_vec(const T* p, T (&v)[VW]) {
-  if constexpr (VW == 1) {
-    v[0] = __ldcs(p);
-  } else if constexpr (sizeof(T) == 8) {
-    const double2 d = __ldcs(reinterpret_cast<const double2*>(p));
-    v[0] = d.x;
-    v[1] = d.y;
-  } else {
-    const float4 f = __ldcs(reinterpret_cast<const float4*>(p));
-    v[0] = f.x;
-    v[1] = f.y;
-    v[2] = f.z;
-    v[3] = f.w;
-  }
-}
-
-template <typename T, int VW>
-__device__ __forceinline__ void store_vec(T* p, const T (&v)[VW]) {
-  if constexpr (VW == 1) {
-    p[0] = v[0];
-  } else if constexpr (sizeof(T) == 8) {
-    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
-  } else {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
 
 constexpr int kInner = 2;  // the fused K6's gathers in flight a thread
 
@@ -172,46 +104,6 @@ __device__ __forceinline__ void row_gather(int64_t begin, int64_t end,
 #pragma unroll
     for (int j = 0; j < VW; ++j) acc[j] += a * u[j];
   }
-}
-
-// K5's epilogue for one row: acc *= rowscale; acc += addw addv and, into
-// dot, addv acc; then the store. o is the row's offset plus lane0.
-template <typename T, int VW, bool kStream>
-__device__ __forceinline__ void row_epilogue(int64_t o, T (&acc)[VW],
-                                             const T* __restrict__ rowscale,
-                                             const T* __restrict__ addw,
-                                             const T* __restrict__ addv,
-                                             T* __restrict__ Y, T (&dot)[VW]) {
-  if (rowscale != nullptr) {
-    T s[VW];
-    load_vec<T, VW>(rowscale + o, s);
-#pragma unroll
-    for (int j = 0; j < VW; ++j) acc[j] *= s[j];
-  }
-  if (addw != nullptr) {
-    T w[VW], v[VW];
-    if constexpr (kStream)
-      ldcs_vec<T, VW>(addw + o, w);
-    else
-      load_vec<T, VW>(addw + o, w);
-    load_vec<T, VW>(addv + o, v);
-#pragma unroll
-    for (int j = 0; j < VW; ++j) {
-      acc[j] += w[j] * v[j];
-      dot[j] += v[j] * acc[j];
-    }
-  }
-  store_vec<T, VW>(Y + o, acc);
-}
-
-// the per-block, per-lane partials of the column dots, row block blockIdx.x
-template <typename T, int VW>
-__device__ __forceinline__ void store_dots(T (&dot)[VW], T* red, bool lane_ok,
-                                           int64_t B, int64_t lane0,
-                                           T* __restrict__ partials) {
-  lane_reduce<T, VW>(dot, red, AddOp());
-  if (threadIdx.y == 0 && lane_ok)
-    store_vec<T, VW>(partials + (int64_t)blockIdx.x * B + lane0, dot);
 }
 
 template <typename T, int VW, int UNROLL>
@@ -314,23 +206,6 @@ lane_sum_kernel(int64_t n, int64_t B, const T* __restrict__ p,
   if ((threadIdx.x & 31) == 0) out[b] = s;
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// Checks the lane width vw against B and the pointers' alignment.
-template <typename T>
-bool width_ok(int64_t B, int vw, std::initializer_list<const void*> ptrs) {
-  constexpr int V = 16 / sizeof(T);
-  if (B < 1 || (vw != 1 && vw != V)) return false;
-  if (vw == V) {
-    if (B % V != 0) return false;
-    for (const void* p : ptrs)
-      if (p != nullptr && !aligned16(p)) return false;
-  }
-  return true;
-}
-
 // csr_spmm_kernel<T, VW, unroll> for unroll 1 or 2
 template <typename T, int VW>
 void launch_spmm(int unroll, dim3 grid, dim3 block, cudaStream_t s,
@@ -354,8 +229,10 @@ int csr_spmm(int64_t rows, int64_t B, const void* indptr, const void* indices,
   if (!width_ok<T>(B, vw, {U, rowscale, addw, addv, Y, partials}) ||
       (unroll != 1 && unroll != 2))
     return (int)cudaErrorInvalidValue;
-  if ((addw == nullptr) != (addv == nullptr) ||
-      (partials != nullptr && addv == nullptr))
+  // an empty operand's arrays may be null (a row block with no rows); its
+  // launch writes zero partials
+  if (rows > 0 && ((addw == nullptr) != (addv == nullptr) ||
+                   (partials != nullptr && addv == nullptr)))
     return (int)cudaErrorInvalidValue;
   const LaneGrid g = lane_grid(rows, B / vw);
   const dim3 grid((unsigned)g.gx, (unsigned)g.gy);

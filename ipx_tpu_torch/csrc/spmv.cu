@@ -80,19 +80,8 @@ csr_spmv_kernel(int64_t rows, const int64_t* __restrict__ indptr,
       partials != nullptr ? partials + blockIdx.x : nullptr, red);
 }
 
-// The P row blocks of a row-blocked apply, by value: block p holds rows
-// [row_off[p], row_off[p + 1]) of out and the CUDA blocks (and partial
-// slots) [blk_off[p], blk_off[p + 1]), and its own CSR operand.
-struct BlockOps {
-  int P;
-  int64_t row_off[kMaxSplit + 1];
-  int64_t blk_off[kMaxSplit + 1];
-  int vec[kMaxSplit];
-  const int64_t* indptr[kMaxSplit];
-  const int32_t* indices[kMaxSplit];
-  const double* vals[kMaxSplit];
-};
-
+// The block products over the P row blocks of o, CUDA block g the block
+// products' block g (block_rows).
 __global__ void __launch_bounds__(kThreads)
 block_spmv_kernel(BlockOps o, const double* __restrict__ x,
                   const double* __restrict__ addw,
@@ -101,37 +90,7 @@ block_spmv_kernel(BlockOps o, const double* __restrict__ x,
                   const double* __restrict__ state) {
   __shared__ double red[kThreads];
   if (loop_done(state)) return;
-  const int64_t g = blockIdx.x;
-  // this CUDA block's row block: the last p with blk_off[p] <= g (an empty
-  // row block has no CUDA block, so the last such p is the one holding g);
-  // every index is a constant after unrolling, so the arguments stay in the
-  // parameter bank
-  int64_t r0 = o.row_off[0], r1 = o.row_off[1], b0 = o.blk_off[0];
-  int vec = o.vec[0];
-  const int64_t* ip = o.indptr[0];
-  const int32_t* ix = o.indices[0];
-  const double* va = o.vals[0];
-#pragma unroll
-  for (int q = 1; q < kMaxSplit; ++q) {
-    if (q < o.P && o.blk_off[q] <= g) {
-      r0 = o.row_off[q];
-      r1 = o.row_off[q + 1];
-      b0 = o.blk_off[q];
-      vec = o.vec[q];
-      ip = o.indptr[q];
-      ix = o.indices[q];
-      va = o.vals[q];
-    }
-  }
-  double* part = partials != nullptr ? partials + g : nullptr;
-  const int64_t rows = r1 - r0, blk = g - b0;
-  switch (vec) {  // the same for every thread of the block
-    case 2: spmv_block<double, 2, true>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
-    case 4: spmv_block<double, 4, true>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
-    case 8: spmv_block<double, 8, true>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
-    case 16: spmv_block<double, 16, true>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
-    default: spmv_block<double, 32, true>(rows, blk, ip, ix, va, x, nullptr, addw + r0, addv + r0, y + r0, part, red); break;
-  }
+  block_rows<true>(o, blockIdx.x, x, addw, addv, y, partials, red);
 }
 
 template <typename T>
@@ -236,26 +195,10 @@ extern "C" int ipxt_block_spmv_f64(int P, const int64_t* row_off,
                                    void* y, void* partials, const void* state,
                                    void* stream) {
   using namespace ipxt;
-  if (P < 1 || P > kMaxSplit || row_off[0] != 0 || blk_off[0] != 0 ||
-      addw == nullptr || addv == nullptr)
+  BlockOps o;
+  if (!make_block_ops(P, row_off, blk_off, vec, indptr, indices, vals, &o) ||
+      !k1_layout(o) || addw == nullptr || addv == nullptr)
     return (int)cudaErrorInvalidValue;
-  BlockOps o = {};
-  o.P = P;
-  for (int p = 0; p <= P; ++p) {
-    o.row_off[p] = row_off[p];
-    o.blk_off[p] = blk_off[p];
-  }
-  for (int p = 0; p < P; ++p) {
-    const int v = vec[p];
-    if (!valid_vec(v)) return (int)cudaErrorInvalidValue;
-    const int64_t rows = row_off[p + 1] - row_off[p];
-    if (rows < 0 || blk_off[p + 1] - blk_off[p] != blocks_for(rows, kThreads / v))
-      return (int)cudaErrorInvalidValue;
-    o.vec[p] = v;
-    o.indptr[p] = static_cast<const int64_t*>(indptr[p]);
-    o.indices[p] = static_cast<const int32_t*>(indices[p]);
-    o.vals[p] = static_cast<const double*>(vals[p]);
-  }
   const int64_t grid = blk_off[P];
   if (grid == 0) return 0;
   block_spmv_kernel<<<(unsigned)grid, kThreads, 0,

@@ -24,9 +24,12 @@ csrc/spmm.cu), K7
 float64, K10 ``ipm_prologue`` (csrc/ipm_prologue.cu), K11 ``newton_rhs``
 and K12 ``newton_recover`` (csrc/newton.cu) and K13 ``starting_point``
 (csrc/start.cu); for the sharded solves, in float64, K14 ``block_sum``, K15
-``sharded_cr_step`` and K16 ``sharded_batched_cr_step`` (csrc/sharded.cu)
-and K14v ``block_spmv_sum``, the vector apply's psum fused into its first
-pass (csrc/nnt.cu);
+``sharded_cr_step`` (ShardedCrStep: a whole row-blocked CR solve, its
+vector applies inside, in one cooperative launch) and K16
+``sharded_batched_cr_step`` (ShardedBatchedCrStep, its apply through
+BlockNormalBatchedPlan: one fused launch where A's columns are short)
+(csrc/sharded.cu) and K14v ``block_spmv_sum``, the vector apply's psum
+fused into its first pass (csrc/nnt.cu);
 for the level-scheduled triangular solve, in float64, K17 ``level_solve``
 (csrc/trisolve.cu). Batched arrays are (rows, B) with the B lanes
 contiguous.
@@ -48,11 +51,15 @@ LAUNCHES = dict.fromkeys(("csr_spmv", "normal_apply", "cr_step", "nnt",
                           "starting_point", "block_sum", "sharded_cr_step",
                           "sharded_batched_cr_step", "level_solve",
                           "block_spmv_sum"), 0)
-# K2 applies that ran inside K3's cooperative launches since the last
-# reset_launches(), as the kernel counts them in its state and CrStep.solve
-# reads it once a solve: on the solver's path K2's body runs there and is
-# not launched on its own. Not launches: LAUNCHES counts those.
-INSIDE = {"normal_apply": 0}
+# Applies that ran inside another kernel's launches since the last
+# reset_launches(), not launches (LAUNCHES counts those): K2's inside K3's
+# cooperative solves and K14v's and K1's (one each an apply) inside K15's,
+# as the kernels count them in their state, read once a solve (CrStep.solve,
+# ShardedCrStep.solve); and K14's sums inside K16's fused applies, one an
+# apply that did work (ShardedBatchedCrStep.solve).
+# On those paths the inner kernels are not launched on their own.
+INSIDE = dict.fromkeys(("normal_apply", "block_spmv_sum", "csr_spmv",
+                        "block_sum"), 0)
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _lib = None
@@ -124,6 +131,10 @@ def _declare(lib: ctypes.CDLL) -> None:
            "ipxt_block_sum_f64": [I64, I64] + [P] * 5,
            "ipxt_scr_step_f64": [I, I64, I64, I64, I64, D, I] + [P] * 12
            + [I64, P, P, P],
+           "ipxt_scr_solve_f64": [I64, I, I64, D, I] + [P] * 12
+           + [I64, P, P, I64, P, P, P, I] + [P] * 11,
+           "ipxt_block_normal_batched_f64": [I] + [P] * 5 + [I64] + [P] * 9
+           + [I, P],
            "ipxt_sbcr_step_f64": [I, I64, I64, I64, I64, I64, D] + [P] * 11
            + [I64, P, P, P],
            "ipxt_level_solve_f64": [I64, P, I64] + [P] * 8,
@@ -1187,7 +1198,10 @@ class BlockSpmvPlan:
                                  dtype=np.uint64)
                         for k in ("indptr", "indices", "vals")))
         self._keep = (A, u, out, W_slack, v, partials, state)
-        self._args = (P, *(a.ctypes.data for a in self._host),
+        # the block products' operands as the C entries take them, which
+        # K15's cooperative solve takes too
+        self.host_args = tuple(a.ctypes.data for a in self._host)
+        self._args = (P, *self.host_args,
                       u.data_ptr(), W_slack.data_ptr(), v.data_ptr(),
                       out.data_ptr(), _ptr(partials), _ptr(state),
                       _stream(device))
@@ -1227,11 +1241,13 @@ def block_normal_apply(At, A, W_struct, W_slack, v, out=None):
 def block_normal_apply_batched(At, A, W_struct, W_slack, V, out=None,
                                parts=None, U=None, partials=None,
                                state=None):
-    """out = C V over row blocks for V of shape (m, B), in 2P + 1 launches:
-    A_p' V_p by K5 into parts[p], their ordered sum scaled by W_struct by
-    K14 into U, then the block products of _block_products by K5. `At` and
-    `A` are the blocks' operands (A_p' with n rows, A_p with the block's
-    rows); scratch not given is allocated here."""
+    """out = C V over row blocks for V of shape (m, B), in the three-stage
+    form's 2P + 1 launches: A_p' V_p by K5 into parts[p], their ordered sum
+    scaled by W_struct by K14 into U, then the block products of
+    _block_products by K5. `At` and `A` are the blocks' operands (A_p' with
+    n rows, A_p with the block's rows); `partials` the blocks' slices;
+    scratch not given is allocated here. BlockNormalBatchedPlan runs it where
+    A's columns are long, and for the comparisons with its fused form."""
     rows = [op.rows for op in A]
     n, B = W_struct.shape[0], _lanes(V, "V")
     e = lambda *s: torch.empty(s, dtype=F64, device=V.device)  # noqa: E731
@@ -1244,38 +1260,153 @@ def block_normal_apply_batched(At, A, W_struct, W_slack, V, out=None,
     return out
 
 
+def _ptrs(ops, key: str) -> np.ndarray:
+    """The device pointers of one array of each operand, as a host array
+    that a C entry reads."""
+    return np.array([getattr(op, key).data_ptr() for op in ops],
+                    dtype=np.uint64)
+
+
+class BlockNormalBatchedPlan:
+    """K16's normal apply bound to one row-blocked operator, float64: out =
+    A (W_struct * (A' V)) + W_slack * V over the P row blocks for V of shape
+    (m, B), with the per-block, per-lane partials of the column dots V.out,
+    laid out as the blocks' K5 launches lay them out (block p's
+    lane_blocks(rows_p, B // vw) rows, end to end). `At_split` is the whole
+    A' split at the row blocks' bounds, `At` and `A` the blocks' A_p' and
+    A_p. The operands are checked, the form picked (takes_fused: one fused
+    launch, csrc/sharded.cu, that writes neither the (P, n, B) parts nor the
+    (n, B) U; else the three-stage form, block_normal_apply_batched) and the
+    C arguments packed once, here; the two forms agree bit for bit. A failed
+    launch raises; nothing retries it in the other form."""
+
+    def __init__(self, At_split, At, A):
+        P = len(A)
+        if not 1 <= P <= MAX_SPLIT or len(At) != P or At_split.P != P:
+            raise ValueError(f"{P} row blocks A_p, {len(At)} A_p' and an A' "
+                             f"split into {At_split.P}: not one operator of "
+                             f"1 to {MAX_SPLIT} blocks")
+        device = _device_of(A[0].vals)
+        _check_split(At_split, device)
+        for op in (*At, *A):
+            _check_operand(op, device, F64)
+        rows = [op.rows for op in A]
+        row_off = np.cumsum([0] + rows).astype(np.int64)
+        n = At_split.rows
+        if (At_split.cols != row_off[-1] or any(op.cols != n for op in A)
+                or not np.array_equal(At_split.bounds, row_off)):
+            raise ValueError("A' is not split at the row blocks' bounds")
+        load()
+        self.At, self.A, self.device = At, A, device
+        self.n, self.m, self.rows = n, int(row_off[-1]), rows
+        self.fused = self.takes_fused(At_split)
+        # host arrays the C entry reads during each call
+        self._host = (row_off, *(_ptrs(A, k) for k in
+                                 ("indptr", "indices", "vals")))
+        self._keep = (At_split,)        # alive while the pointers are used
+        self._t = (At_split.indptr.data_ptr(), At_split.indices.data_ptr(),
+                   At_split.vals.data_ptr())
+        self._grids = {}                # (B, vw): blk_off of the K5 grids
+
+    @staticmethod
+    def takes_fused(At_split) -> bool:
+        """The plan's rule, K6's (k6_fused) on the whole A': the fused launch
+        where the sum of A's squared column lengths is at most
+        K6_FUSED_RATIO nnz(A), which it gathers."""
+        return k6_fused(At_split)
+
+    def width(self, W_struct, W_slack, V, out, partials=None) -> int:
+        """Lanes a thread takes (spmm_width), the blocks' K5 launches' and
+        the fused launch's: V, W_slack, out and the partials are read in
+        both, and their row blocks' slices are aligned when B is even."""
+        return spmm_width(V.shape[1], F64, V, W_struct, W_slack, out,
+                          partials)
+
+    def partials_rows(self, B: int, vw: int) -> list:
+        """Rows of each block's partials at B lanes and width vw."""
+        return [lane_blocks(r, B // vw) for r in self.rows]
+
+    def __call__(self, W_struct, W_slack, V, out=None, partials=None,
+                 state=None, parts=None, U=None, fused=None) -> torch.Tensor:
+        """out = C V, into `out` if given, with the blocks' partials of
+        V.out in `partials` ((sum of partials_rows, B)) if given. `fused`
+        overrides the plan's form (chip_smoke.py and the card tests time
+        and hold the two against each other); `parts` and `U` are the
+        three-stage form's scratch, allocated if not given. `state` is a CR
+        loop's: once it says done, the launches return at once. The fused
+        launch counts as K16's."""
+        n, m, device = self.n, self.m, self.device
+        B = _lanes(V, "V")
+        out = torch.empty((m, B), dtype=F64, device=device) \
+            if out is None else out
+        _check_f64(device, dict(W_struct=(W_struct, (n, B)),
+                                W_slack=(W_slack, (m, B)), V=(V, (m, B)),
+                                out=(out, (m, B))))
+        vw = self.width(W_struct, W_slack, V, out, partials)
+        npc = self.partials_rows(B, vw)
+        if partials is not None:
+            _check(partials, "partials", device, F64, (sum(npc), B))
+        if state is not None:
+            _check(state, "state", device, F64,
+                   int(_lib.ipxt_bcr_state_len(B)))
+        if not (self.fused if fused is None else fused):
+            return block_normal_apply_batched(
+                self.At, self.A, W_struct, W_slack, V, out, parts, U,
+                None if partials is None else _slices(partials, npc), state)
+        if (B, vw) not in self._grids:
+            self._grids[(B, vw)] = np.cumsum([0] + npc).astype(np.int64)
+        row_off, indptr, indices, vals = self._host
+        err = _lib.ipxt_block_normal_batched_f64(
+            len(self.rows), row_off.ctypes.data,
+            self._grids[(B, vw)].ctypes.data, indptr.ctypes.data,
+            indices.ctypes.data, vals.ctypes.data, B, *self._t,
+            V.data_ptr(), W_struct.data_ptr(), W_slack.data_ptr(),
+            out.data_ptr(), _ptr(partials), _ptr(state), vw, _stream(device))
+        _raise_if(err, "block normal apply (fused)")
+        LAUNCHES["sharded_batched_cr_step"] += 1
+        return out
+
+
+def block_plan_of(At_split, At, A) -> BlockNormalBatchedPlan:
+    """The BlockNormalBatchedPlan of a row-blocked operator, built at its
+    first use and kept on `At_split` (keyed by its blocks' operands)."""
+    plans = At_split.__dict__.setdefault("_k16_plans", {})
+    key = (id(At[0]), id(A[0]))
+    if key not in plans:
+        plans[key] = BlockNormalBatchedPlan(At_split, At, A)
+    return plans[key]
+
+
 class _ShardedStep:
     """What the step objects of K15 and K16 share, allocated once per solve
-    on the card of `rhs`: the operands of the first pass of the normal apply
-    (`At`, as block_normal_apply or block_normal_apply_batched takes them)
-    and the row blocks' (`A`: A_p with the block's rows), the loop's vectors
-    of rhs's shape (`r` starts as a copy of rhs), the apply's u, the partials
-    (`pa` of shape `pa_shape`, one partial block per K14-K16 reduction
-    block `nblk[p]` of each row block; `pc`, the block products' partials,
-    `npc[p]` rows per row block), the prefix offsets of the rows and of
-    both partials, and the state, zeros of `state_len`.
+    on the card of `rhs`: the row blocks' operands (`A`: A_p with the
+    block's rows), the loop's vectors of rhs's shape (`r` starts as a copy
+    of rhs), the partials (`pa` of shape `pa_shape`, one partial block per
+    K15-K16 reduction block `nblk[p]` of each row block; `pc`, the block
+    products' partials, `npc[p]` rows per row block), the prefix offsets of
+    the rows and of both partials, and the state, zeros of `state_len`.
 
-    A solve is driven by INIT, the normal apply, START, then TRIP (the
-    passes of one trip, the normal apply where APPLY stands) until done()."""
+    The host-issued form (_host_issued) runs INIT, the normal apply, START,
+    then TRIP (the passes of one trip, the normal apply where APPLY stands)
+    until the state says done, which it reads every POLL trips."""
 
     APPLY = -1
     IT, DONE = 3, 5                 # state slots (csrc/common.cuh)
+    POLL = 5                        # trips between reads of done
 
-    def __init__(self, At, A, W_struct, W_slack, rhs, nblk, npc, pa_shape,
+    def __init__(self, A, W_struct, W_slack, rhs, nblk, npc, pa_shape,
                  state_len):
         device = _device_of(rhs)
         rows = [op.rows for op in A]
-        m, n, P, lanes = rhs.shape[0], W_struct.shape[0], len(rows), \
-            tuple(rhs.shape[1:])
+        m, P, lanes = rhs.shape[0], len(rows), tuple(rhs.shape[1:])
         if sum(rows) != m:
             raise ValueError("row blocks do not cover the m rows")
         e = lambda *s: torch.empty(s, dtype=F64, device=device)  # noqa: E731
-        self.At, self.A, self.P, self.m = At, A, P, m
+        self.A, self.P, self.m, self.device = A, P, m, device
         self.W_struct, self.W_slack = W_struct, W_slack
         self.r = rhs.clone()
         self.y, self.s, self.cs, self.d, self.cd = (e(m, *lanes)
                                                     for _ in range(5))
-        self.u = e(n, *lanes)
         self.nblk = sum(nblk)
         self.pa, self.pc = e(*pa_shape), e(sum(npc), *lanes)
         self._off = (_offsets(rows, device), _offsets(nblk, device),
@@ -1287,22 +1418,47 @@ class _ShardedStep:
                       self.s.data_ptr(), self.cs.data_ptr(),
                       self.d.data_ptr(), self.cd.data_ptr(),
                       self.pa.data_ptr(), self.nblk, self.pc.data_ptr(),
-                      self.state.data_ptr(), _stream(device))
+                      self.state.data_ptr())
+        self._stream = _stream(device)
 
-    def done(self) -> bool:
-        return bool(self.state[self.DONE].item())
+    def _host_issued(self, maxiter: int, tol: float) -> None:
+        """Runs the loop from the start, the host issuing every pass and
+        apply; trip `maxiter` always stops, so the loop ends by trip
+        maxiter + 1."""
+        self.launch(self.INIT, 0, maxiter, tol)
+        self.normal_apply()
+        self.launch(self.START, 0, maxiter, tol)
+        k = 0
+        while True:
+            for phase in self.TRIP:
+                if phase == self.APPLY:
+                    self.normal_apply()
+                else:
+                    self.launch(phase, k, maxiter, tol)
+            k += 1
+            if (k % self.POLL == 0 or k > maxiter) and bool(
+                    self.state[self.DONE].item()):
+                return
 
 
 class ShardedCrStep(_ShardedStep):
-    """K15: the passes of one row-blocked CR solve (csrc/sharded.cu) on one
-    card, for ShardedDiagCR (`ladder`, the scaled norm with `resscale`) and
+    """K15: one row-blocked CR solve (csrc/sharded.cu) on one card, for
+    ShardedDiagCR (`ladder`, the scaled norm with `resscale`) and
     sharded_cr_solve (no ladder, resscale None: the unscaled norm).
     W_struct (n,), W_slack, invd, resscale and rhs (m,), float64 on the
-    card; `At` the whole A' split at the row blocks' bounds (K14v)."""
+    card; `At` the whole A' split at the row blocks' bounds (K14v's), `A`
+    the blocks' A_p. One solve an object.
+
+    solve() runs the whole loop, each trip's normal apply inside (K14v's
+    split sum and the block products through K1's row body), in one
+    cooperative launch; solve(cooperative=False) runs the host-issued
+    passes and the apply as a K14v and a K1 launch (BlockSpmvPlan), which
+    the solvers never ask for: the card tests and chip_smoke.py hold the two
+    forms bit for bit."""
 
     INIT, START, PASS_A, PASS_B, PASS_C = range(5)
     TRIP = (PASS_A, PASS_B, _ShardedStep.APPLY, PASS_C)
-    ERR, RESNORM = 4, 7             # state slots (csrc/sharded.cu)
+    ERR, APPLIES, RESNORM = 4, 6, 7  # state slots (csrc/sharded.cu)
 
     def __init__(self, At, A, W_struct, W_slack, invd, resscale, rhs,
                  ladder: bool):
@@ -1314,52 +1470,83 @@ class ShardedCrStep(_ShardedStep):
         if resscale is not None:
             shapes["resscale"] = (resscale, m)
         _check_f64(device, shapes)
+        _check_split(At, device)
+        if (At.rows, At.cols, At.P) != (n, m, len(A)):
+            raise ValueError(f"At is {At.rows} x {At.cols} in {At.P} blocks, "
+                             f"not A' of {len(A)} row blocks of {m} rows")
         nblk = [int(lib.ipxt_scr_blocks(op.rows)) for op in A]
         _, pc_off = block_layout([op.rows for op in A],
                                  [k1_lanes(op) for op in A])
-        super().__init__(At, A, W_struct, W_slack, rhs, nblk,
+        super().__init__(A, W_struct, W_slack, rhs, nblk,
                          np.diff(pc_off).tolist(), (2 * sum(nblk),),
                          int(lib.ipxt_cr_state_len()))
+        self.At = At
+        self.u = torch.empty(n, dtype=F64, device=device)
         self._keep = (invd, resscale)     # alive while the loop runs
         self._args = (*(t.data_ptr() for t in self._off), invd.data_ptr(),
                       _ptr(resscale), *self._tail)
         self._ladder = int(bool(ladder))
         self._products = BlockSpmvPlan(A, self.u, self.cs, W_slack, self.s,
                                        self.pc, self.state)
+        self._apply = (*_op_args(At), At.inner_ptr,
+                       *self._products.host_args, W_struct.data_ptr(),
+                       W_slack.data_ptr(), self.u.data_ptr(), self._stream)
+
+    def solve(self, maxiter: int, tol: float, cooperative: bool = True):
+        """Runs the loop from the start and returns (y on the card,
+        iterations, error code, residual norm at the stop) from one read of
+        the state. The cooperative launch counts one K15 launch and adds the
+        applies it ran to INSIDE, one K14v and one K1 each; a refused launch
+        raises."""
+        if cooperative:
+            err = _lib.ipxt_scr_solve_f64(self.m, self.P, maxiter, float(tol),
+                                          self._ladder, *self._args,
+                                          *self._apply)
+            _raise_if(err, "sharded_cr_step (cooperative solve)")
+            LAUNCHES["sharded_cr_step"] += 1
+        else:
+            self._host_issued(maxiter, tol)
+        st = self.state.cpu()
+        if cooperative:
+            for name in ("block_spmv_sum", "csr_spmv"):
+                INSIDE[name] += int(st[self.APPLIES])
+        return (self.y, int(st[self.IT]), int(st[self.ERR]),
+                float(st[self.RESNORM]))
 
     def normal_apply(self) -> None:
-        """cs = C s over the row blocks in two launches, K14v then the
-        block products (BlockSpmvPlan), with the block products' partials of
-        the dots s.cs per row block."""
+        """The host-issued form's cs = C s over the row blocks in two
+        launches, K14v then the block products (BlockSpmvPlan), with the
+        block products' partials of the dots s.cs per row block."""
         block_spmv_sum(self.At, self.s, self.W_struct, out=self.u,
                        state=self.state)
         self._products.launch()
 
     def launch(self, phase: int, k: int, maxiter: int, tol: float) -> None:
         err = _lib.ipxt_scr_step_f64(phase, self.m, self.P, k, maxiter,
-                                     float(tol), self._ladder, *self._args)
+                                     float(tol), self._ladder, *self._args,
+                                     self._stream)
         _raise_if(err, f"sharded_cr_step phase {phase}")
         LAUNCHES["sharded_cr_step"] += 1
 
-    def result(self):
-        """(y on the card, iterations, error code, residual norm)."""
-        st = self.state.cpu()
-        return (self.y, int(st[self.IT]), int(st[self.ERR]),
-                float(st[self.RESNORM]))
-
 
 class ShardedBatchedCrStep(_ShardedStep):
-    """K16: the passes of one row-blocked, lane-masked batched CR solve
-    (csrc/sharded.cu) on one card, for sharded_batched_cr_solve.
-    W_struct (n, B), W_slack, invd and rhs (m, B), float64 on the card; tol
-    a number; `At` the blocks' A_p' operands. On one card the reference's
-    batch mesh axis is the column range of these arrays, so it needs
-    nothing here."""
+    """K16: one row-blocked, lane-masked batched CR solve (csrc/sharded.cu)
+    on one card, for sharded_batched_cr_solve. W_struct (n, B), W_slack,
+    invd and rhs (m, B), float64 on the card; tol a number; `At_split` the
+    whole A' split at the row blocks' bounds, `At` and `A` the blocks' A_p'
+    and A_p. The host issues the passes (_host_issued); each trip's normal
+    apply goes through the operator's BlockNormalBatchedPlan, one fused
+    launch where its rule allows, and only the three-stage form gets the
+    (P, n, B) parts and the (n, B) U. On one card the reference's batch mesh
+    axis is the column range of these arrays, so it needs nothing here. One
+    solve an object. `fused` overrides the plan's form, for the comparisons
+    of chip_smoke.py and the card tests."""
 
     INIT, START, PASS_A, LANE, PASS_B, BETA = range(6)
     TRIP = (PASS_A, LANE, PASS_B, _ShardedStep.APPLY, BETA)
 
-    def __init__(self, At, A, W_struct, W_slack, invd, rhs):
+    def __init__(self, At_split, At, A, W_struct, W_slack, invd, rhs,
+                 fused: bool = None):
         device = _device_of(rhs)
         lib = load()
         m, B = rhs.shape[0], _lanes(rhs, "rhs")
@@ -1367,37 +1554,44 @@ class ShardedBatchedCrStep(_ShardedStep):
         _check_f64(device, dict(W_struct=(W_struct, (n, B)),
                                 W_slack=(W_slack, (m, B)),
                                 invd=(invd, (m, B)), rhs=(rhs, (m, B))))
+        self.plan = block_plan_of(At_split, At, A)
         nblk = [red_blocks(op.rows, B) for op in A]
-        vw = spmm_width(B, F64)
-        npc = [lane_blocks(op.rows, B // vw) for op in A]
+        npc = self.plan.partials_rows(B, spmm_width(B, F64))
         # the state's length is K7's, which K5 checks
-        super().__init__(At, A, W_struct, W_slack, rhs, nblk, npc,
+        super().__init__(A, W_struct, W_slack, rhs, nblk, npc,
                          (2, B, sum(nblk)), int(lib.ipxt_sbcr_state_len(B)))
         self.B = B
-        self.pc_slices = _slices(self.pc, npc)
-        self.parts = torch.empty((self.P, n, B), dtype=F64, device=device)
+        self.fused = self.plan.fused if fused is None else bool(fused)
+        self.parts = self.U = None
+        if not self.fused:
+            self.parts = torch.empty((self.P, n, B), dtype=F64, device=device)
+            self.U = torch.empty((n, B), dtype=F64, device=device)
         self._keep = invd
         self._args = (*(t.data_ptr() for t in self._off), invd.data_ptr(),
-                      *self._tail)
+                      *self._tail, self._stream)
+
+    def solve(self, maxiter: int, tol: float):
+        """Runs the loop from the start and returns (Y on the card, trips).
+        With the fused apply, the K14 sums that ran inside it (one an apply
+        that did work: 1 + trips) count in INSIDE."""
+        self._host_issued(maxiter, tol)
+        it = int(self.state[self.IT].item())
+        if self.fused:
+            INSIDE["block_sum"] += 1 + it
+        return self.y, it
 
     def normal_apply(self) -> None:
-        """cs = C s over the row blocks (block_normal_apply_batched: K5 per
-        block, K14, K5 per block), with the block products' partials of the
-        column dots s.cs per block."""
-        block_normal_apply_batched(self.At, self.A, self.W_struct,
-                                   self.W_slack, self.s, out=self.cs,
-                                   parts=self.parts, U=self.u,
-                                   partials=self.pc_slices, state=self.state)
+        """cs = C s over the row blocks through the plan, with the blocks'
+        partials of the column dots s.cs."""
+        self.plan(self.W_struct, self.W_slack, self.s, out=self.cs,
+                  partials=self.pc, state=self.state, parts=self.parts,
+                  U=self.U, fused=self.fused)
 
     def launch(self, phase: int, k: int, maxiter: int, tol: float) -> None:
         err = _lib.ipxt_sbcr_step_f64(phase, self.m, self.B, self.P, k,
                                       maxiter, float(tol), *self._args)
         _raise_if(err, f"sharded_batched_cr_step phase {phase}")
         LAUNCHES["sharded_batched_cr_step"] += 1
-
-    def result(self):
-        """(Y on the card, trips)."""
-        return self.y, int(self.state[self.IT].item())
 
 
 # -- K17: the level-scheduled triangular solve, float64 ---------------------

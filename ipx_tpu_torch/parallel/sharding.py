@@ -25,19 +25,23 @@ Kernels, each wrapper with its plain PyTorch version beside it:
 * the block products: K1 ``csr_spmv`` (csrc/spmv.cu), one launch over the
   P blocks' CSR operands of A_p for the vector apply (BlockSpmvPlan), and K5
   ``csr_spmm`` (csrc/spmm.cu) per block on those of A_p and A_p' for the
-  batched one;
+  batched one's three-stage form;
 * K14v ``block_spmv_sum`` (csrc/nnt.cu): the vector apply's first half and
   its psum in one launch, u = W_struct * sum_p A_p' v_p in block order, on
   the whole A' split at the row blocks' bounds (ops/spmv.py's split
   layout); no parts array;
 * K14 ``block_sum`` (csrc/sharded.cu): the batched apply's psum, out =
-  scale * sum_p part_p in block order, over the parts that K5 wrote;
+  scale * sum_p part_p in block order, over the parts that K5 wrote (the
+  three-stage form);
 * K4 ``nnt`` (csrc/nnt.cu): the column-blocked N N' with its psum, one
   launch per apply on the whole N split at the column blocks' bounds;
-* K15 ``sharded_cr_step``: the passes of ShardedDiagCR and
-  sharded_cr_solve (``sharded_cr``);
+* K15 ``sharded_cr_step``: a whole ShardedDiagCR or sharded_cr_solve loop,
+  its vector applies (K14v's split sum and K1's block products) inside,
+  in one cooperative launch (``sharded_cr``);
 * K16 ``sharded_batched_cr_step``: the passes of sharded_batched_cr_solve
-  (``sharded_batched_cr``).
+  (``sharded_batched_cr``) and its batched apply, one fused launch that
+  writes neither the parts nor W_struct * sum_p A_p' V_p where A's columns
+  are short (kernels.BlockNormalBatchedPlan), else the three-stage form.
 
 Not carried over: make_row_mesh and its fallback to the CPU's virtual
 devices (the device rule is backend.resolve_sharded's, and a failure
@@ -60,7 +64,6 @@ from ..ops.device_cr2 import NntPlan, nnt_plain
 from ..ops.spmv import CsrOperand, csr_spmm_plain, csr_spmv_plain
 
 F64 = torch.float64
-POLL = 5            # trips between host reads of K15's and K16's stop flag
 
 __all__ = ["ShardedNormalMatrix", "ShardedDiagCR", "sharded_cr_solve",
            "sharded_batched_cr_solve", "ShardedSplittedNNt",
@@ -170,15 +173,17 @@ def _block_apply_plain(snm, W_struct, W_slack, v, prod):
 def block_normal_apply(snm: ShardedNormalMatrix, W_struct, W_slack, v):
     """C v over the row blocks. For v of shape (m,): u = W_struct * sum_p
     A_p' v_p in one K14v launch, then A_p u + W_slack_p v_p for every block
-    in one K1 launch. For (m, B): A_p' V_p per block (K5), their ordered sum scaled by
+    in one K1 launch. For (m, B), through the operator's
+    kernels.BlockNormalBatchedPlan: one fused launch where A's columns are
+    short, else A_p' V_p per block (K5), their ordered sum scaled by
     W_struct (K14), then per block (K5)."""
     if v.device.type == "cpu":
         return _block_apply_plain(snm, W_struct, W_slack, v,
                                   csr_spmm_plain if v.dim() == 2
                                   else csr_spmv_plain)
     if v.dim() == 2:
-        return kernels.block_normal_apply_batched(snm.op_At, snm.op_A,
-                                                  W_struct, W_slack, v)
+        return kernels.block_plan_of(snm.op_At_split, snm.op_At, snm.op_A)(
+            W_struct, W_slack, v)
     return kernels.block_normal_apply(snm.op_At_split, snm.op_A, W_struct,
                                       W_slack, v)
 
@@ -243,38 +248,18 @@ def sharded_cr_plain(snm, W_struct, W_slack, invd, resscale, rhs, tol: float,
     return y, it, err, float(resnorm_of(r))
 
 
-def _run_on_card(cr, maxiter: int, tol: float):
-    """Drives a K15 or K16 step object (kernels.ShardedCrStep or
-    ShardedBatchedCrStep) on the card: its INIT pass, the normal apply with
-    the block products, its START pass, then its TRIP until the stop flag,
-    which the host reads every POLL trips. Returns cr.result()."""
-    cr.launch(cr.INIT, 0, maxiter, tol)
-    cr.normal_apply()
-    cr.launch(cr.START, 0, maxiter, tol)
-    k = 0
-    while True:
-        for phase in cr.TRIP:
-            if phase == cr.APPLY:
-                cr.normal_apply()
-            else:
-                cr.launch(phase, k, maxiter, tol)
-        k += 1
-        # trip `maxiter` always stops, so the loop ends by trip maxiter + 1
-        if (k % POLL == 0 or k > maxiter) and cr.done():
-            return cr.result()
-
-
 def sharded_cr(snm, W_struct, W_slack, invd, resscale, rhs, tol: float,
                maxiter: int, ladder: bool = True):
     """K15: CR on (A W A') y = rhs over the row blocks with preconditioner
-    1/invd, on the device of `rhs`; float64 tensors. Returns (y,
-    iterations, error code, residual norm at the stop)."""
+    1/invd, on the device of `rhs`; float64 tensors. On the card the whole
+    loop is one cooperative launch (kernels.ShardedCrStep.solve). Returns
+    (y, iterations, error code, residual norm at the stop)."""
     if rhs.device.type == "cpu":
         return sharded_cr_plain(snm, W_struct, W_slack, invd, resscale, rhs,
                                 tol, maxiter, ladder)
-    return _run_on_card(kernels.ShardedCrStep(
+    return kernels.ShardedCrStep(
         snm.op_At_split, snm.op_A, W_struct, W_slack, invd, resscale, rhs,
-        ladder), maxiter, tol)
+        ladder).solve(maxiter, tol)
 
 
 class ShardedDiagCR:
@@ -380,12 +365,15 @@ def sharded_batched_cr(snm, W_struct, W_slack, invd, RHS, tol: float,
                        maxiter: int):
     """K16: the lane-masked CR over the row blocks for RHS (m, B), with
     per-scenario W_struct (n, B), W_slack and invd (m, B), float64 on the
-    device of RHS. Returns (Y, trips)."""
+    device of RHS. On the card the host issues the passes, and each trip's
+    normal apply is one fused launch where the operator's plan allows it
+    (kernels.BlockNormalBatchedPlan). Returns (Y, trips)."""
     if RHS.device.type == "cpu":
         return sharded_batched_cr_plain(snm, W_struct, W_slack, invd, RHS,
                                         tol, maxiter)
-    return _run_on_card(kernels.ShardedBatchedCrStep(
-        snm.op_At, snm.op_A, W_struct, W_slack, invd, RHS), maxiter, tol)
+    return kernels.ShardedBatchedCrStep(
+        snm.op_At_split, snm.op_At, snm.op_A, W_struct, W_slack, invd,
+        RHS).solve(maxiter, tol)
 
 
 def sharded_batched_cr_solve(snm: ShardedNormalMatrix, W_struct, W_slack,

@@ -1041,11 +1041,12 @@ def test_block_sum_bit_for_bit(dev, P):
 
 @pytest.mark.parametrize("m, B", [(613, None), (613, 5), (5, None), (5, 4)])
 def test_block_normal_apply_on_card(dev, m, B):
-    """K14v and one K1 launch over the row blocks (vector), K5 per row
-    block and K14 (batched): 1e-12 of the plain version, a ragged last block
-    and (m = 5 over 4 blocks) an empty one; two launches for the vector
-    apply, with no K14, and 2P + 1 for the batched one; bit for bit from run
-    to run."""
+    """K14v and one K1 launch over the row blocks (vector); through K16's
+    plan (batched), K5 per row block and K14 at m = 613, one fused launch
+    at m = 5: 1e-12 of the plain version, a ragged last block and (m = 5
+    over 4 blocks) an empty one; two launches for the vector apply, with no
+    K14, and 2P + 1 or one for the batched one; bit for bit from run to
+    run."""
     from ipx_tpu_torch.parallel import sharding
     _, snm, Ws, Wl, _, _, v = _sharded_inputs(dev, m, 300, seed=7, B=B)
     before = dict(kernels.LAUNCHES)
@@ -1058,8 +1059,12 @@ def test_block_normal_apply_on_card(dev, m, B):
     moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     if B is None:
         assert moved == {"block_spmv_sum": 1, "csr_spmv": 1}
-    else:
-        assert moved == {"csr_spmm": 8, "block_sum": 1}
+    else:       # the fused form on m = 5 (columns of 1-2 entries)
+        fused = kernels.block_plan_of(snm.op_At_split, snm.op_At,
+                                      snm.op_A).fused
+        assert fused is (m == 5)
+        assert moved == ({"sharded_batched_cr_step": 1} if fused
+                         else {"csr_spmm": 8, "block_sum": 1})
 
 
 @pytest.mark.parametrize("P", [1, 3, 4])
@@ -1131,6 +1136,205 @@ def test_sharded_cr_ladder_on_card(dev, case, errflag):
     assert torch.equal(got[0], want[0])
 
 
+# K15's cooperative launch against its host-issued passes: (P, m, n) of
+# the operator, one with an empty last row block ([3, 3, 3, 0])
+SCR_CONFIGS = {"P1": (1, 613, 900), "P2": (2, 613, 900), "P4": (4, 613, 900),
+               "P4-empty": (4, 9, 30)}
+
+
+def _scr_coop_config(config):
+    """Runs K15 in both forms on the cases of one operator and asserts them
+    equal bit for bit: y, iterations, error code and residual norm; each
+    ladder case is the plain version's too. Trips 1-5 and a converged
+    solve with and without the ladder, the ladder's 202 (negative weights,
+    positive preconditioner), 203 (both negative) and 205 (a right-hand
+    side whose dots overflow), and a NaN in the right-hand side (the loop
+    stops before the first trip). Also K15's counts: one launch a solve,
+    the applies it ran (1 + trips) inside it as one K14v and one K1 each,
+    no K14v or K1 launch, the same on a second read. Run in a subprocess by
+    the test below, so that a grid that deadlocks fails on its time
+    limit."""
+    from ipx_tpu_torch import backend
+    from ipx_tpu_torch.parallel import sharding
+    dev = backend.cuda_device()
+    P, m, n = SCR_CONFIGS[config]
+    base = _sharded_inputs(dev, m, n, seed=20 + P, P=P)
+    _, snm, Ws0, Wl0, invd0, rs0, rhs0 = base
+    if config == "P4-empty":
+        assert snm.rows[-1] == 0, snm.rows
+    cases = [(f"trips{k}", k) for k in range(1, 6)] + [
+        ("converged", None), ("202", 202), ("203", 203), ("205", 205),
+        ("nan", "nan")]
+    for ladder in (True, False):
+        for name, case in cases:
+            Ws, Wl, invd, rs, rhs = Ws0, Wl0, invd0, rs0, rhs0.clone()
+            tol, maxiter = 1e-10, 2000
+            if isinstance(case, int) and case < 10:
+                tol, maxiter = 0.0, case
+            elif case == 202:
+                Ws, Wl = -Ws, -Wl
+            elif case == 203:
+                Ws, Wl, invd = -Ws, -Wl, -invd
+            elif case == 205:
+                rhs = rhs * 1e160
+            elif case == "nan":
+                rhs[m // 2] = float("nan")
+            r = rs if ladder else None
+
+            def form(cooperative):
+                return kernels.ShardedCrStep(
+                    snm.op_At_split, snm.op_A, Ws, Wl, invd, r, rhs,
+                    ladder).solve(maxiter, tol, cooperative)
+            kernels.reset_launches()
+            y, it, err, res = form(True)
+            launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            inside = dict(kernels.INSIDE)
+            assert launched == {"sharded_cr_step": 1}, (name, launched)
+            assert inside["block_spmv_sum"] == inside["csr_spmv"] == 1 + it
+            y_h, it_h, err_h, res_h = form(False)
+            torch.cuda.synchronize()
+            assert (it, err) == (it_h, err_h), (config, name, ladder,
+                                                (it, err), (it_h, err_h))
+            # bit for bit, NaN included (a solve that overflows)
+            assert torch.equal(y.view(torch.int64), y_h.view(torch.int64)), (
+                config, name, ladder)
+            assert res == res_h or (np.isnan(res) and np.isnan(res_h))
+            want = sharding.sharded_cr_plain(snm, Ws, Wl, invd, r, rhs, tol,
+                                             maxiter, ladder)
+            if name.startswith("trips"):
+                assert it == case and err == 0, (name, it, err)
+                assert _rel(y, want[0]) <= 1e-12, (config, name)
+            elif name == "converged":
+                assert err == 0 and res <= tol and abs(it - want[1]) <= 2
+            elif name == "nan":
+                assert (it, err) == (0, 0) and np.isnan(res)
+                assert not bool(y.any())
+            elif ladder:    # the trip stops with y unchanged
+                assert (it, err) == want[1:3] == (1, case), (name, it, err)
+                assert not bool(y.any())
+            print(config, name, ladder, it, err)
+
+
+@pytest.mark.parametrize("config", list(SCR_CONFIGS))
+def test_sharded_cr_cooperative_matches_host_issued(dev, config):
+    """K15's cooperative launch against its host-issued passes, bit for
+    bit in every stop case, at P = 1, 2 and 4 and with an empty row block,
+    in a subprocess with a time limit."""
+    import os
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {here!r}); "
+            f"import test_torch_cuda as t; t._scr_coop_config({config!r})")
+    out = subprocess.run([sys.executable, "-c", code],
+                         cwd=os.path.dirname(here), capture_output=True,
+                         text=True, timeout=180)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+
+
+def _pairs(m, n, seed):
+    """A CSC matrix of m rows whose n columns hold 2 nonzeros each (random
+    values), the pattern of the transportation LPs, on which K16's plan
+    takes the fused apply."""
+    rng = np.random.default_rng(seed)
+    rows = np.sort(np.stack([rng.choice(m, 2, replace=False)
+                             for _ in range(n)]), axis=1)
+    return sp.csc_matrix((rng.uniform(0.5, 1.5, 2 * n), rows.ravel(),
+                          np.arange(0, 2 * n + 1, 2)), shape=(m, n))
+
+
+# (P, matrix): the pattern of the fused form (2 a column, an empty last
+# block at P = 4 and m = 9) and of the three-stage one (random columns of
+# about 30)
+K16_OPERATORS = {
+    "pairs-P1": (1, lambda: _pairs(200, 500, 1)),
+    "pairs-P2": (2, lambda: _pairs(200, 500, 2)),
+    "pairs-P4": (4, lambda: _pairs(613, 900, 3)),
+    "pairs-P4-empty": (4, lambda: _pairs(9, 30, 4)),
+    "random-P4": (4, lambda: _matrix(613, 300, 0.05, 5)[0]),
+}
+
+
+@pytest.mark.parametrize("B", [1, 7, 256])
+@pytest.mark.parametrize("name", list(K16_OPERATORS))
+def test_block_normal_batched_fused_matches_three_stage(dev, name, B):
+    """K16's fused apply against the three-stage form's 2P + 1 launches
+    (K5 per block, K14, K5 per block): out and the partials bit for bit,
+    on operators where the plan takes either form, at B = 1, 7 (no vector
+    loads) and 256; 1e-12 of the plain version; the fused form one K16
+    launch and no K5 or K14, the three-stage 2P + 1; with a done CR state
+    neither form writes out."""
+    from ipx_tpu_torch.parallel import sharding
+    P, make = K16_OPERATORS[name]
+    A = make()
+    m, n = A.shape
+    snm = sharding.ShardedNormalMatrix(A, P, dev)
+    plan = kernels.block_plan_of(snm.op_At_split, snm.op_At, snm.op_A)
+    assert plan.fused is name.startswith("pairs")
+    if name.endswith("empty"):
+        assert snm.rows[-1] == 0
+    rng = np.random.default_rng(B)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    Ws, Wl, V = t(rng.uniform(0.1, 3.0, (n, B))), t(
+        rng.uniform(0.1, 3.0, (m, B))), t(rng.standard_normal((m, B)))
+    vw = plan.width(Ws, Wl, V, V)
+    rows = sum(plan.partials_rows(B, vw))
+    outs, parts = {}, {}
+    for fused in (True, False):
+        out = torch.full((m, B), 7.0, dtype=torch.float64, device=dev)
+        pc = torch.full((rows, B), 7.0, dtype=torch.float64, device=dev)
+        kernels.reset_launches()
+        plan(Ws, Wl, V, out=out, partials=pc, fused=fused)
+        launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        assert launched == ({"sharded_batched_cr_step": 1} if fused else
+                            {"csr_spmm": 2 * P, "block_sum": 1}), launched
+        outs[fused], parts[fused] = out, pc
+    torch.cuda.synchronize()
+    assert torch.equal(outs[True], outs[False])
+    assert torch.equal(parts[True], parts[False])
+    want = sharding._block_apply_plain(snm, Ws, Wl, V, spmv.csr_spmm_plain)
+    assert _rel(outs[True], want) <= 1e-12
+    state = torch.zeros(int(kernels.load().ipxt_sbcr_state_len(B)),
+                        dtype=torch.float64, device=dev)
+    state[5] = 1.0                              # kDone
+    for fused in (True, False):
+        idle = torch.full((m, B), 7.0, dtype=torch.float64, device=dev)
+        plan(Ws, Wl, V, out=idle, state=state, fused=fused)
+        assert bool((idle == 7.0).all())
+
+
+@pytest.mark.parametrize("name", ["pairs-P4", "pairs-P4-empty", "random-P4"])
+def test_sharded_batched_cr_fused_matches_three_stage(dev, name):
+    """K16's solve with the fused apply and with the three-stage one, bit
+    for bit (Y and trips) at B = 5, converged; only the three-stage step
+    allocates the parts and U; with the fused apply its K14 sums run
+    inside, one an apply that did work (1 + trips)."""
+    from ipx_tpu_torch.parallel import sharding
+    P, make = K16_OPERATORS[name]
+    A = make()
+    m, n = A.shape
+    snm = sharding.ShardedNormalMatrix(A, P, dev)
+    rng = np.random.default_rng(6)
+    W = rng.uniform(0.5, 2.0, (n + m, 5))
+    A2 = A.copy()
+    A2.data **= 2
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    args = (snm.op_At_split, snm.op_At, snm.op_A, t(W[:n]), t(W[n:]),
+            t(1.0 / (A2 @ W[:n] + W[n:])), t(rng.standard_normal((m, 5))))
+    got = {}
+    for fused in (True, False):
+        kernels.reset_launches()
+        cr = kernels.ShardedBatchedCrStep(*args, fused=fused)
+        assert (cr.U is None) is fused and (cr.parts is None) is fused
+        got[fused] = cr.solve(2000, 1e-10)
+        assert kernels.INSIDE["block_sum"] == (1 + got[fused][1]
+                                               if fused else 0)
+        assert (kernels.LAUNCHES["block_sum"] > 0) is not fused
+    torch.cuda.synchronize()
+    assert got[True][1] == got[False][1] > 0
+    assert torch.equal(got[True][0], got[False][0])
+
+
 def test_sharded_batched_cr_per_trip_and_converged(dev):
     """K16 against its plain version on the card, B = 5 with a lane that is
     done at once: after each of trips 1-5 Y within 1e-12 and the same trip
@@ -1198,8 +1402,10 @@ def test_sharded_blocks_default_to_the_card(dev):
 def test_sharded_lp_solve_on_card(dev, device):
     """LpSolver(shards=4) with device "cuda" and "auto" (row-blocked
     phase 1 and column-blocked N N' in phase 2, both on the card): status
-    1000, the host solve's objective to 1e-8, K14v, K15 and K4 launched and
-    K14 not (the vector paths have no standalone psum)."""
+    1000, the host solve's objective to 1e-8, K15 launched once a sharded
+    CR solve with its applies inside (K14v and K1 launched no time, their
+    applies inside K15 equal, 1 + trips a solve), K4 launched and K14 not
+    (the vector paths have no standalone psum)."""
     from ipx_tpu_torch import LpSolver, Parameters
     from ipx_tpu_torch import testgen as tg
     data = tg.transportation(60, 90, 0.05, seed=3)
@@ -1211,11 +1417,15 @@ def test_sharded_lp_solve_on_card(dev, device):
     assert s.solve() == 1000
     want = host.get_info().objval
     assert abs(s.get_info().objval - want) <= 1e-8 * abs(want)
-    assert kernels.LAUNCHES["block_spmv_sum"] > 0
+    cr = s.model._sharded_cr[1]
+    assert kernels.LAUNCHES["block_spmv_sum"] == 0
+    assert kernels.LAUNCHES["csr_spmv"] == 0
     assert kernels.LAUNCHES["block_sum"] == 0
-    assert kernels.LAUNCHES["sharded_cr_step"] > 0
+    assert kernels.LAUNCHES["sharded_cr_step"] == cr.solves > 0
+    assert (kernels.INSIDE["block_spmv_sum"] == kernels.INSIDE["csr_spmv"]
+            == cr.solves + cr.iterations)
     assert kernels.LAUNCHES["nnt"] > 0
-    assert s.model._sharded_cr[1].device.type == "cuda"
+    assert cr.device.type == "cuda"
     nnt = s.model._sharded_nnt[1]
     assert nnt.applies > 0 and nnt.device.type == "cuda"
 

@@ -1,9 +1,9 @@
 """The host side of the kernels' plans (ipx_tpu_torch/kernels.py), on the
 CPU: the layout of the block products' one launch over P row blocks, which
 must give each block the CUDA blocks and partial slots of its own K1
-launch; the rule by which K6's plan takes its fused launch; and the plans'
-and K3's refusal of CPU tensors before the kernel library is built or
-loaded.
+launch; the rules by which K6's and K16's plans take their fused launches;
+and the plans' and the step objects' refusal of CPU tensors before the
+kernel library is built or loaded.
 
 The layout is held exactly against blocks_for(rows, 256 // vec) per block,
 computed here, on the row blocks that ShardedNormalMatrix cuts (the blocks'
@@ -133,6 +133,22 @@ def test_k6_plan_rule_by_column_lengths(make, fused):
         assert nmd.op_At.sq_rows == 2 * A.nnz
 
 
+@pytest.mark.parametrize("P", [1, 4])
+@pytest.mark.parametrize("make, fused", K6_CASES)
+def test_k16_plan_rule_by_column_lengths(make, fused, P):
+    """K16's plan (BlockNormalBatchedPlan.takes_fused) on the whole A'
+    split at P row blocks: the fused launch where the sum of A's squared
+    column lengths is at most K6_FUSED_RATIO nnz(A), K6's rule, whatever
+    the blocks; the split operand's sq_rows is that sum over whole columns,
+    not over the blocks' segments."""
+    A = make()
+    snm = port.ShardedNormalMatrix(A, P, CPU)
+    lengths = np.diff(A.indptr)
+    assert snm.op_At_split.sq_rows == int(np.sum(lengths ** 2))
+    assert kernels.BlockNormalBatchedPlan.takes_fused(
+        snm.op_At_split) is fused
+
+
 @pytest.fixture
 def no_library(monkeypatch):
     """Fails the test if anything builds or loads the kernel library."""
@@ -194,15 +210,45 @@ def _cr_step():
     kernels.CrStep(nmd.op_At, nmd.op_A, e(42), e(30), e(30), e(30))
 
 
+def _sharded_operands():
+    A = _rows_of([4] * 30, 12, seed=5)
+    snm = port.ShardedNormalMatrix(sp.csc_matrix(A), 3, CPU)
+    e = lambda *s: torch.ones(s, dtype=torch.float64)  # noqa: E731
+    return snm, e
+
+
+def _block_batched_plan():
+    snm, _ = _sharded_operands()
+    kernels.BlockNormalBatchedPlan(snm.op_At_split, snm.op_At, snm.op_A)
+
+
+def _sharded_batched_cr_step():
+    snm, e = _sharded_operands()
+    kernels.ShardedBatchedCrStep(snm.op_At_split, snm.op_At, snm.op_A,
+                                 e(12, 3), e(30, 3), e(30, 3), e(30, 3))
+
+
+def _sharded_cr_solve():
+    snm, e = _sharded_operands()
+    kernels.ShardedCrStep(snm.op_At_split, snm.op_A, e(12), e(30), e(30),
+                          e(30), e(30), True).solve(5, 1e-10)
+
+
 @pytest.mark.parametrize("make", [_spmv_plan, _csr_spmv, _block_plan,
                                   _batched_cr_step, _normal_plan,
-                                  _normal_apply_batched, _cr_step],
+                                  _normal_apply_batched, _cr_step,
+                                  _block_batched_plan,
+                                  _sharded_batched_cr_step,
+                                  _sharded_cr_solve],
                          ids=["SpmvPlan", "csr_spmv", "BlockSpmvPlan",
                               "BatchedCrStep", "NormalBatchedPlan",
-                              "normal_apply_batched", "CrStep"])
+                              "normal_apply_batched", "CrStep",
+                              "BlockNormalBatchedPlan",
+                              "ShardedBatchedCrStep", "ShardedCrStep.solve"])
 def test_plans_refuse_cpu_tensors_before_loading(no_library, make):
-    """K1's plans, csr_spmv, K7's step object, K6's plan and wrapper and
-    K3's step object (its cooperative solve and host-issued passes) take
+    """K1's plans, csr_spmv, K7's step object, K6's plan and wrapper, K3's
+    step object (its cooperative solve and host-issued passes), K16's plan
+    and step object and K15's step object (its cooperative solve) take
     CUDA tensors only, and say so before the kernel library is built or
     loaded."""
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -73,11 +73,14 @@ with the card's nvidia-smi name and power limit:
   sharded  K4 over 4 column blocks of phase 2's N, K14v and K14-K16 and
            their plain versions at the shapes of chip_smoke.py phase 9 (4
            row blocks of the presolved LP, B = 256 for K14 and K16): host
-           wall time and device time per call; then
-           LpSolver(shards=4) with device "cuda" and "auto": wall time, and
-           for "cuda" the device busy share, the largest device items and
-           K1's launches per vector apply (one since the block products
-           are one launch);
+           wall time and device time per call; K15's cooperative launch
+           and its host-issued passes on 20 trips (its launches and the
+           applies inside it), K16's fused apply and its three-stage form,
+           alone and in 10-trip solves, in turns: device time per call and
+           per trip; then LpSolver(shards=4) with device "cuda" and
+           "auto": wall time, phase times, K15's launches against the
+           sharded CR solves and the K14v and K1 applies inside them, and
+           for "cuda" the device busy share and the largest device items;
   entry    one step of ipx_tpu_torch.entry.entry() on the card (K5-K13 at
            m = 32, n = 48, B = 8) and the same step through the plain
            versions: host wall time and device time per call, from copies
@@ -111,8 +114,8 @@ from ipx_tpu_torch.sparse import normal_diag  # noqa: E402
 from ipx_tpu_torch.ops import device_cr, device_cr2, spmv  # noqa: E402
 from ipx_tpu_torch.parallel import batch  # noqa: E402
 
-from chip_smoke import (cuda_ms, device_ms, k7_passes,  # noqa: E402
-                        scenarios)
+from chip_smoke import (batch_ms, cuda_ms, device_ms,  # noqa: E402
+                        k7_passes, scenarios)
 
 INSTANCE = (8000, 12000, 0.001, 1)
 OMP_VARS = ("OMP_NUM_THREADS", "OMP_WAIT_POLICY", "OMP_PROC_BIND",
@@ -386,6 +389,29 @@ def profile_cases(cases, card):
                   f"{wall * 1e3:.4f} ms, device/call {dev_us / 1e3:.4f} ms, "
                   f"busy {dev_us / 1e6 / wall:.1%} | {top} | {card}",
                   flush=True)
+
+
+def profile_forms(name, forms, order, reps, trips, card):
+    """Two forms of one computation, profiled in turns (a, b, b, a): host
+    wall time and device time per call, device time per trip, and the
+    time a call of `reps` issued back to back (chip_smoke.batch_ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    a, b = order
+    for label in (a, b, b, a):
+        fn = forms[label]
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / reps
+        dev_us = _device_us(prof)[0] / reps
+        print(f"sharded {name:13s} {label:11s} host wall/call "
+              f"{wall * 1e3:.4f} ms, device/call {dev_us / 1e3:.4f} ms, "
+              f"device/trip {dev_us / trips:.2f} us, back to back "
+              f"{batch_ms(fn, reps):.4f} ms/call | {card}", flush=True)
 
 
 def part_busy(data, args, card):
@@ -741,6 +767,7 @@ def part_sharded(data, args, card):
     bcr = (snm, t(Wb[:n]), t(Wb[n:]), t(1.0 / (A2 @ Wb[:n] + Wb[n:])),
            t(rng.standard_normal((m, B))), 0.0, 10)
     op = snm.op_At_split
+    ops = (snm.op_At_split, snm.op_At, snm.op_A)
     cases = [
         ("K4 P=4 (plan)", lambda: sharding.block_nnt(nnt, w),
          lambda: sharding.block_nnt_plain(nnt.blocks, w), 100),
@@ -755,21 +782,61 @@ def part_sharded(data, args, card):
         ("K16 10 trips", lambda: sharding.sharded_batched_cr(*bcr),
          lambda: sharding.sharded_batched_cr_plain(*bcr), 3)]
     profile_cases(cases, card)
-    del cases, parts, scale, cr, bcr, nnt
+    del cases, parts, scale
+    # K15's two forms: the cooperative launch and the host-issued passes
+    k15 = {c: (lambda c=c: kernels.ShardedCrStep(
+        snm.op_At_split, snm.op_A, *cr[1:6], True).solve(
+            20, 0.0, cooperative=c == "cooperative"))
+        for c in ("cooperative", "host-issued")}
+    kernels.reset_launches()
+    _, it, _, _ = k15["cooperative"]()
+    print(f"sharded K15 cooperative: 20 trips in {it}; one solve launched "
+          f"{ {k: v for k, v in kernels.LAUNCHES.items() if v} }, applies "
+          f"inside it {kernels.INSIDE['block_spmv_sum']} K14v and "
+          f"{kernels.INSIDE['csr_spmv']} K1 | {card}", flush=True)
+    profile_forms("K15 20 trips", k15, ("cooperative", "host-issued"), 5,
+                  20, card)
+    # K16's apply and its 10-trip solve, the fused apply against the
+    # three-stage one
+    plan = kernels.block_plan_of(*ops)
+    Ws, Wl, V = bcr[1], bcr[2], bcr[4]
+    e = lambda *s: torch.empty(s, dtype=torch.float64, device=dev)  # noqa
+    out, pc = e(m, B), e(sum(plan.partials_rows(B, plan.width(Ws, Wl, V,
+                                                              V))), B)
+    pu = (e(P, n, B), e(n, B))
+    apply = {"fused": lambda: plan(Ws, Wl, V, out=out, partials=pc,
+                                   fused=True),
+             "three-stage": lambda: plan(Ws, Wl, V, out=out, partials=pc,
+                                         parts=pu[0], U=pu[1], fused=False)}
+    print(f"sharded K16 plan: {'fused' if plan.fused else 'three-stage'} "
+          f"(sum len^2 / nnz {snm.op_At_split.sq_rows / A.nnz:.2f}) | "
+          f"{card}", flush=True)
+    profile_forms("K16 apply", apply, ("fused", "three-stage"), 20, 1, card)
+    del pu, apply
+    torch.cuda.empty_cache()
+    k16 = {f: (lambda f=f: kernels.ShardedBatchedCrStep(
+        *ops, *bcr[1:5], fused=f == "fused").solve(10, 0.0))
+        for f in ("fused", "three-stage")}
+    profile_forms("K16 10 trips", k16, ("fused", "three-stage"), 3, 10,
+                  card)
+    del cr, bcr, nnt, k15, k16
     for device in ("cuda", "auto"):
         prof = (profile(activities=[ProfilerActivity.CUDA])
                 if device == "cuda" else None)
         kernels.reset_launches()
         s, st, wall = solve(data, device, profiler=prof, shards=P)
         i = s.get_info()
-        k1, applies = (kernels.LAUNCHES["csr_spmv"],
-                       kernels.LAUNCHES["block_spmv_sum"])
+        cr = s.model._sharded_cr[1]
+        L, IN = kernels.LAUNCHES, kernels.INSIDE
         times = " ".join(f"{f[5:]} {getattr(i, f):.3f}" for f in PHASES)
         print(f"sharded shards={P} device={device:4s} status {st} wall "
               f"{wall:.3f} s{' (profiled)' if prof else ''} | {times} | IPM "
-              f"{i.iter} CR {i.kktiter1}+{i.kktiter2} | K1 {k1} launches for "
-              f"{applies} vector applies ({k1 / max(applies, 1):.2f} an "
-              f"apply) | {card}", flush=True)
+              f"{i.iter} CR {i.kktiter1}+{i.kktiter2} | K15 "
+              f"{L['sharded_cr_step']} launches for {cr.solves} sharded CR "
+              f"solves ({cr.iterations} trips); applies inside K15: K14v "
+              f"{IN['block_spmv_sum']}, K1 {IN['csr_spmv']}; launched alone: "
+              f"K14v {L['block_spmv_sum']}, K1 {L['csr_spmv']} | {card}",
+              flush=True)
         if prof is not None:
             top_items("sharded", prof, wall, card)
 
