@@ -39,15 +39,20 @@ only: no jax, and no module of ipx_tpu.
      shapes of that LP as a batch of B = 256 scenarios (m = 20 000,
      n + m = 116 002), in float64 and float32, and K10-K13, the rest of the
      batched IPM step, in float64, and times both (K5 beside a PyTorch
-     sparse product, and with two gathers issued together beside its loop
-     of one nonzero at a time, in turns, bit for bit, with the unroll
-     kernels.k5_unroll takes); K6 through its plan in its fused launch and
-     its two K5 launches, in turns, out and partials bit for bit, event and
-     device time beside the bound, with the plan's choice;
+     sparse product and its bound; its forms in turns, bit for bit, at
+     B = 256 and, in f64, B = 4: the row body with one nonzero at a time
+     and with two gathers issued together and the tiled form, beside the
+     forms kernels.k5_form and k5_unroll take); K6 through its plan in its
+     fused launch and its two K5 launches, in turns, out and partials bit
+     for bit, event and device time beside the bound, with the plan's
+     choice; K13's one cooperative launch against its seven launches,
+     outputs and lane scalars bit for bit, timed in turns, with the CUDA
+     kernels of a call (torch.profiler, in a fresh process);
   6. runs BatchedPhase1Solver(device="cuda") over those 256 scenarios to
      the handoff (tolerance 1e-4), with the counters set to 0 just before,
      then again, and fails unless both runs take the same steps and CR
-     trips; profiles the first STAGE_STEPS steps of that stage for K7's
+     trips; the second run's K5 launches by operand and form (all the
+     tiled form); profiles the first STAGE_STEPS steps of that stage for K7's
      passes by name (launches and mean device time beside each lane pass's
      byte bound), and checks a small stage against the same solver with the
      plain versions on the card;
@@ -917,38 +922,120 @@ def k6_forms(card, nmd, W, V, b):
 
 
 def k5_forms(card, op, X, name):
-    """K5 on `op` with two gathers issued together and with its loop of one
-    nonzero at a time: Y and the epilogues' partials held bit for bit, timed
-    in turns (1, 2, 2, 1) in event and device time, beside the unroll that
-    kernels.k5_unroll takes on `op`."""
+    """K5's forms on `op` (csrc/spmm.cu): the row body at unroll 1 and 2
+    and the tiled form: Y bit for bit across all of them, the row body's
+    epilogue partials at unroll 1 and 2 bit for bit; timed in turns (row1,
+    row2, tile, tile, row2, row1) in event time and back to back
+    (batch_ms), beside the forms kernels.k5_form and k5_unroll take. Returns
+    {form: median back-to-back ms}. (torch.profiler reads kernels low or
+    not at all late in this process, PERF.md §6; tools/torch_profile.py
+    --what k5 gives their device times.)"""
     import torch
     from ipx_tpu_torch import kernels
     B = X.shape[1]
     e = lambda *s: torch.empty(s, dtype=X.dtype, device=X.device)  # noqa
-    Y = {u: e(op.rows, B) for u in (1, 2)}
-    forms = {u: (lambda u=u: kernels._spmm(op, X, Y[u], unroll=u))
-             for u in (1, 2)}
+    vw = kernels.spmm_width(B, X.dtype, X)
+    forms = {f"row{u}": dict(form="row", unroll=u) for u in (1, 2)}
+    forms["tile"] = dict(form="tile")
+    Y = {k: e(op.rows, B) for k in forms}
+    calls = {k: (lambda k=k: kernels._spmm(op, X, Y[k], **kw))
+             for k, kw in forms.items()}
     w = torch.ones((op.rows, B), dtype=X.dtype, device=X.device)
-    vw = kernels.spmm_width(B, X.dtype, X, w)
     part = {u: e(kernels.lane_blocks(op.rows, B // vw), B) for u in (1, 2)}
+    for k in forms:
+        calls[k]()
     for u in (1, 2):
-        forms[u]()
-        Y2 = e(op.rows, B)
-        kernels._spmm(op, X, Y2, addw=w, addv=w, partials=part[u], unroll=u)
+        kernels._spmm(op, X, e(op.rows, B), addw=w, addv=w,
+                      partials=part[u], unroll=u)
     torch.cuda.synchronize()
-    check(torch.equal(Y[1], Y[2]) and torch.equal(part[1], part[2]),
-          f"K5 {name}: unroll 2 differs from one nonzero at a time")
-    times = {u: [] for u in forms}
-    for u in (1, 2, 2, 1):
-        times[u].append(cuda_ms(forms[u]))
-    dev = {u: device_ms(f) for u, f in forms.items()}
-    print(f"  {'':22s} {name}: unroll 1 and 2 bit for bit, k5_unroll "
-          f"takes {kernels.k5_unroll(op)}; event ms in turns "
-          + "; ".join(f"unroll {u} {'/'.join(f'{t:.4f}' for t in v)}"
-                      for u, v in times.items())
-          + "; device ms " + "; ".join(f"unroll {u} {v:.5f}"
-                                       for u, v in dev.items())
-          + f" | {card}", flush=True)
+    for k in forms:
+        check(torch.equal(Y[k], Y["row1"]),
+              f"K5 {name}: the {k} form differs from the row body")
+    check(torch.equal(part[1], part[2]),
+          f"K5 {name}: unroll 2's partials differ from one at a time")
+    order = list(forms) + list(forms)[::-1]
+    times = {k: [] for k in forms}
+    for k in order:
+        times[k].append(cuda_ms(calls[k]))
+    bb = {k: [] for k in forms}
+    for k in order:
+        bb[k].append(batch_ms(calls[k], REPS))
+    print(f"  {'':22s} {name}: {', '.join(forms)} bit for bit; k5_form "
+          f"takes {kernels.k5_form(B, X.element_size(), False)}, "
+          f"k5_unroll {kernels.k5_unroll(op)}; event ms in turns "
+          + "; ".join(f"{k} {'/'.join(f'{t:.4f}' for t in v)}"
+                      for k, v in times.items())
+          + "; back-to-back ms " + "; ".join(
+              f"{k} {'/'.join(f'{t:.5f}' for t in v)}"
+              for k, v in bb.items()) + f" | {card}", flush=True)
+    return {k: statistics.median(v) for k, v in bb.items()}
+
+
+class K5Tally:
+    """Within it, K5's launches by operand (its rows), dtype and form, from
+    a wrapper around kernels._spmm; the launch counters are untouched."""
+
+    def __enter__(self):
+        from collections import Counter
+        from ipx_tpu_torch import kernels
+        self.counts, self.saved = Counter(), kernels._spmm
+
+        def spmm(op, U, Y, rowscale=None, addw=None, addv=None,
+                 partials=None, state=None, **kw):
+            epilogue = any(t is not None
+                           for t in (rowscale, addw, partials, state))
+            form = kw.get("form") or kernels.k5_form(
+                U.shape[1], U.element_size(), epilogue)
+            self.counts[(op.rows, str(U.dtype)[6:], form)] += 1
+            return self.saved(op, U, Y, rowscale, addw, addv, partials,
+                              state, **kw)
+        kernels._spmm = spmm
+        return self
+
+    def __exit__(self, *exc):
+        from ipx_tpu_torch import kernels
+        kernels._spmm = self.saved
+
+
+# K13's two forms in a fresh process at the given (n, m, B) on seeded
+# inputs: the CUDA kernels one call of each launches, from torch.profiler
+K13_LAUNCHES = r"""
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from ipx_tpu_torch import backend, kernels
+n, m, B = map(int, sys.argv[1:4])
+dev = backend.cuda_device()
+g = torch.Generator(device=dev).manual_seed(0)
+r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64, device=dev)
+fin = torch.ones(n + m, dtype=torch.bool, device=dev)
+lb = torch.zeros(n + m, dtype=torch.float64, device=dev)
+args = (r(n + m, B).abs(), r(n, B), r(m, B), r(n, B), r(m, B), r(n + m, B),
+        lb, lb + 10.0, fin, fin)
+out = {}
+for name, coop in (("one", True), ("seven", False)):
+    kernels.starting_point(*args, 0.1, cooperative=coop)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kernels.starting_point(*args, 0.1, cooperative=coop)
+        torch.cuda.synchronize()
+    out[name] = sum(e.count for e in prof.key_averages()
+                    if e.device_type.name == "CUDA" and "Memcpy" not in e.key
+                    and "Memset" not in e.key)
+print(json.dumps(out))
+"""
+
+
+def k13_launches(n, m, B):
+    """{"one": k, "seven": k}: the CUDA kernels one call of K13's one
+    launch and of its seven launches start, counted by torch.profiler in a
+    fresh process (late in this one it misses kernels, PERF.md §6)."""
+    out = subprocess.run([sys.executable, "-c", K13_LAUNCHES, str(n), str(m),
+                          str(B)], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, "K13's launch count failed: "
+          + out.stderr[-2000:])
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def scenarios(data, B):
@@ -1010,19 +1097,38 @@ def batched_phases(card, data, dev, rng):
             lms = cuda_ms(lambda: A_lib @ X)
             report("K5 csr_spmm", f"{opname} {dn}", rel_err(Y, Y_p),
                    RTOL[dn], ms, pms)
-            dms = device_ms(lambda: kernels.csr_spmm(op, X))
-            print(f"  {'':22s} device {dms:.5f} ms; library "
+            bbms = batch_ms(lambda: kernels.csr_spmm(op, X), REPS)
+            b = bound(op_bytes(op) + nbytes(X, Y), 2 * op.vals.numel() * B,
+                      FN[dn])
+            form = kernels.k5_form(B, X.element_size(), False)
+            print(f"  {'':22s} back to back {bbms:.5f} ms ({form} form), "
+                  f"bound {b['bound_ms']:.5f} ms; library "
                   f"sparse_csr_tensor @ U: {lms:.4f} ms (rel diff "
                   f"{rel_err(Y_l, Y_p):.1e}) | {card}", flush=True)
             check(rel_err(Y_l, Y_p) <= RTOL[dn], "K5: the library differs")
-            k5_forms(card, op, X, f"{opname} {dn}")
+            dv = k5_forms(card, op, X, f"{opname} {dn}")
             del A_lib, Y_l
-            if opname == "A' V" and dtype == torch.float32:
-                rows["csr_spmm"] = dict(
-                    case="A' V, f32, B=256", max_abs_err=max_abs(Y, Y_p),
-                    ms=ms, plain_ms=pms, library_ms=lms,
-                    **bound(op_bytes(op) + nbytes(X, Y),
-                            2 * op.vals.numel() * B, "f32"))
+            k5_case = (dict(
+                case=f"{opname}, {FN[dn]}, B={B}, {form} form",
+                max_abs_err=max_abs(Y, Y_p), ms=ms, back_to_back_ms=bbms,
+                row_back_to_back_ms=dv["row1"], plain_ms=pms, library_ms=lms,
+                **b))
+            # the kernels line's numbers are A U f64's, the other cases
+            # beside them
+            if "csr_spmm" in rows:
+                rows["csr_spmm"]["cases"].append(k5_case)
+            else:
+                rows["csr_spmm"] = dict(k5_case, cases=[])
+            if dtype == torch.float64:
+                # the entry step's and phase 7's lane counts: B = 4
+                X4 = X[:, :4].contiguous()
+                Y4 = kernels.csr_spmm(op, X4)
+                torch.cuda.synchronize()
+                check(rel_err(Y4, spmv.csr_spmm_plain(op, X4)) <= RTOL[dn],
+                      f"K5 {opname} {dn} B=4 differs from the plain version")
+                k5_forms(card, op, X4, f"{opname} {dn} B=4")
+                del X4, Y4
+
         W = t(10.0 ** rng.uniform(-2, 2, (nm, B)), dtype)
         V = t(rng.standard_normal((m, B)), dtype)
         out, dots = spmv.normal_apply_batched(nmd, W, V)
@@ -1154,7 +1260,7 @@ def batched_phases(card, data, dev, rng):
                         2 * (5 * nm + m) * B, "f64"))
         del nmd, W, V, out, out2, out_p, st, sargs, state, dirs, got, want
         torch.cuda.empty_cache()
-    rows.update(step_kernels(blp, dev, rng, report, t))
+    rows.update(step_kernels(card, blp, dev, rng, report, t))
     torch.cuda.empty_cache()
 
     # -- phase 6: the batched phase 1 at full width -------------------------------
@@ -1173,15 +1279,28 @@ def batched_phases(card, data, dev, rng):
     stage_launches = dict(kernels.LAUNCHES)
     # the trip count is deterministic for a given tree: a second run of the
     # stage takes the same steps and trips
+    # (its K5 launches tallied by operand and form)
     t0 = time.perf_counter()
-    again = ph1.solve(handoff="auto")
-    torch.cuda.synchronize()
+    with K5Tally() as tally:
+        again = ph1.solve(handoff="auto")
+        torch.cuda.synchronize()
     t_again = time.perf_counter() - t0
     check(int(again["cr"]) == int(out["cr"])
           and np.array_equal(again["iters"], out["iters"]),
           f"phase 6: a second run of the stage took {int(again['cr'])} CR "
           f"trips, the first {int(out['cr'])}")
     del again
+    names = {m: "A or A.^2 (m rows)", n: "A' (n rows)"}
+    by_op = {f"{names.get(r, r)} {dn} {form}": k
+             for (r, dn, form), k in sorted(tally.counts.items(), key=str)}
+    print(f"  K5 launches of the stage by operand, dtype and form: {by_op}",
+          flush=True)
+    check(sum(tally.counts.values()) == stage_launches["csr_spmm"],
+          "phase 6: K5's tally differs from its launch counter")
+    # every K5 launch of the stage is a plain product (K6 is fused there)
+    check(all(form == "tile" for (_, _, form) in tally.counts),
+          "phase 6: a K5 launch of the stage took the row body")
+    rows["csr_spmm"]["launches_a_stage_by_operand"] = by_op
     k6_form = ("fused" if kernels.normal_plan_of(
         ph1.nmd32.op_At, ph1.nmd32.op_A).fused else "two-launch")
     finl, finu = np.isfinite(blp.lb)[:, None], np.isfinite(blp.ub)[:, None]
@@ -1347,7 +1466,7 @@ class plain_products:
         spmv.csr_spmm_plain = self.saved
 
 
-def step_kernels(blp, dev, rng, report, t):
+def step_kernels(card, blp, dev, rng, report, t):
     """Phase 5, K10-K13 in float64 at B = 256 on an iterate-like state over
     the LP's bounds; returns their kernel rows."""
     import torch
@@ -1479,6 +1598,12 @@ def step_kernels(blp, dev, rng, report, t):
              finl, finu)
     *k_got, lane = kernels.starting_point(*sp_in, batch.RHO)
     k13_bytes = nbytes(*sp_in, *k_got, lane)
+    # the one launch against the seven of the earlier form, bit for bit
+    seven = kernels.starting_point(*sp_in, batch.RHO, cooperative=False)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip((*k_got, lane), seven)),
+          "K13: the one launch differs from the seven launches")
+    del seven
     k_lane = batch.starting_point_plain(*sp_in, lane=lane)
     torch.cuda.synchronize()
     exact = all(torch.equal(a, b) for a, b in zip(k_got, k_lane))
@@ -1494,15 +1619,38 @@ def step_kernels(blp, dev, rng, report, t):
     abs_err = max(max_abs(a[torch.isfinite(b)], b[torch.isfinite(b)])
                   for a, b in zip(k_got, k_want))
     del k_got, k_want
-    ms = cuda_ms(lambda: batch.starting_point(*sp_in))
-    pms = cuda_ms(lambda: batch.starting_point_plain(*sp_in))
+    forms = {"one": lambda: batch.starting_point(*sp_in),
+             "seven": lambda: kernels.starting_point(*sp_in, batch.RHO,
+                                                     cooperative=False)}
+    ev, bb = {k: [] for k in forms}, {k: [] for k in forms}
+    for k in ("one", "seven", "seven", "one"):
+        ev[k].append(cuda_ms(forms[k], reps=10, warm=1))
+    for k in ("one", "seven", "seven", "one"):
+        bb[k].append(batch_ms(forms[k], 10))
+    launched = k13_launches(n, m, B)
+    ms = statistics.median(ev["one"])
+    pms = cuda_ms(lambda: batch.starting_point_plain(*sp_in), reps=10)
+    b13 = bound(k13_bytes, 20 * nm * B, "f64")
     report("K13 starting_point", f"f64, exact given scalars {exact}", err,
            1e-12, ms, pms)
+    print(f"  {'':22s} one launch and seven bit for bit; CUDA kernels a "
+          f"call (torch.profiler, a fresh process) {launched}; event ms in "
+          "turns " + "; ".join(
+              f"{k} {'/'.join(f'{x:.4f}' for x in v)}" for k, v in ev.items())
+          + "; back-to-back ms " + "; ".join(
+              f"{k} {'/'.join(f'{x:.4f}' for x in v)}" for k, v in bb.items())
+          + f"; bound {b13['bound_ms']:.4f} ms | {card}", flush=True)
     check(exact, "K13: an output differs given the kernel's scalars")
-    rows["starting_point"] = dict(case="f64, B=256, against the plain sums",
-                                  max_abs_err=abs_err, ms=ms, plain_ms=pms,
-                                  library_ms=None,
-                                  **bound(k13_bytes, 20 * nm * B, "f64"))
+    check(launched == {"one": 1, "seven": 7}, f"K13's CUDA kernels a call "
+          f"{launched}, not one and seven")
+    rows["starting_point"] = dict(
+        case="f64, B=256, one cooperative launch, against the plain sums",
+        max_abs_err=abs_err, ms=ms, plain_ms=pms, library_ms=None,
+        back_to_back_ms=statistics.median(bb["one"]),
+        seven_launch_ms=statistics.median(ev["seven"]),
+        seven_launch_back_to_back_ms=statistics.median(bb["seven"]),
+        cuda_launches_a_call=launched["one"],
+        cuda_launches_a_call_seven=launched["seven"], **b13)
     return rows
 
 

@@ -106,13 +106,13 @@ inline bool valid_vec(int vec) {
   return vec == 2 || vec == 4 || vec == 8 || vec == 16 || vec == 32;
 }
 
-// Blocks of the cooperative kernel Kernel (kThreads threads, no dynamic
+// Blocks of the cooperative kernel Kernel (`threads` threads, no dynamic
 // shared memory) that can be resident at once on the current device: its
-// SMs times the kernel's occupancy, found once per device and kernel. K3's
-// and K4's cooperative launches cap their grids at it and walk their blocks
-// grid-stride.
+// SMs times the kernel's occupancy, found once per device and kernel. K3's,
+// K4's, K13's and K15's cooperative launches cap their grids at it and
+// walk their blocks grid-stride.
 template <auto Kernel>
-int coop_capacity(int64_t* out) {
+int coop_capacity(int64_t* out, int threads = kThreads) {
   static int64_t cached[64] = {0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -125,7 +125,7 @@ int coop_capacity(int64_t* out) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
-                                                      kThreads, 0);
+                                                      threads, 0);
   if (err != cudaSuccess) return (int)err;
   *out = (int64_t)sms * per_sm;
   if (dev >= 0 && dev < 64) cached[dev] = *out;
@@ -275,6 +275,13 @@ __device__ __forceinline__ double add_rn(double a, double b) {
 }
 __device__ __forceinline__ float add_rn(float a, float b) {
   return __fadd_rn(a, b);
+}
+// a b + c rounded once: the multiply-add nvcc contracts `acc += a * b` to
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
 }
 __device__ __forceinline__ double div_rn(double a, double b) {
   return __ddiv_rn(a, b);

@@ -12,23 +12,50 @@
 // (B values) and there is one multiply-add per value gathered; there is no
 // reuse that a tensor core could exploit. The gathered rows come from L2
 // when U fits (V of the batched path is 20.5 MB in f32, 41 MB in f64, under
-// the 50 MB L2); what then limits a thread is how many gathers it has in
-// flight, since each waits on the load of its column index.
+// the 50 MB L2), else from memory once per nonzero unless the gathers of a
+// column come close together; what then limits a thread is how many
+// gathers it has in flight, which in the row body wait on the load of
+// their column index.
 //
-// K5: a group of threads per output row walks the row's nonzeros; the
-// threads of the group split the B lanes, each taking VW adjacent lanes with
-// one 16-byte load (float4 / double2) where B is a multiple of VW and the
-// pointers are aligned, one lane otherwise. A gather of row `col` of U is
-// then contiguous across the group, and the (nnz, B) intermediate of the
-// reference and of the plain version never exists. Blocks stride over the
-// rows (at most kMaxRowBlocks of them), so the per-lane partials of a
-// reduction stay short. K5's row body (row_gather) takes UNROLL nonzeros at
-// a time, their indices and values loaded, then their gathers issued, then
-// added in CSR order: the same multiply-adds in the same order as one at a
-// time, so every UNROLL gives the same Y bit for bit. kernels.k5_unroll
-// picks 2 on operands with short rows (A' of the transportation LPs, 2 a
-// row), where the second gather no longer waits on the first, and 1
-// elsewhere (PERF.md §6, tools/torch_profile.py --what k5).
+// K5 has two forms, bit for bit the same Y (acc = 0, then one multiply-add
+// a value in CSR order, contracted to an FMA), and kernels.k5_form picks one
+// per launch on the host:
+//   tiled (csr_spmm_tile_kernel), the plain product Y = A U with no
+//     epilogue, partials or loop state, where a row of U holds at least
+//     256 bytes (kernels.k5_form): every K5 launch of the batched stage
+//     (A X, A WR, A DX, A.^2 W and A' Y, A' DY at B = 256). A block takes a
+//     tile of rows and a tile of lanes (256 bytes of a row of U); it stages
+//     the tile's indptr, indices and values in shared memory with coalesced
+//     loads, and each group of threads streams over its rows' nonzeros,
+//     across row ends, with kTileUnroll gathers issued together into
+//     registers, so no gather waits on an index load. Blocks run lane tile
+//     by lane tile: one lane tile of U at n = 96 002, f64 is 24.6 MB, which
+//     stays in L2 between the two gathers of a column of A, where the row
+//     body reads the 197 MB U from memory twice. Y goes out with streaming
+//     stores. A ring of gathered segments in shared memory (cp.async, or a
+//     TMA bulk copy a segment) was measured in its place and capped near
+//     3.7 TB/s of gathered bytes, under the row body's plain loads (PERF.md
+//     §6).
+//   row body (csr_spmm_kernel), for the launches with epilogues (rowscale,
+//     addw and addv, partials) or a loop state: the two-launch K6 and the
+//     three-stage K16 and their partial slots, per lane_grid row block,
+//     which the fused K6 and K16 reproduce. A group of threads per output
+//     row walks the row's nonzeros; the threads of the group split the B
+//     lanes, each taking VW adjacent lanes with one 16-byte load (float4 /
+//     double2) where B is a multiple of VW and the pointers are aligned, one
+//     lane otherwise. Blocks stride over the rows (at most kMaxRowBlocks of
+//     them), so the per-lane partials of a reduction stay short. Its row
+//     loop (row_gather) takes UNROLL nonzeros at a time, their indices and
+//     values loaded, then their gathers issued, then added in CSR order;
+//     kernels.k5_unroll picks 2 on operands with short rows and 1 elsewhere
+//     (PERF.md §6, tools/torch_profile.py --what k5).
+// The forms with epilogues keep the row body, whose partial slots the fused
+// K6 and K16 reproduce, rather than take a second layout; below 256 bytes a
+// row (B < 32 in f64, B < 64 in f32: the entry step's B = 8, phase 7's
+// B = 4) the row body's launches were the faster ones on the card.
+// In both, a gather of row `col` of U is contiguous across a group, and
+// the (nnz, B) intermediate of the reference and of the plain version never
+// exists.
 //
 // K6, C V = A (W_s * (A' V)) + W_slack * V with the column dots V.CV, has two
 // forms, and kernels.NormalBatchedPlan picks one per operand pair:
@@ -135,6 +162,89 @@ csr_spmm_kernel(int64_t rows, int64_t B, const int64_t* __restrict__ indptr,
   }
   if (partials != nullptr) store_dots<T, VW>(dot, red, lane_ok, B, lane0,
                                              partials);
+}
+
+// -- K5's tiled form: the plain product Y = A U -------------------------------
+
+constexpr int kTileRows = 256;   // rows a block's tile may have
+constexpr int kStageNz = 2048;   // nonzeros a tile stages in shared memory
+constexpr int kTileUnroll = 4;   // gathers a thread issues together
+
+// Y = A U over a tile of rows (blockIdx.x) and a tile of lanes (blockIdx.y).
+// blockDim = (tpr threads a group, G groups); each thread takes VW lanes, so
+// a group gathers a segment of tpr VW lanes of one row of U a nonzero, and
+// each group walks `rpg` consecutive rows of the tile. The tile's indptr,
+// indices and values are staged into shared memory with coalesced loads
+// (where its nonzeros fit, else read in place). Each group then streams
+// over its rows' nonzeros kTileUnroll at a time, across row ends: their
+// gathers issued together into registers, no gather waiting on an index
+// load, then added in CSR order with the row ends between them, one FMA a
+// value from acc = 0 as the row body adds. Blocks run lane tile by lane
+// tile, so the rows of U that one lane tile gathers (n x 256 bytes at the
+// widths k5_tile picks) stay in L2 between a column's two gathers; Y goes
+// out with streaming stores, so it does not push them out.
+template <typename T, int VW>
+__global__ void __launch_bounds__(kThreads)
+csr_spmm_tile_kernel(int64_t rows, int64_t B, int rpg,
+                     const int64_t* __restrict__ indptr,
+                     const int32_t* __restrict__ indices,
+                     const T* __restrict__ vals, const T* __restrict__ U,
+                     T* __restrict__ Y) {
+  __shared__ int64_t s_ip[kTileRows + 1];
+  __shared__ int32_t s_ix[kStageNz];
+  __shared__ T s_va[kStageNz];
+  const int tpr = blockDim.x, tid = threadIdx.y * tpr + threadIdx.x;
+  const int nthr = tpr * blockDim.y;
+  const int64_t r0 = (int64_t)blockIdx.x * blockDim.y * rpg;
+  const int nr = (int)min((int64_t)blockDim.y * rpg, rows - r0);
+  for (int i = tid; i <= nr; i += nthr) s_ip[i] = indptr[r0 + i];
+  __syncthreads();
+  const int64_t p0 = s_ip[0], nz = s_ip[nr] - p0;
+  const bool staged = nz <= kStageNz;   // the same in the whole block
+  if (staged)
+    for (int k = tid; k < nz; k += nthr) {
+      s_ix[k] = indices[p0 + k];
+      s_va[k] = vals[p0 + k];
+    }
+  __syncthreads();
+  const int32_t* ix = staged ? s_ix : indices + p0;
+  const T* va = staged ? s_va : vals + p0;
+  const int64_t tile0 = (int64_t)blockIdx.y * tpr * VW;
+  const int valid = (int)min((int64_t)tpr, (B - tile0) / VW);
+  const int ra = threadIdx.y * rpg, rb = min(ra + rpg, nr);
+  if (threadIdx.x >= valid || ra >= rb) return;
+  const int64_t lane0 = tile0 + (int64_t)threadIdx.x * VW;
+  const T* Ub = U + lane0;
+  const int64_t q1 = s_ip[rb] - p0;
+  int r = ra;
+  int64_t e = s_ip[r + 1] - p0;
+  T acc[VW];
+#pragma unroll
+  for (int j = 0; j < VW; ++j) acc[j] = T(0);
+  for (int64_t q = s_ip[ra] - p0; q < q1; q += kTileUnroll) {
+    T u[kTileUnroll][VW];
+#pragma unroll
+    for (int k = 0; k < kTileUnroll; ++k)
+      if (q + k < q1) ldg_vec<T, VW>(Ub + (int64_t)ix[q + k] * B, u[k]);
+#pragma unroll
+    for (int k = 0; k < kTileUnroll; ++k)
+      if (q + k < q1) {
+        while (q + k == e) {  // the rows that end before nonzero q + k
+          stcs_vec<T, VW>(Y + (r0 + r) * B + lane0, acc);
+#pragma unroll
+          for (int j = 0; j < VW; ++j) acc[j] = T(0);
+          e = s_ip[++r + 1] - p0;
+        }
+#pragma unroll
+        for (int j = 0; j < VW; ++j)
+          acc[j] = fma_rn(va[q + k], u[k][j], acc[j]);
+      }
+  }
+  for (; r < rb; ++r) {  // the last row with nonzeros, then empty ones
+    stcs_vec<T, VW>(Y + (r0 + r) * B + lane0, acc);
+#pragma unroll
+    for (int j = 0; j < VW; ++j) acc[j] = T(0);
+  }
 }
 
 // The fused K6: out = A (W_s * (A' V)) + W_slack * V over the rows of A
@@ -257,6 +367,36 @@ int csr_spmm(int64_t rows, int64_t B, const void* indptr, const void* indices,
   return (int)cudaGetLastError();
 }
 
+// The tiled form's launch: tpr threads a group (at most B / vw),
+// 256 / tpr groups a block, rpg rows a group.
+template <typename T>
+int csr_spmm_tile(int64_t rows, int64_t B, const void* indptr,
+                  const void* indices, const void* vals, const void* U,
+                  void* Y, int vw, int tpr, int rpg, void* stream) {
+  constexpr int V = 16 / sizeof(T);
+  if (!width_ok<T>(B, vw, {U, Y}) || tpr < 1 || tpr > kThreads ||
+      tpr > B / vw || rpg < 1 || (kThreads / tpr) * rpg > kTileRows)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaGetLastError();  // an empty operand's null arrays
+  const int g = kThreads / tpr;
+  const dim3 grid((unsigned)blocks_for(rows, (int64_t)g * rpg),
+                  (unsigned)blocks_for(B / vw, tpr));
+  const dim3 block((unsigned)tpr, (unsigned)g);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto ip = static_cast<const int64_t*>(indptr);
+  auto ix = static_cast<const int32_t*>(indices);
+  auto v = static_cast<const T*>(vals);
+  auto u = static_cast<const T*>(U);
+  auto y = static_cast<T*>(Y);
+  if (vw == 1)
+    csr_spmm_tile_kernel<T, 1><<<grid, block, 0, s>>>(rows, B, rpg, ip, ix, v,
+                                                     u, y);
+  else
+    csr_spmm_tile_kernel<T, V><<<grid, block, 0, s>>>(rows, B, rpg, ip, ix, v,
+                                                     u, y);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int normal_batched(int64_t rows, int64_t B, const void* indptr,
                    const void* indices, const void* vals,
@@ -338,6 +478,28 @@ extern "C" int ipxt_csr_spmm_f32(int64_t rows, int64_t B, const void* indptr,
   return ipxt::csr_spmm<float>(rows, B, indptr, indices, vals, U, rowscale,
                                addw, addv, Y, partials, state, vw, unroll,
                                stream);
+}
+
+// Y = A U, K5's plain product in its tiled form (csr_spmm_tile_kernel):
+// Y bit for bit the same as ipxt_csr_spmm's without epilogues, at any
+// unroll. tpr threads a group take vw lanes each, rpg rows a group. rows
+// may be 0, and the arrays of an empty operand null.
+extern "C" int ipxt_csr_spmm_tile_f64(int64_t rows, int64_t B,
+                                      const void* indptr, const void* indices,
+                                      const void* vals, const void* U,
+                                      void* Y, int vw, int tpr, int rpg,
+                                      void* stream) {
+  return ipxt::csr_spmm_tile<double>(rows, B, indptr, indices, vals, U, Y,
+                                     vw, tpr, rpg, stream);
+}
+
+extern "C" int ipxt_csr_spmm_tile_f32(int64_t rows, int64_t B,
+                                      const void* indptr, const void* indices,
+                                      const void* vals, const void* U,
+                                      void* Y, int vw, int tpr, int rpg,
+                                      void* stream) {
+  return ipxt::csr_spmm_tile<float>(rows, B, indptr, indices, vals, U, Y, vw,
+                                    tpr, rpg, stream);
 }
 
 // The fused K6: out[i, :] = sum over the nonzeros (i, k) of A of

@@ -66,6 +66,19 @@ __device__ __forceinline__ void ldcs_vec(const T* p, T (&v)[VW]) {
   }
 }
 
+// VW values to p as a streaming store (evict first), for an output that
+// should not push the gathered rows out of L2
+template <typename T, int VW>
+__device__ __forceinline__ void stcs_vec(T* p, const T (&v)[VW]) {
+  if constexpr (VW == 1) {
+    __stcs(p, v[0]);
+  } else if constexpr (sizeof(T) == 8) {
+    __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+  } else {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+}
+
 template <typename T, int VW>
 __device__ __forceinline__ void store_vec(T* p, const T (&v)[VW]) {
   if constexpr (VW == 1) {

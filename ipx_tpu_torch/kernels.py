@@ -16,15 +16,16 @@ vector apply in one launch), K2 ``normal_apply`` (csrc/spmv.cu), K3
 ``cr_step`` (CrStep: a whole CR solve, its K2 applies inside, in one
 cooperative launch, csrc/cr.cu), K4 ``nnt`` (NntKernel, one C call per N N'
 apply over P >= 1 column blocks, csrc/nnt.cu); for the batched
-phase 1, K5 ``csr_spmm``, K6 ``normal_apply_batched`` (NormalBatchedPlan:
-one fused launch an apply where the operand's column lengths allow it,
-csrc/spmm.cu), K7
+phase 1, K5 ``csr_spmm`` (its plain products of 256 bytes a row of U and
+more in a tiled form, k5_form), K6 ``normal_apply_batched``
+(NormalBatchedPlan: one fused launch an apply where the operand's column
+lengths allow it, csrc/spmm.cu), K7
 ``batched_cr_step`` (csrc/batch_cr.cu), K8 ``step_batch`` and K9
 ``ipm_update`` (csrc/ipm_step.cu); for the rest of the batched IPM step, in
 float64, K10 ``ipm_prologue`` (csrc/ipm_prologue.cu), K11 ``newton_rhs``
 and K12 ``newton_recover`` (csrc/newton.cu) and K13 ``starting_point``
-(csrc/start.cu); for the sharded solves, in float64, K14 ``block_sum``, K15
-``sharded_cr_step`` (ShardedCrStep: a whole row-blocked CR solve, its
+(one cooperative launch, csrc/start.cu); for the sharded solves, in
+float64, K14 ``block_sum``, K15 ``sharded_cr_step`` (ShardedCrStep: a whole row-blocked CR solve, its
 vector applies inside, in one cooperative launch) and K16
 ``sharded_batched_cr_step`` (ShardedBatchedCrStep, its apply through
 BlockNormalBatchedPlan: one fused launch where A's columns are short)
@@ -101,6 +102,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         f = getattr(lib, f"ipxt_csr_spmm_{t}")
         f.argtypes = [I64, I64] + [P] * 10 + [I, I, P]
         f.restype = I
+        f = getattr(lib, f"ipxt_csr_spmm_tile_{t}")
+        f.argtypes = [I64, I64] + [P] * 5 + [I] * 3 + [P]
+        f.restype = I
         f = getattr(lib, f"ipxt_normal_batched_{t}")
         f.argtypes = [I64, I64] + [P] * 12 + [I, P]
         f.restype = I
@@ -128,6 +132,8 @@ def _declare(lib: ctypes.CDLL) -> None:
            "ipxt_newton_recover_f64": [I64] * 3 + [P] * 22,
            "ipxt_starting_point_f64": [I64] * 3 + [P] * 17 + [I64, P, D, D,
                                                                P],
+           "ipxt_starting_point_coop_f64": [I64] * 3 + [P] * 17
+           + [I64, P, D, D, P],
            "ipxt_block_sum_f64": [I64, I64] + [P] * 5,
            "ipxt_scr_step_f64": [I, I64, I64, I64, I64, D, I] + [P] * 12
            + [I64, P, P, P],
@@ -573,11 +579,54 @@ def k5_unroll(op) -> int:
     return 2 if op.vals.numel() < K5_UNROLL_BELOW * op.rows else 1
 
 
+# K5's tiled form (csr_spmm_tile_kernel in csrc/spmm.cu), the plain product
+# Y = A U with no epilogue: a group of threads gathers a segment of
+# K5_SEG_BYTES of a row of U a nonzero and streams over K5_GROUP_NZ
+# nonzeros or so, its rows' indices staged in shared memory (K5_STAGE_NZ a
+# block at most) and its gathers issued four at a time.
+K5_SEG_BYTES = 256        # a lane tile
+K5_STAGE_NZ = 2048        # kStageNz
+K5_GROUP_NZ = 24
+K5_TILE_ROWS = 256        # kTileRows
+# The tiled form runs the plain products whose rows of U hold at least
+# K5_SEG_BYTES (B >= 32 in f64, B >= 64 in f32); the row body
+# (csr_spmm_kernel) runs the narrower ones, where it took less device time
+# on the card (B = 4 and 8; at 32 in f32 on A U), and every launch with an
+# epilogue, partials or a loop state, whose partial slots K6's and K16's
+# fused forms repeat (PERF.md §6, tools/torch_profile.py --what k5).
+
+
+def k5_form(B: int, itemsize: int, epilogue: bool) -> str:
+    """"tile" (csr_spmm_tile_kernel) or "row" (csr_spmm_kernel): the form of
+    K5 that a launch at B lanes of `itemsize` bytes takes, on any operand;
+    `epilogue` is true when it has a rowscale, addw and addv, partials or a
+    loop state."""
+    return "row" if epilogue or B * itemsize < K5_SEG_BYTES else "tile"
+
+
+def k5_tile(op, B: int, vw: int, itemsize: int) -> tuple:
+    """(tpr, rpg) of the tiled form on `op` at B lanes, vw lanes a thread:
+    threads a group, which gather one segment of at most K5_SEG_BYTES, and
+    rows a group, about K5_GROUP_NZ nonzeros at the operand's mean row
+    length, with the block's tile (256 // tpr groups) at most K5_TILE_ROWS
+    rows and about half of K5_STAGE_NZ nonzeros."""
+    tpr = min(B // vw, K5_SEG_BYTES // (vw * itemsize))
+    groups = THREADS // tpr
+    rpg = K5_TILE_ROWS // groups
+    mean = op.vals.numel() / max(op.rows, 1)
+    if mean > 0:
+        rpg = min(rpg, int(K5_GROUP_NZ / mean),
+                  int(K5_STAGE_NZ / (2 * groups * mean)))
+    return tpr, max(rpg, 1)
+
+
 def _spmm(op, U, Y, rowscale=None, addw=None, addv=None, partials=None,
-          state=None, unroll=None) -> None:
-    """One launch of the batched CSR kernel with its optional epilogues, at
-    `unroll` gathers a thread issues together (by default k5_unroll(op);
-    the card tests and tools/torch_profile.py --what k5 ask for 1 or 2)."""
+          state=None, unroll=None, form=None) -> None:
+    """One launch of the batched CSR kernel with its optional epilogues, in
+    the form k5_form picks unless `form` ("tile" or "row") says otherwise,
+    the row body at `unroll` gathers a thread issues together (by default
+    k5_unroll(op)). The card tests and tools/torch_profile.py --what k5 ask
+    for each."""
     device, dtype = U.device, U.dtype
     lib = load()
     _check_operand(op, device, dtype)
@@ -590,6 +639,20 @@ def _spmm(op, U, Y, rowscale=None, addw=None, addv=None, partials=None,
     if (addw is None) != (addv is None):
         raise ValueError("addw and addv go together")
     vw = spmm_width(B, dtype, U, Y, rowscale, addw, addv, partials)
+    epilogue = any(t is not None for t in (rowscale, addw, partials, state))
+    if form is None:
+        form = k5_form(B, U.element_size(), epilogue)
+    if form == "tile":
+        if epilogue:
+            raise ValueError("K5's tiled form takes no epilogue, partials "
+                             "or state")
+        tpr, rpg = k5_tile(op, B, vw, U.element_size())
+        fn = getattr(lib, f"ipxt_csr_spmm_tile_{_SUFFIX[dtype]}")
+        err = fn(op.rows, B, op.indptr.data_ptr(), op.indices.data_ptr(),
+                 op.vals.data_ptr(), U.data_ptr(), Y.data_ptr(), vw, tpr,
+                 rpg, _stream(device))
+        _raise_if(err, "csr_spmm (tiled)")
+        return
     if partials is not None:
         if addv is None:
             raise ValueError("partials need addv")
@@ -1045,10 +1108,14 @@ def newton_recover(op_A, ATDY, DY, RHS1, W, RB, RC, RL, RU, SL, SU, XL, XU,
     return DX, DXL, DXU, DYn, DZL, DZU
 
 
-def starting_point(X0, ATDY, DY, ATY, Y, cT, lb, ub, finl, finu, rho):
+def starting_point(X0, ATDY, DY, ATY, Y, cT, lb, ub, finl, finu, rho,
+                   cooperative: bool = True):
     """K13: the starting point's masked passes from the clamped zero point
     X0, the primal solve's DY and A' DY and the dual solve's Y and A' Y.
-    Returns (X, XL, XU, Y, ZL, ZU, lane), lane with the rows START_ROWS."""
+    Returns (X, XL, XU, Y, ZL, ZU, lane), lane with the rows START_ROWS.
+    One cooperative launch that writes the iterate once; cooperative=False
+    runs the seven launches of the earlier form instead, bit for bit the
+    same (chip_smoke.py and the card tests hold the two together)."""
     device = _device_of(X0)
     n, m, B = _dims(X0, Y)
     nm = n + m
@@ -1061,11 +1128,13 @@ def starting_point(X0, ATDY, DY, ATY, Y, cT, lb, ub, finl, finu, rho):
                              e(nm, B), e(m, B))
     nblk = red_blocks(nm, B)
     partials, lane = e(4, B, nblk), e(len(START_ROWS), B)
-    err = _lib.ipxt_starting_point_f64(
-        n, m, B, *(t.data_ptr() for t in (
-            X0, ATDY, DY, ATY, Y, cT, lb, ub, finl, finu, X, XL, XU, Yo, ZL,
-            ZU, partials)), nblk, lane.data_ptr(), float(rho),
-        1.0 - float(rho), _stream(device))
+    args = (n, m, B, *(t.data_ptr() for t in (
+        X0, ATDY, DY, ATY, Y, cT, lb, ub, finl, finu, X, XL, XU, Yo, ZL, ZU,
+        partials)), nblk, lane.data_ptr(), float(rho), 1.0 - float(rho))
+    if cooperative:
+        err = _lib.ipxt_starting_point_coop_f64(*args, _stream(device))
+    else:
+        err = _lib.ipxt_starting_point_f64(*args, _stream(device))
     _raise_if(err, "starting_point")
     LAUNCHES["starting_point"] += 1
     return X, XL, XU, Yo, ZL, ZU, lane

@@ -433,6 +433,92 @@ def test_csr_spmm_unrolled_matches_one_at_a_time(dev, dtype, B):
         assert _rel(got[2][0], spmv.csr_spmm_plain(op, U)) <= RTOL[dtype]
 
 
+def _long_rows_operand(dtype, dev, seed=9):
+    """A CSR operand whose first row has 3000 nonzeros, so that its row
+    tile holds more than the K5_STAGE_NZ nonzeros a tile stages, beside
+    rows of 0 to 12."""
+    rng = np.random.default_rng(seed)
+    lengths = [3000] + list(rng.integers(0, 13, 400))
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    indices = np.concatenate([np.sort(rng.choice(3000, k, replace=False))
+                              for k in lengths])
+    return spmv.CsrOperand(indptr, indices, rng.standard_normal(indptr[-1]),
+                           3000, dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [1, 4, 7, 8, 256])
+def test_csr_spmm_tiled_matches_row_body(dev, dtype, B):
+    """K5's tiled form (the plain product) against its row body at unroll 1
+    and 2, bit for bit: on A (a row longer than a warp and the ring, an
+    empty row) and A' of a random matrix, A and A' of the transportation
+    pattern, and an operand whose row tile holds more nonzeros than a tile
+    stages (read in place); and k5_form's pick through csr_spmm."""
+    A, rng = _matrix(700, 1500, 0.01, seed=8)
+    nmds = [spmv.NormalMatrixDevice(A, dev, dtype),
+            _transportation_nmd(dev, dtype)]
+    t = lambda x: torch.from_numpy(x).to(dtype).to(dev)  # noqa: E731
+    ops = [nmds[0].op_A, nmds[0].op_At, nmds[1].op_A, nmds[1].op_At,
+           _long_rows_operand(dtype, dev)]
+    for op in ops:
+        U = t(rng.standard_normal((op.cols, B)))
+        want = {}
+        for unroll in (1, 2):
+            want[unroll] = torch.full((op.rows, B), 7.0, dtype=dtype,
+                                      device=dev)
+            kernels._spmm(op, U, want[unroll], form="row", unroll=unroll)
+        Y = torch.full((op.rows, B), 7.0, dtype=dtype, device=dev)
+        kernels._spmm(op, U, Y, form="tile")
+        torch.cuda.synchronize()
+        assert torch.equal(Y, want[1]), op.rows
+        assert torch.equal(want[1], want[2])
+        before = kernels.LAUNCHES["csr_spmm"]
+        Y = kernels.csr_spmm(op, U)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["csr_spmm"] == before + 1
+        assert torch.equal(Y, want[1])
+        assert _rel(Y, spmv.csr_spmm_plain(op, U)) <= RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_csr_spmm_tiled_empty_operands(dev, dtype):
+    """The tiled form on an operand of no rows, whose arrays are null
+    (PyTorch's pointer of an empty tensor), and on one of rows without
+    nonzeros: no launch error, Y empty or zero."""
+    B = 8
+    U = torch.ones((5, B), dtype=dtype, device=dev)
+    empty = spmv.CsrOperand(np.zeros(1, dtype=np.int64),
+                            np.zeros(0, dtype=np.int32), np.zeros(0), 5,
+                            dev, dtype)
+    Y = torch.empty((0, B), dtype=dtype, device=dev)
+    kernels._spmm(empty, U, Y, form="tile")
+    hollow = spmv.CsrOperand(np.zeros(4, dtype=np.int64),
+                             np.zeros(0, dtype=np.int32), np.zeros(0), 5,
+                             dev, dtype)
+    Y = torch.full((3, B), 7.0, dtype=dtype, device=dev)
+    kernels._spmm(hollow, U, Y, form="tile")
+    torch.cuda.synchronize()
+    assert torch.equal(Y, torch.zeros_like(Y))
+
+
+def test_csr_spmm_tiled_refuses_an_epilogue(dev):
+    A, rng = _matrix(50, 40, 0.1, seed=5)
+    op = spmv.NormalMatrixDevice(A, dev).op_A
+    U = torch.ones((40, 4), dtype=torch.float64, device=dev)
+    Y = torch.empty((50, 4), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="tiled form"):
+        kernels._spmm(op, U, Y, addw=Y, addv=Y, form="tile")
+    # a tile of more rows than a block takes: the C entry's refusal
+    # reaches Python
+    err = kernels.load().ipxt_csr_spmm_tile_f64(
+        op.rows, 4, op.indptr.data_ptr(), op.indices.data_ptr(),
+        op.vals.data_ptr(), U.data_ptr(), Y.data_ptr(), 2, 2, 1000,
+        torch.cuda.current_stream(dev).cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernels._raise_if(err, "csr_spmm (tiled)")
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B", [3, 8])
 def test_normal_apply_batched_is_right_and_repeatable(dev, dtype, B):
@@ -911,6 +997,50 @@ def test_starting_point(dev):
         assert _rel(a[fin], b[fin]) <= 1e-12
     assert bool((L["fixup"] != 0).any())
     assert bool(L["fixup"][3] != 0)
+
+
+def _start_inputs(dev, n, m, B, seed):
+    """Seeded inputs of K13 with bounds finite below only, above only, both
+    and neither, and a lane whose dual residual is small (the fix-up)."""
+    rng = np.random.default_rng(seed)
+    nm = n + m
+    finl = rng.random(nm) < 0.7
+    finu = rng.random(nm) < 0.4
+    lb = np.where(finl, rng.uniform(-2.0, 0.0, nm), -np.inf)
+    ub = np.where(finu, rng.uniform(0.5, 3.0, nm), np.inf)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    g = lambda *s: t(rng.standard_normal(s))  # noqa: E731
+    X0 = torch.clamp(torch.zeros((nm, B), dtype=torch.float64, device=dev),
+                     t(lb)[:, None], t(ub)[:, None])
+    ATY, Y = g(n, B), g(m, B)
+    cT = g(nm, B)
+    cT[:, min(3, B - 1)] = torch.cat([ATY, Y])[:, min(3, B - 1)] \
+        + 1e-3 * cT[:, min(3, B - 1)]
+    return (X0, g(n, B), g(m, B), ATY, Y, cT, t(lb), t(ub), t(finl),
+            t(finu))
+
+
+@pytest.mark.parametrize("n, m, B", [(40000, 10000, 256), (3000, 1000, 7),
+                                     (3000, 1000, 6), (30, 20, 1)])
+def test_starting_point_one_launch_matches_seven(dev, n, m, B):
+    """K13's one cooperative launch against the seven launches of its
+    earlier form: X, XL, XU, Y, ZL, ZU and the lane scalars bit for bit, at
+    n + m = 50 000 and B = 256 (4096 virtual blocks, several a block of the
+    grid), at B = 7 (a lane a thread), B = 6 (two lanes a thread in blocks
+    of 126 threads) and B = 1."""
+    args = _start_inputs(dev, n, m, B, seed=n + B)
+    before = kernels.LAUNCHES["starting_point"]
+    one = kernels.starting_point(*args, batch.RHO)
+    seven = kernels.starting_point(*args, batch.RHO, cooperative=False)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["starting_point"] == before + 2
+    for k, a, b in zip(("X", "XL", "XU", "Y", "ZL", "ZU", "lane"), one,
+                       seven):
+        assert torch.equal(a, b), k
+    assert bool((one[-1][1] != 0).any())   # a fix-up lane
+    for k, a, b in zip(("X", "XL", "XU", "Y", "ZL", "ZU"), one[:-1],
+                       batch.starting_point_plain(*args, lane=one[-1])):
+        assert torch.equal(a, b), k
 
 
 # -- the shared-basis polish (parallel/batch2.py) -----------------------------

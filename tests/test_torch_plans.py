@@ -149,6 +149,77 @@ def test_k16_plan_rule_by_column_lengths(make, fused, P):
         snm.op_At_split) is fused
 
 
+def _lp_shapes(mean, rows=20000):
+    """A stand-in for an operand of the batched stage: `rows` rows holding
+    `mean` nonzeros each on average (only rows and vals are read)."""
+    class Op:
+        pass
+    op = Op()
+    op.rows = rows
+    op.vals = torch.empty(int(round(mean * rows)))
+    return op
+
+
+# (mean row length, B, itemsize, vw, (tpr, rpg)): the stage's A U (9.6 a
+# row) and A' V (2 a row) at B = 256 in f64 and f32, the entry step's B = 8
+# and phase 7's B = 4, one lane a thread at B = 7, and an operand without
+# nonzeros
+K5_TILES = [
+    pytest.param(9.6, 256, 8, 2, (16, 2), id="A-U-f64-256"),
+    pytest.param(2.0, 256, 8, 2, (16, 12), id="At-V-f64-256"),
+    pytest.param(9.6, 256, 4, 4, (16, 2), id="A-U-f32-256"),
+    pytest.param(2.0, 256, 4, 4, (16, 12), id="At-V-f32-256"),
+    pytest.param(9.6, 8, 8, 2, (4, 1), id="A-U-f64-8"),
+    pytest.param(2.0, 4, 8, 2, (2, 2), id="At-V-f64-4"),
+    pytest.param(9.6, 7, 8, 1, (7, 2), id="A-U-f64-7"),
+    pytest.param(0.0, 256, 8, 2, (16, 16), id="no-nonzeros"),
+]
+
+
+@pytest.mark.parametrize("mean, B, itemsize, vw, want", K5_TILES)
+def test_k5_tile_geometry(mean, B, itemsize, vw, want):
+    """K5's tiled form on the host (kernels.k5_tile): a group's segment at
+    most K5_SEG_BYTES and at most B lanes, rows a group from the mean row
+    length (about K5_GROUP_NZ nonzeros), the block's tile at most
+    K5_TILE_ROWS rows and, where it has nonzeros, about half of what a tile
+    stages; the arguments the C entry takes."""
+    op = _lp_shapes(mean)
+    tpr, rpg = kernels.k5_tile(op, B, vw, itemsize)
+    assert (tpr, rpg) == want
+    groups = kernels.THREADS // tpr
+    assert tpr * vw * itemsize <= kernels.K5_SEG_BYTES and tpr <= B // vw
+    assert 1 <= rpg and groups * rpg <= kernels.K5_TILE_ROWS
+    if mean > 0 and rpg > 1:
+        assert groups * rpg * mean <= kernels.K5_STAGE_NZ / 2
+        assert rpg * mean <= kernels.K5_GROUP_NZ
+
+
+# (B, itemsize, epilogue, form): the stage's B = 256 in f64 and f32, the
+# entry step's B = 8 and phase 7's B = 4, the least B whose row of U holds
+# a whole segment (32 in f64, 64 in f32) and the one below it, and any
+# launch with an epilogue
+K5_FORMS = [
+    pytest.param(256, 8, False, "tile", id="f64-256"),
+    pytest.param(256, 4, False, "tile", id="f32-256"),
+    pytest.param(8, 8, False, "row", id="f64-8"),
+    pytest.param(4, 8, False, "row", id="f64-4"),
+    pytest.param(32, 8, False, "tile", id="f64-32"),
+    pytest.param(16, 8, False, "row", id="f64-16"),
+    pytest.param(64, 4, False, "tile", id="f32-64"),
+    pytest.param(32, 4, False, "row", id="f32-32"),
+    pytest.param(256, 8, True, "row", id="f64-256-epilogue"),
+]
+
+
+@pytest.mark.parametrize("B, itemsize, epilogue, form", K5_FORMS)
+def test_k5_form_rule(B, itemsize, epilogue, form):
+    """K5's form on the host (kernels.k5_form): the tiled form for a plain
+    product whose rows of U hold at least K5_SEG_BYTES, the row body for
+    narrower ones and for every launch with an epilogue, partials or a
+    loop state."""
+    assert kernels.k5_form(B, itemsize, epilogue) == form
+
+
 @pytest.fixture
 def no_library(monkeypatch):
     """Fails the test if anything builds or loads the kernel library."""
@@ -228,6 +299,18 @@ def _sharded_batched_cr_step():
                                  e(12, 3), e(30, 3), e(30, 3), e(30, 3))
 
 
+def _csr_spmm():
+    nmd, e = _normal_operands()
+    kernels.csr_spmm(nmd.op_A, e(12, 3))
+
+
+def _starting_point():
+    e = lambda *s: torch.ones(s, dtype=torch.float64)  # noqa: E731
+    fin = torch.ones(42, dtype=torch.bool)
+    kernels.starting_point(e(42, 3), e(12, 3), e(30, 3), e(12, 3), e(30, 3),
+                           e(42, 3), e(42), e(42), fin, fin, 0.1)
+
+
 def _sharded_cr_solve():
     snm, e = _sharded_operands()
     kernels.ShardedCrStep(snm.op_At_split, snm.op_A, e(12), e(30), e(30),
@@ -239,18 +322,20 @@ def _sharded_cr_solve():
                                   _normal_apply_batched, _cr_step,
                                   _block_batched_plan,
                                   _sharded_batched_cr_step,
-                                  _sharded_cr_solve],
+                                  _sharded_cr_solve, _csr_spmm,
+                                  _starting_point],
                          ids=["SpmvPlan", "csr_spmv", "BlockSpmvPlan",
                               "BatchedCrStep", "NormalBatchedPlan",
                               "normal_apply_batched", "CrStep",
                               "BlockNormalBatchedPlan",
-                              "ShardedBatchedCrStep", "ShardedCrStep.solve"])
+                              "ShardedBatchedCrStep", "ShardedCrStep.solve",
+                              "csr_spmm", "starting_point"])
 def test_plans_refuse_cpu_tensors_before_loading(no_library, make):
     """K1's plans, csr_spmv, K7's step object, K6's plan and wrapper, K3's
     step object (its cooperative solve and host-issued passes), K16's plan
-    and step object and K15's step object (its cooperative solve) take
-    CUDA tensors only, and say so before the kernel library is built or
-    loaded."""
+    and step object, K15's step object (its cooperative solve), K5 and
+    K13's one launch take CUDA tensors only, and say so before the kernel
+    library is built or loaded."""
     with pytest.raises(ValueError, match="CUDA tensors"):
         make()
 

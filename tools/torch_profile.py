@@ -54,12 +54,17 @@ with the card's nvidia-smi name and power limit:
            n columns hold L nonzeros each (nnz about 192 000, as the LP's
            A), L = 2, 3, 4, 5, 6, 8: device and event time of each form, the
            ratio by which K6's plan chooses (kernels.K6_FUSED_RATIO);
-  k5       K5 with one nonzero at a time and with two gathers issued
-           together (csrc/spmm.cu row_gather) in turns, f32 and f64,
-           B = 256, on A U and A' V of the batched path's LP and on A' V of
-           the k6 part's operands (rows of L nonzeros in A'): device and
-           event time of each, beside the unroll kernels.k5_unroll takes
-           (the evidence for kernels.K5_UNROLL_BELOW);
+  k5       K5's forms in turns: its row body with one nonzero at a time
+           and with two gathers issued together (csrc/spmm.cu row_gather),
+           and its tiled form (csr_spmm_tile_kernel), f32 and f64, on A U
+           and A' V of the batched path's LP at B = 4, 8, 32, 64 and 256
+           and on A' V of the k6 part's operands (rows of L nonzeros in A')
+           at B = 256: device and event time of each beside the bound, the
+           forms kernels.k5_form and k5_unroll take (the evidence for
+           K5_SEG_BYTES as k5_form's threshold and for K5_UNROLL_BELOW),
+           and the library's product on the LP at B = 256;
+  k13      K13's one cooperative launch and its seven launches in turns at
+           the batch's shapes, bit for bit: device and event time;
   scenarios  chip_smoke.py phase 7: the batched phase 1 of its 4
            scenarios alone (BatchedPhase1Solver, device="cuda", handoff
            "auto"; B = 4 lanes, below one warp) with its steps and CR
@@ -614,40 +619,109 @@ def part_k6(data, args, card):
             torch.cuda.empty_cache()
 
 
+def _k5_forms(op, X, Y):
+    """K5's forms on `op` (csrc/spmm.cu): the row body at unroll 1 and 2
+    and the tiled form."""
+    forms = {f"row{u}": (lambda u=u: kernels._spmm(op, X, Y, form="row",
+                                                   unroll=u))
+             for u in (1, 2)}
+    forms["tile"] = lambda: kernels._spmm(op, X, Y, form="tile")
+    return forms
+
+
 def part_k5(data, args, card):
-    """K5 with one nonzero at a time and with two gathers issued together,
-    in turns, on A U and A' V of the batched path's LP and on A' V of
-    operands whose columns hold L nonzeros (rows of L in A')."""
+    """K5's forms in turns (row1, row2, tile, tile, row2, row1): the row
+    body at unroll 1 and 2 and the tiled form, f64 and f32, on A U and A' V
+    of the batched path's LP at B = 4, 8, 32, 64 and 256 and, at
+    B = 256, on A' V of operands whose columns hold L nonzeros (rows of L
+    in A'): device and event time of each beside the bound and the forms
+    kernels.k5_form and k5_unroll take, and at B = 256 on the LP the
+    library's sparse_csr_tensor @ U."""
+    from chip_smoke import FN, bound, library_csr, nbytes, op_bytes
     dev = backend.cuda_device()
     A_lp = _batch(data).A
-    m, B, nnz = A_lp.shape[0], 256, 192004
+    m, nnz = A_lp.shape[0], 192004
     rng = np.random.default_rng(args.seed)
-    cases = [("LP", A_lp)] + [(f"L={L}", _columns_of(m, L, nnz, seed=L))
-                              for L in (2, 3, 4, 5, 6, 8)]
-    for label, A in cases:
-        for dtype in (torch.float32, torch.float64):
+    cases = [("LP", A_lp, B) for B in (4, 8, 32, 64, 256)] + [
+        (f"L={L}", _columns_of(m, L, nnz, seed=L), 256)
+        for L in (2, 3, 4, 5, 6, 8)]
+    for label, A, B in cases:
+        for dtype in (torch.float64, torch.float32):
             nmd = spmv.NormalMatrixDevice(A, dev, dtype)
             ops = (("A U", nmd.op_A), ("A'V", nmd.op_At))
             for opname, op in ops if label == "LP" else ops[1:]:
                 X = torch.from_numpy(rng.standard_normal((op.cols, B))).to(
                     dtype).to(dev)
                 Y = torch.empty((op.rows, B), dtype=dtype, device=dev)
-                forms = {u: (lambda u=u: kernels._spmm(op, X, Y, unroll=u))
-                         for u in (1, 2)}
-                ev = {u: [] for u in forms}
-                for u in (1, 2, 2, 1):
-                    ev[u].append(cuda_ms(forms[u]))
-                dv = {u: device_ms(forms[u], reps=20) for u in forms}
+                forms = _k5_forms(op, X, Y)
+                order = list(forms) + list(forms)[::-1]
+                ev = {k: [] for k in forms}
+                for k in order:
+                    ev[k].append(cuda_ms(forms[k]))
+                dv = {k: [] for k in forms}
+                for k in order:
+                    dv[k].append(device_ms(forms[k], reps=20))
+                b = bound(op_bytes(op) + nbytes(X, Y),
+                          2 * op.vals.numel() * B, FN[str(dtype)[6:]])
+                lib = ""
+                if label == "LP" and B == 256:
+                    A_lib = library_csr(op)
+                    lib = (f" | library {cuda_ms(lambda: A_lib @ X):.4f} "
+                           f"ms event, {device_ms(lambda: A_lib @ X):.5f} "
+                           f"ms device")
+                    del A_lib
                 print(f"k5 {label} {opname} {str(dtype)[6:]} B={B} mean row "
-                      f"{op.vals.numel() / op.rows:.2f} (k5_unroll "
+                      f"{op.vals.numel() / op.rows:.2f} (k5_form "
+                      f"{kernels.k5_form(B, X.element_size(), False)}, "
+                      f"k5_unroll "
                       f"{kernels.k5_unroll(op)}) | " + "; ".join(
-                          f"unroll {u} device {dv[u]:.5f} ms, event "
-                          f"{'/'.join(f'{x:.4f}' for x in ev[u])} ms"
-                          for u in forms)
-                      + f" | 2 / 1 device {dv[2] / dv[1]:.3f} | {card}",
-                      flush=True)
+                          f"{k} device "
+                          f"{'/'.join(f'{x:.5f}' for x in dv[k])} ms, event "
+                          f"{'/'.join(f'{x:.4f}' for x in ev[k])} ms"
+                          for k in forms)
+                      + f" | bound {b['bound_ms']:.5f} ms ({b['bound_by']})"
+                      + lib + f" | {card}", flush=True)
             del nmd
             torch.cuda.empty_cache()
+
+
+def part_k13(data, args, card):
+    """K13's one cooperative launch and its seven launches in turns (one,
+    seven, seven, one) at the batch's shapes (n + m = 116 002, B = 256)
+    from a clamped zero point and seeded CR solutions: device and event
+    time of each beside the bound, outputs and lane scalars bit for bit."""
+    from chip_smoke import bound, nbytes
+    dev = backend.cuda_device()
+    blp = _batch(data)
+    m, n = blp.A.shape
+    B = blp.batch
+    rng = np.random.default_rng(args.seed)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    n64 = spmv.NormalMatrixDevice(blp.A, dev)
+    lb, ub = t(blp.lb), t(blp.ub)
+    finl, finu = t(np.isfinite(blp.lb)), t(np.isfinite(blp.ub))
+    DY, Y = t(rng.standard_normal((m, B))), t(rng.standard_normal((m, B)))
+    X0 = torch.clamp(torch.zeros((n + m, B), dtype=torch.float64,
+                                 device=dev), lb[:, None], ub[:, None])
+    sp = (X0, kernels.csr_spmm(n64.op_At, DY), DY,
+          kernels.csr_spmm(n64.op_At, Y), Y, t(blp.c.T), lb, ub, finl, finu)
+    forms = {"one": lambda: kernels.starting_point(*sp, batch.RHO),
+             "seven": lambda: kernels.starting_point(*sp, batch.RHO,
+                                                     cooperative=False)}
+    got = {k: f() for k, f in forms.items()}
+    same = all(torch.equal(a, b) for a, b in zip(got["one"], got["seven"]))
+    b = bound(nbytes(*sp, *got["one"]), 20 * (n + m) * B, "f64")
+    del got
+    ev, dv = {k: [] for k in forms}, {k: [] for k in forms}
+    for k in ("one", "seven", "seven", "one"):
+        ev[k].append(cuda_ms(forms[k], reps=10))
+    for k in ("one", "seven", "seven", "one"):
+        dv[k].append(device_ms(forms[k], reps=10))
+    print(f"k13 f64 n+m={n + m} B={B} bit for bit {same} | " + "; ".join(
+        f"{k} device {'/'.join(f'{x:.4f}' for x in dv[k])} ms, event "
+        f"{'/'.join(f'{x:.4f}' for x in ev[k])} ms" for k in forms)
+        + f" | bound {b['bound_ms']:.4f} ms ({b['bound_by']}) | {card}",
+        flush=True)
 
 
 def top_items(part, prof, wall, card, k=10):
@@ -868,7 +942,7 @@ PARTS = {"e2e": part_e2e, "native": part_native, "threads": part_threads,
          "busy": part_busy, "batched": part_batched, "stage": part_stage,
          "scenarios": part_scenarios, "polish": part_polish,
          "sharded": part_sharded, "entry": part_entry, "k6": part_k6,
-         "k5": part_k5}
+         "k5": part_k5, "k13": part_k13}
 
 
 def main():
