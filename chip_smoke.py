@@ -20,7 +20,9 @@ only: no jax, and no module of ipx_tpu.
      both forms bit for bit against each other and from run to run; K3's
      first inner solve of each device CR (f32 mixed, f64) in its
      cooperative launch and its host-issued passes, in turns, in event and
-     device time, lhs, trips and error code bit for bit;
+     device time, lhs, trips and error code bit for bit; the stand-alone
+     K2 (Cv and v.Cv) in its one cooperative launch and its three
+     launches, bit for bit and timed in turns, f32 and f64;
   3. solves afiro through ipx_tpu_torch.LpSolver(device="cuda");
   4. solves transportation(8000, 12000, 0.001, seed=1) through
      ipx_tpu_torch.LpSolver(device="cuda") with every launch counter set to
@@ -47,15 +49,16 @@ only: no jax, and no module of ipx_tpu.
      for bit, event and device time beside the bound, with the plan's
      choice; K13's one cooperative launch against its seven launches,
      outputs and lane scalars bit for bit, timed in turns, with the CUDA
-     kernels of a call (torch.profiler, in a fresh process);
+     kernels of a call (torch.profiler, in a fresh process); the byte
+     bounds of K7's elementwise passes kPassCA and kPassB, f32 and f64;
   6. runs BatchedPhase1Solver(device="cuda") over those 256 scenarios to
      the handoff (tolerance 1e-4), with the counters set to 0 just before,
      then again, and fails unless both runs take the same steps and CR
      trips; the second run's K5 launches by operand and form (all the
      tiled form); profiles the first STAGE_STEPS steps of that stage for K7's
-     passes by name (launches and mean device time beside each lane pass's
-     byte bound), and checks a small stage against the same solver with the
-     plain versions on the card;
+     passes by name (launches and mean device time beside each pass's
+     byte bound, the elementwise passes' too), and checks a small stage
+     against the same solver with the plain versions on the card;
   7. solves the first 4 scenarios end to end through
      BatchedScenarioSolver(parameters=Parameters(device="cuda")), the
      batched phase 1 and the port's LpSolver finishes, with the counters
@@ -91,9 +94,13 @@ only: no jax, and no module of ipx_tpu.
  10. the level-scheduled triangular solves of tools/torch_trisolve_proto.py
      (ops/trisolve.py) on L and U of splu of the final basis of phase 4's
      host solve: full solves (the L sweep, then the U sweep) through K17
-     at B = 1, 256 and 1024 with the counters set to 0 just before, each
-     sweep against its plain version and scipy's spsolve_triangular, and
-     timed beside torch.triangular_solve on the same factors; one step of
+     at B = 1, 256 and 1024 with the counters set to 0 just before, one
+     launch a sweep, each sweep against its plain version and scipy's
+     spsolve_triangular and bit for bit against K17's per-level form, the
+     two forms timed in turns beside torch.triangular_solve on the same
+     factors; the CUDA kernels of one sweep and of one stand-alone K2
+     apply with its dot (one each), from torch.profiler in a fresh
+     process; one step of
      ipx_tpu_torch.entry.entry() on the card; afiro through the port's C
      API (capi.py) with its default device, the card, and in a subprocess
      with the card hidden (CUDA_VISIBLE_DEVICES=""), where ipx_solve
@@ -306,27 +313,29 @@ def batch_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def forms_in_turns(forms, order, reps=REPS):
+def forms_in_turns(forms, order, reps=REPS, device=True):
     """Two forms of one computation timed in turns (a, b, b, a): event
     milliseconds of each turn by form, one call between two events; device
-    milliseconds (torch.profiler) and back-to-back milliseconds (batch_ms)
-    of each turn by form."""
+    milliseconds (torch.profiler; None unless `device`) and back-to-back
+    milliseconds (batch_ms) of each turn by form."""
     a, b = order
     ev, dv, bb = ({k: [] for k in order} for _ in range(3))
     for k in (a, b, b, a):
         ev[k].append(cuda_ms(forms[k], reps=reps, warm=1))
     for k in (a, b, b, a):
-        dv[k].append(device_ms(forms[k], reps=reps))
+        if device:
+            dv[k].append(device_ms(forms[k], reps=reps))
         bb[k].append(batch_ms(forms[k], reps))
-    return ev, dv, bb
+    return ev, dv if device else None, bb
 
 
 def turns_line(ev, dv, bb):
     def each(d, fmt):
         return "; ".join(f"{k} {'/'.join(fmt.format(x) for x in v)}"
                          for k, v in d.items())
-    return (f"event ms in turns {each(ev, '{:.4f}')}; device ms "
-            f"{each(dv, '{:.5f}')}; back-to-back ms {each(bb, '{:.4f}')}")
+    dev = "" if dv is None else f"; device ms {each(dv, '{:.5f}')}"
+    return (f"event ms in turns {each(ev, '{:.4f}')}{dev}; back-to-back ms "
+            f"{each(bb, '{:.4f}')}")
 
 
 def main():
@@ -429,25 +438,49 @@ def main():
                     **bound(op_bytes(op) + nbytes(x, y),
                             2 * op.vals.numel(), "f64"))
 
-        # K2 (Cv, v.Cv)
+        # K2 (Cv, v.Cv): the stand-alone apply in one cooperative launch
+        # (spmv.normal_apply) against its three launches, bit for bit; their
+        # device times come from tools/torch_profile.py --what k2, in a
+        # fresh process (torch.profiler reads cooperative kernels low late
+        # in this one, PERF.md §7)
         W = t(10.0 ** rng.uniform(-2, 2, n + m), dtype)
         v = t(rng.standard_normal(m), dtype)
         Cv, vCv = spmv.normal_apply(nmd, W, v)
         Cv_p, vCv_p = spmv.normal_apply_plain(nmd, W, v)
+
+        def k2_form(one):
+            dot = torch.empty(1, dtype=dtype, device=dev)
+            out = kernels.normal_apply(nmd.op_At, nmd.op_A, W, v, dot=dot,
+                                       one_launch=one)
+            return out, dot
+        k2_forms = {"one launch": lambda: k2_form(True),
+                    "three launches": lambda: k2_form(False)}
+        Cv3, vCv3 = k2_forms["three launches"]()
         torch.cuda.synchronize()
+        check(torch.equal(Cv, Cv3) and float(vCv) == float(vCv3[0]),
+              f"K2 {dn}: the one launch differs from the three launches")
         err = max(rel_err(Cv, Cv_p),
                   abs(float(vCv) - float(vCv_p)) / abs(float(vCv_p)))
-        ms = cuda_ms(lambda: spmv.normal_apply(nmd, W, v))
+        ev, _, bb = forms_in_turns(k2_forms, tuple(k2_forms), device=False)
+        ms = statistics.median(ev["one launch"])
         pms = cuda_ms(lambda: spmv.normal_apply_plain(nmd, W, v))
-        report("K2 normal_apply", f"(Cv, v.Cv) {dn}", err, RTOL[dn], ms, pms)
+        report("K2 normal_apply", f"(Cv, v.Cv) {dn}, one launch", err,
+               RTOL[dn], ms, pms)
+        print(f"  {'':15s} one launch and three bit for bit (Cv, v.Cv); "
+              + turns_line(ev, None, bb) + f" | {card}", flush=True)
         if dtype == torch.float32:
             nnz = nmd.op_A.vals.numel()
             rows["normal_apply"] = dict(
-                case="(Cv, v.Cv), f32, the stand-alone K2; on the main path "
-                     "it is not launched: its applies run inside cr_step's "
+                case="(Cv, v.Cv), f32, the stand-alone K2 in one "
+                     "cooperative launch; on the main path it is not "
+                     "launched: its applies run inside cr_step's "
                      "cooperative launches (applies_inside_cr_step)",
                 max_abs_err=max_abs(Cv, Cv_p),
                 ms=ms, plain_ms=pms, library_ms=None,
+                three_launches_ms=statistics.median(ev["three launches"]),
+                back_to_back_ms=statistics.median(bb["one launch"]),
+                three_launches_back_to_back_ms=statistics.median(
+                    bb["three launches"]),
                 **bound(op_bytes(nmd.op_A) + op_bytes(nmd.op_At)
                         + nbytes(W, v, Cv) + 4, 4 * nnz + n + 4 * m, "f32"))
 
@@ -697,7 +730,7 @@ def main():
 
 
 SOURCE = {"csr_spmv": "ipx_tpu_torch/csrc/spmv.cu",
-          "normal_apply": "ipx_tpu_torch/csrc/spmv.cu",
+          "normal_apply": "ipx_tpu_torch/csrc/cr.cu",
           "cr_step": "ipx_tpu_torch/csrc/cr.cu",
           "nnt": "ipx_tpu_torch/csrc/nnt.cu",
           "csr_spmm": "ipx_tpu_torch/csrc/spmm.cu",
@@ -1188,10 +1221,15 @@ def batched_phases(card, data, dev, rng):
             report("K7 batched_cr_step", f"solve {dn} ({trips} trips)",
                    rel_err(Yc, Yc_p), 1e-3, ms, pms)
             # inputs once: operands, W, 1/diag, resscale, rhs, tol; Y once
+            pass_bounds = k7_elem_bounds(m, B, kernels.lane_blocks(m, B))
+            print(f"  {'':15s} bounds of K7's elementwise passes (B={B}, "
+                  f"m={m}, each array once): " + ", ".join(
+                      f"{k} {v * 1e3:.2f} us" for k, v in pass_bounds.items())
+                  + f" | {card}", flush=True)
             rows["batched_cr_step"] = dict(
                 case=f"batched CR solve, f32, B=256, {trips} trips",
                 max_abs_err=max_abs(Yc, Yc_p), ms=ms, plain_ms=pms,
-                library_ms=None,
+                library_ms=None, pass_bound_ms=pass_bounds,
                 **bound(op_bytes(nmd.op_A) + op_bytes(nmd.op_At)
                         + 4 * (nm + 5 * m + 1) * B,
                         trips * (4 * blp.A.nnz + n + 20 * m) * B, "f32"))
@@ -1413,6 +1451,25 @@ def k7_passes(prof):
     return {k: (n, us / n) for k, (n, us) in out.items()}
 
 
+def k7_elem_arrays(m, B, npa):
+    """{pass: (values read, values written)} of K7's elementwise passes on
+    a trip after the first, each array once (csrc/batch_cr.cu): kPassCA
+    reads S, D, CS, CD, 1/diag, resscale, R and the lanes' beta and writes
+    D, CD and the (2, B, npa) partials; kPassB reads the B active flags,
+    alpha, D, CD, Y, R, S, 1/diag and writes Y, R and S."""
+    mb = m * B
+    return {"kPassCA": (7 * mb + B, 2 * mb + 2 * npa * B),
+            "kPassB": (6 * mb + 2 * B, 3 * mb)}
+
+
+def k7_elem_bounds(m, B, npa):
+    """{"kPassCA f32": ms, ...}: the byte bounds of K7's elementwise passes
+    in f32 and f64 (k7_elem_arrays) over the card's memory rate."""
+    return {f"{name} {dn}": bound(size * (r + w), 0, dn)["bound_ms"]
+            for dn, size in (("f32", 4), ("f64", 8))
+            for name, (r, w) in k7_elem_arrays(m, B, npa).items()}
+
+
 def k7_pass_times(card, blp, dev):
     """Phase 6, K7's passes by name: the first STAGE_STEPS steps of the
     B = 256 stage under torch.profiler, each pass's launches and mean device
@@ -1436,9 +1493,11 @@ def k7_pass_times(card, blp, dev):
     for (dn, name), (n, us) in sorted(passes.items()):
         size = 4 if dn == "float" else 8
         npc = kernels.lane_blocks(m, B // (16 // size))
+        elem = k7_elem_arrays(m, B, npa)
         read = {"kCheck": 2 * npa * B + 2 * B, "kStart": npc * B,
-                "kBeta": npc * B + 2 * B}.get(name)
-        wrote = {"kCheck": 3 * B, "kStart": B, "kBeta": 2 * B + 1}.get(name)
+                "kBeta": npc * B + 2 * B}.get(name, elem.get(name, (0,))[0])
+        wrote = {"kCheck": 3 * B, "kStart": B, "kBeta": 2 * B + 1}.get(
+            name, elem.get(name, (0, 0))[1])
         b_us = (f", bound {1e6 * size * (read + wrote) / HBM_BYTES_PER_S:.3f}"
                 f" us" if read else "")
         lines.append(f"{dn} {name} {n} x {us:.2f} us{b_us}")
@@ -2296,6 +2355,66 @@ TRI_B = (1, 256, 1024)
 TRI_ROW_B = 256       # the case of K17's row in the kernels line
 
 
+# the CUDA kernels one K17 sweep (at each B of TRI_B, on a lower factor of
+# 3000 rows) and one stand-alone K2 apply with its dot (both forms) start,
+# counted by torch.profiler in a fresh process
+ONE_LAUNCH = r"""
+import json, sys
+import numpy as np
+import scipy.sparse as sp
+import torch
+from torch.profiler import ProfilerActivity, profile
+from ipx_tpu_torch import backend, kernels
+from ipx_tpu_torch.ops import spmv, trisolve
+dev = backend.cuda_device()
+rng = np.random.default_rng(0)
+m = 3000
+i = np.repeat(np.arange(1, m), 2)
+j = (rng.random(len(i)) * i).astype(np.int64)
+T = sp.csr_matrix((0.1 * rng.standard_normal(len(i)), (i, j)),
+                  shape=(m, m)) + sp.diags(rng.uniform(1.0, 2.0, m))
+sched = trisolve.level_schedule(sp.csr_matrix(T), True, dev)
+A = sp.random(700, 1500, density=0.01, random_state=rng, format="csc")
+nmd = spmv.NormalMatrixDevice(A, dev)
+W = torch.ones(2200, dtype=torch.float64, device=dev)
+v = torch.ones(700, dtype=torch.float64, device=dev)
+dot = torch.empty(1, dtype=torch.float64, device=dev)
+
+
+def kernels_of(fn):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and "Memcpy" not in e.key
+               and "Memset" not in e.key)
+
+
+out = {}
+for B in map(int, sys.argv[1:]):
+    V = torch.ones((m, B), dtype=torch.float64, device=dev)
+    out[f"sweep B={B}"] = kernels_of(lambda: kernels.level_solve(sched, V))
+out["K2 with its dot"] = kernels_of(lambda: kernels.normal_apply(
+    nmd.op_At, nmd.op_A, W, v, dot=dot))
+out["K2 three"] = kernels_of(lambda: kernels.normal_apply(
+    nmd.op_At, nmd.op_A, W, v, dot=dot, one_launch=False))
+print(json.dumps(out))
+"""
+
+
+def one_launch_counts():
+    """{case: CUDA kernels a call} of ONE_LAUNCH, run in a fresh process
+    (late in this one torch.profiler misses kernels, PERF.md §6)."""
+    out = subprocess.run([sys.executable, "-c", ONE_LAUNCH,
+                          *map(str, TRI_B)], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, "the one-launch counts failed: "
+          + out.stderr[-2000:])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def library_solve(L_lib, U_lib, V):
     """L U X = V by torch.triangular_solve on sparse CSR factors (cuSPARSE
     on the card), the yardstick of K17; the port never calls it."""
@@ -2337,15 +2456,18 @@ def trisolve_phase(card, L, U, dev):
         return trisolve.level_solve_plain(
             sU, trisolve.level_solve_plain(sL, V))
 
+    def full_levels(V):
+        return kernels.level_solve(sU, kernels.level_solve(
+            sL, V, per_level=True), per_level=True)
+
     # the main path: a full solve at every B
     torch.cuda.synchronize()
     kernels.reset_launches()
     X = {B: full(V) for B, V in Vs.items()}
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    check(launches["level_solve"] == len(TRI_B) * (sL.nlev + sU.nlev),
-          f"K17 launched {launches['level_solve']} times, not once per "
-          "level of each sweep")
+    check(launches["level_solve"] == len(TRI_B) * 2,
+          f"K17 launched {launches['level_solve']} times, not once a sweep")
 
     L_lib, U_lib = (library_csr(spmv.CsrOperand(T.indptr, T.indices, T.data,
                                                 m, dev, torch.float64))
@@ -2368,8 +2490,16 @@ def trisolve_phase(card, L, U, dev):
         check(torch.equal(Y, again), f"K17 B={B}: two runs differ")
         check(torch.equal(Xk, X[B]), f"K17 B={B}: the main path's full "
               "solve differs from this one")
+        Y_l = kernels.level_solve(sL, V, per_level=True)
+        check(torch.equal(Y, Y_l) and torch.equal(
+            Xk, kernels.level_solve(sU, Y_l, per_level=True)),
+            f"K17 B={B}: the sweep differs from the per-level form")
         X_p = full_plain(V)
-        ms = cuda_ms(lambda: full(V))
+        k17_forms = {"sweep": lambda: full(V),
+                     "per level": lambda: full_levels(V)}
+        ev, _, bb = forms_in_turns(k17_forms, tuple(k17_forms),
+                                   device=False)
+        ms = statistics.median(ev["sweep"])
         pms = cuda_ms(lambda: full_plain(V))
         lms = None
         if lib_error is None:
@@ -2386,23 +2516,39 @@ def trisolve_phase(card, L, U, dev):
         err = max(errs)
         print(f"  K17 level_solve  full solve B={B:<5d} rel_err {err:.3e} "
               f"(tol 1e-12; L sweep and U sweep against plain and "
-              f"spsolve_triangular) kernel {ms:.4f} ms  plain {pms:.4f} "
-              f"ms | {lib} | {card}", flush=True)
+              f"spsolve_triangular; bit for bit with the per-level form) "
+              f"kernel {ms:.4f} ms  plain {pms:.4f} ms | {lib} | {card}",
+              flush=True)
+        print(f"  {'':15s} B={B} sweep (1 launch a sweep) and per level "
+              f"({sL.nlev}+{sU.nlev} launches): " + turns_line(ev, None, bb)
+              + f" | {card}", flush=True)
         check(err <= 1e-12, f"K17 B={B}: relative error {err:.3e} > 1e-12")
         if B == TRI_ROW_B:
             e_off = sL.cols.numel() + sU.cols.numel()
             sched_bytes = sum(nbytes(s.rows, s.entry_ptr, s.cols, s.vals,
                                      s.inv_diag) for s in (sL, sU))
             row = dict(case=f"full solve (L then U sweep), f64, B={B}, "
-                       f"{sL.nlev}+{sU.nlev} levels",
+                       f"{sL.nlev}+{sU.nlev} levels, one launch a sweep",
                        max_abs_err=max_abs(X[B], X_p), ms=ms, plain_ms=pms,
                        library_ms=lms,
+                       per_level_ms=statistics.median(ev["per level"]),
+                       back_to_back_ms=statistics.median(bb["sweep"]),
+                       per_level_back_to_back_ms=statistics.median(
+                           bb["per level"]),
                        **bound(sched_bytes + 2 * 2 * m * B * 8,
                                2 * (e_off + 2 * m) * B, "f64"))
         del Y, again, Xk, X_p
     del Vs, X
     torch.cuda.empty_cache()
     check(launches["level_solve"] > 0, "K17 was not launched")
+    # the CUDA kernels of a K17 sweep and of a stand-alone K2 apply, from
+    # torch.profiler in a fresh process
+    kern = one_launch_counts()
+    print(f"  CUDA kernels a call, torch.profiler in a fresh process: {kern}"
+          f" | {card}", flush=True)
+    check(all(kern[f"sweep B={B}"] == 1 for B in TRI_B)
+          and kern["K2 with its dot"] == 1 and kern["K2 three"] == 3,
+          f"K17's sweep or K2's apply is not one CUDA launch: {kern}")
 
     # entry(): one batched IPM step with the default device, the card, then
     # timed from copies of the same state, beside the plain versions' step

@@ -45,6 +45,13 @@
 // pass bodies and K2's row body and give the same lhs, iterations and error
 // code bit for bit.
 //
+// The stand-alone K2 (normal_apply_kernel, ipxt_normal_apply): one apply
+// and its dot in one cooperative launch, the same k2_half bodies with a
+// grid barrier after each and block 0 summing the partials, bit for bit
+// with the three launches of spmv.cu. At m = 20 000 an apply moves about
+// 2.3 MB (0.7 us at 3.35 TB/s); its time is the two barriers and two
+// chains of dependent loads.
+//
 // What bounds it on the H100: memory and latency. Each pass streams two to
 // six m-vectors (8 bytes per entry in f64, 4 in f32) for one or two flops
 // per entry; at the main path's m = 20 000 a pass moves well under a
@@ -297,6 +304,39 @@ __device__ __forceinline__ void k2_apply(const SolveArgs<T>& s,
   grid.sync();
 }
 
+// -- the stand-alone K2: one apply and its dot in one launch -----------------
+template <typename T>
+struct ApplyArgs {
+  Rows at, a;          // A' (n rows) and A (m rows), at their op.vec
+  const T* v;
+  const T* w_struct;   // W[:n]
+  const T* w_slack;    // W[n:]
+  T* u;                // (n,) scratch
+  T* out;
+  T* pc;               // the partials of v.out, npc of them
+  int64_t npc;
+  T* dot;
+};
+
+// out = A (W_s (A' v)) + W_slack v and dot = v.out: K2's halves, each over
+// the virtual blocks and into the partial slots of its launch in the
+// three-launch form, then block 0 sums the partials as reduce_sum's one
+// block does. So out, the partials and dot equal that form's bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) normal_apply_kernel(
+    ApplyArgs<T> s) {
+  __shared__ T red[kThreads];
+  cg::grid_group grid = cg::this_grid();
+  k2_half<T>(s.at, s.v, s.w_struct, nullptr, nullptr, s.u, nullptr, red);
+  grid.sync();
+  k2_half<T>(s.a, s.u, nullptr, s.w_slack, s.v, s.out, s.pc, red);
+  grid.sync();
+  if (blockIdx.x == 0) {
+    const T d = sum_partials(s.pc, s.npc, red);
+    if (threadIdx.x == 0) s.dot[0] = d;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) cr_solve_kernel(SolveArgs<T> s) {
   __shared__ T red[kThreads];
@@ -448,6 +488,43 @@ int cr_solve(int64_t m, int64_t maxiter, double tol, const void* invd,
   return (int)(launched != cudaSuccess ? launched : last);
 }
 
+template <typename T>
+int normal_apply(int64_t rows_t, const void* indptr_t, const void* indices_t,
+                 const void* vals_t, int vec_t, int64_t rows_a,
+                 const void* indptr_a, const void* indices_a,
+                 const void* vals_a, int vec_a, const void* W, const void* v,
+                 void* u, void* out, void* pc, int64_t npc, void* dot,
+                 void* stream) {
+  if (rows_t < 0 || rows_a < 1 || !valid_vec(vec_t) || !valid_vec(vec_a) ||
+      npc != blocks_for(rows_a, kThreads / vec_a))
+    return (int)cudaErrorInvalidValue;
+  ApplyArgs<T> s;
+  s.at = make_rows(rows_t, indptr_t, indices_t, vals_t, vec_t);
+  s.a = make_rows(rows_a, indptr_a, indices_a, vals_a, vec_a);
+  s.v = static_cast<const T*>(v);
+  s.w_struct = static_cast<const T*>(W);
+  s.w_slack = static_cast<const T*>(W) + rows_t;
+  s.u = static_cast<T*>(u);
+  s.out = static_cast<T*>(out);
+  s.pc = static_cast<T*>(pc);
+  s.npc = npc;
+  s.dot = static_cast<T*>(dot);
+  int64_t cap = 0;
+  const int err = coop_capacity<normal_apply_kernel<T>>(&cap);
+  if (err != 0) return err;
+  // the virtual blocks of the larger half, at most what the card holds at
+  // once (fewer blocks were slower: PERF.md §6)
+  int64_t g = blocks_for(rows_t, kThreads / vec_t);
+  if (npc > g) g = npc;
+  if (g > cap) g = cap;
+  void* args[] = {&s};
+  const cudaError_t launched = cudaLaunchCooperativeKernel(
+      (const void*)normal_apply_kernel<T>, dim3((unsigned)g), dim3(kThreads),
+      args, 0, static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return (int)(launched != cudaSuccess ? launched : last);
+}
+
 }  // namespace
 }  // namespace ipxt
 
@@ -519,4 +596,35 @@ extern "C" int ipxt_cr_solve_f32(
       m, maxiter, tol, invd, resscale, lhs, residual, sres, csres, step,
       cstep, pa, pr, pc, npc, state, rows_t, indptr_t, indices_t, vals_t,
       vec_t, indptr_a, indices_a, vals_a, vec_a, W, u, stream);
+}
+
+// The stand-alone K2 in one cooperative launch: out = A (W[:n] (A' v)) +
+// W[n:] v, the block partials of v.out in pc (npc = A's blocks at vec_a)
+// and their sum in dot[0], bit for bit with two ipxt_csr_spmv launches and
+// ipxt_reduce_sum. A' has rows_t = n rows, A rows_a = m; u is (n,) scratch.
+// The grid is the larger half's virtual blocks, capped by the card's
+// occupancy; the blocks walk the virtual blocks grid-stride. A refused
+// launch is returned as such.
+extern "C" int ipxt_normal_apply_f64(
+    int64_t rows_t, const void* indptr_t, const void* indices_t,
+    const void* vals_t, int vec_t, int64_t rows_a, const void* indptr_a,
+    const void* indices_a, const void* vals_a, int vec_a, const void* W,
+    const void* v, void* u, void* out, void* pc, int64_t npc, void* dot,
+    void* stream) {
+  return ipxt::normal_apply<double>(rows_t, indptr_t, indices_t, vals_t,
+                                    vec_t, rows_a, indptr_a, indices_a,
+                                    vals_a, vec_a, W, v, u, out, pc, npc,
+                                    dot, stream);
+}
+
+extern "C" int ipxt_normal_apply_f32(
+    int64_t rows_t, const void* indptr_t, const void* indices_t,
+    const void* vals_t, int vec_t, int64_t rows_a, const void* indptr_a,
+    const void* indices_a, const void* vals_a, int vec_a, const void* W,
+    const void* v, void* u, void* out, void* pc, int64_t npc, void* dot,
+    void* stream) {
+  return ipxt::normal_apply<float>(rows_t, indptr_t, indices_t, vals_t,
+                                   vec_t, rows_a, indptr_a, indices_a,
+                                   vals_a, vec_a, W, v, u, out, pc, npc, dot,
+                                   stream);
 }

@@ -40,9 +40,11 @@
 // summed in a fixed order by reduce_sum below, or by the CR passes of cr.cu,
 // never with atomics, so a run is repeatable. On the solver's path both
 // halves run inside K3's one cooperative launch per CR solve (cr.cu), at
-// the same lanes per row and into the same partial slots; this stand-alone
-// K2 and reduce_sum serve the wrapper that the tests and chip_smoke.py
-// call, and K3's host-issued comparison form.
+// the same lanes per row and into the same partial slots. The stand-alone
+// apply with its dot, which the tests and chip_smoke.py call, is one
+// cooperative launch too (ipxt_normal_apply, cr.cu); these two launches
+// and reduce_sum stay as its three-launch form, for comparison, and serve
+// K3's host-issued comparison form.
 //
 // The block products (block_spmv_kernel): out_p = A_p u + W_slack_p v_p over
 // the P <= kMaxSplit row blocks of a row-blocked apply, with the partials of

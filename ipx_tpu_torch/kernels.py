@@ -12,7 +12,8 @@ tensor raises.
 
 Kernels: K1 ``csr_spmv`` (SpmvPlan, checked once per operand and one
 ctypes call a launch; BlockSpmvPlan, the P block products of a row-blocked
-vector apply in one launch), K2 ``normal_apply`` (csrc/spmv.cu), K3
+vector apply in one launch), K2 ``normal_apply`` (csrc/spmv.cu; the
+stand-alone apply with its dot in one cooperative launch, csrc/cr.cu), K3
 ``cr_step`` (CrStep: a whole CR solve, its K2 applies inside, in one
 cooperative launch, csrc/cr.cu), K4 ``nnt`` (NntKernel, one C call per N N'
 apply over P >= 1 column blocks, csrc/nnt.cu); for the batched
@@ -32,8 +33,8 @@ BlockNormalBatchedPlan: one fused launch where A's columns are short)
 (csrc/sharded.cu) and K14v ``block_spmv_sum``, the vector apply's psum
 fused into its first pass (csrc/nnt.cu);
 for the level-scheduled triangular solve, in float64, K17 ``level_solve``
-(csrc/trisolve.cu). Batched arrays are (rows, B) with the B lanes
-contiguous.
+(a whole sweep in one launch, csrc/trisolve.cu). Batched arrays are (rows,
+B) with the B lanes contiguous.
 """
 from __future__ import annotations
 
@@ -95,6 +96,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         f = getattr(lib, f"ipxt_cr_step_{t}")
         f.argtypes = [I, I64, I64, I64, D] + [P] * 11 + [I64, P, P]
         f.restype = I
+        f = getattr(lib, f"ipxt_normal_apply_{t}")
+        f.argtypes = ([I64] + [P] * 3 + [I, I64] + [P] * 3 + [I] + [P] * 5
+                      + [I64, P, P])
+        f.restype = I
         f = getattr(lib, f"ipxt_cr_solve_{t}")
         f.argtypes = ([I64, I64, D] + [P] * 11 + [I64, P, I64] + [P] * 3
                       + [I] + [P] * 3 + [I, P, P, P])
@@ -144,6 +149,7 @@ def _declare(lib: ctypes.CDLL) -> None:
            "ipxt_sbcr_step_f64": [I, I64, I64, I64, I64, I64, D] + [P] * 11
            + [I64, P, P, P],
            "ipxt_level_solve_f64": [I64, P, I64] + [P] * 8,
+           "ipxt_level_sweep_f64": [I64, I64, P, I64, I] + [P] * 8,
            "ipxt_nnt_f64": [I64, P, P, P, I] * 2 + [I] + [P] * 4 + [I, P],
            "ipxt_block_spmv_sum_f64": [I64, P, P, P, I, I] + [P] * 6}
     for name, argtypes in f64.items():
@@ -351,12 +357,19 @@ def csr_spmv(op, x: torch.Tensor, out=None, addw=None, addv=None,
 
 
 def normal_apply(At, A, W: torch.Tensor, v: torch.Tensor, out=None,
-                 u=None, partials=None, state=None, dot=None):
+                 u=None, partials=None, state=None, dot=None,
+                 one_launch: bool = True):
     """K2: out = A (W[:n] * (A' v)) + W[n:] * v, with the block partials of
     v.out in `partials`; with `dot` (a 1-element tensor) also their sum.
-    `At` is A' as a CSR operand (n rows), `A` is A (m rows). The solver
-    passes `partials`, never `dot`: the sum (reduce_sum in csrc/spmv.cu)
-    serves spmv.normal_apply, for the tests and chip_smoke.py."""
+    `At` is A' as a CSR operand (n rows), `A` is A (m rows).
+
+    With `dot` and no `state` (spmv.normal_apply, the stand-alone apply of
+    the tests and chip_smoke.py), one cooperative launch computes both
+    halves and the sum (ipxt_normal_apply, csrc/cr.cu); `one_launch`
+    False takes the three-launch form instead (two K1 launches and
+    reduce_sum, csrc/spmv.cu), for the comparisons. K3's host-issued form
+    passes `partials` and `state`, never `dot`, and takes the two K1
+    launches. Either form counts one apply in LAUNCHES."""
     device = _device_of(v)
     n, m = At.rows, A.rows
     _check(W, "W", device, v.dtype, n + m)
@@ -365,10 +378,26 @@ def normal_apply(At, A, W: torch.Tensor, v: torch.Tensor, out=None,
     out = e(m) if out is None else out
     u = e(n) if u is None else u
     partials = e(plan.nblk) if partials is None else partials
+    if dot is not None:
+        _check(dot, "dot", device, v.dtype, 1)
+    if dot is not None and state is None and one_launch:
+        _check(v, "v", device, v.dtype, m)
+        _check(out, "out", device, v.dtype, m)
+        _check(u, "u", device, v.dtype, n)
+        _check(partials, "partials", device, v.dtype, plan.nblk)
+        fn = getattr(_lib, f"ipxt_normal_apply_{_SUFFIX[v.dtype]}")
+        err = fn(n, At.indptr.data_ptr(), At.indices.data_ptr(),
+                 At.vals.data_ptr(), At.vec, m, A.indptr.data_ptr(),
+                 A.indices.data_ptr(), A.vals.data_ptr(), A.vec,
+                 W.data_ptr(), v.data_ptr(), u.data_ptr(), out.data_ptr(),
+                 partials.data_ptr(), plan.nblk, dot.data_ptr(),
+                 _stream(device))
+        _raise_if(err, "normal_apply (one launch)")
+        LAUNCHES["normal_apply"] += 1
+        return out
     plan_t(v, u, rowscale=W[:n], state=state)
     plan(u, out, addw=W[n:], addv=v, partials=partials, state=state)
     if dot is not None:
-        _check(dot, "dot", device, v.dtype, 1)
         fn = getattr(_lib, f"ipxt_reduce_sum_{_SUFFIX[v.dtype]}")
         _raise_if(fn(partials.numel(), partials.data_ptr(), dot.data_ptr(),
                      _stream(device)), "reduce_sum")
@@ -1664,29 +1693,78 @@ class ShardedBatchedCrStep(_ShardedStep):
 
 
 # -- K17: the level-scheduled triangular solve, float64 ---------------------
-def level_solve(sched, V: torch.Tensor) -> torch.Tensor:
-    """K17: X with T X = V for V of shape (m, B), one launch per level of
-    the LevelSchedule `sched` (ops/trisolve.py) on the current stream;
-    LAUNCHES counts the levels."""
-    device = _device_of(V)
-    m, B = sched.m, _lanes(V, "V")
-    _check(V, "V", device, F64, (m, B))
-    nnz = sched.cols.numel()
+# The sweep's tiles (tools/torch_profile.py --what k17 times the choices;
+# PERF.md §6): B >= 2 lanes go to tiles of `lanes` lanes (a power of two),
+# one block a tile, the fewest that still give K17_TILES tiles. B = 1 takes
+# one block whatever they say.
+K17_TILES = 128
+
+
+def k17_tile(B: int) -> int:
+    """Lanes of a tile of the sweep over B lanes: the largest power of two
+    <= 32 with ceil(B / lanes) >= K17_TILES (1 if none)."""
+    lanes = 1
+    while lanes < 32 and -(-B // (2 * lanes)) >= K17_TILES:
+        lanes *= 2
+    return lanes
+
+
+def sweep_tiles(B: int, lanes: int = None) -> int:
+    """Lanes of a tile of a sweep over B lanes: k17_tile(B) where not
+    given; raises unless lanes is a power of two in [1, 32]."""
+    lanes = k17_tile(B) if lanes is None else lanes
+    if lanes not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"the sweep takes 1-32 lanes a tile (a power of "
+                         f"two), got {lanes}")
+    return int(lanes)
+
+
+def _check_schedule(sched, device) -> None:
+    """Raises unless the LevelSchedule's tensors are contiguous, of their
+    dtypes and lengths and on `device`, and its host level_ptr is the int64
+    (nlev + 1) pointer that ends at m."""
+    m, nnz = sched.m, sched.cols.numel()
     _check(sched.rows, "rows", device, torch.int32, m)
     _check(sched.entry_ptr, "entry_ptr", device, torch.int64, m + 1)
     _check(sched.cols, "cols", device, torch.int32, nnz)
     _check(sched.vals, "vals", device, F64, nnz)
     _check(sched.inv_diag, "inv_diag", device, F64, m)
+    _check(sched.level_ptr_dev, "level_ptr_dev", device, torch.int64,
+           sched.nlev + 1)
     lp = sched.level_ptr
     if (lp.dtype != np.int64 or lp.shape != (sched.nlev + 1,)
             or not lp.flags.c_contiguous or lp[-1] != m):
         raise ValueError("level_ptr is not the host int64 (nlev + 1) "
                          "pointer of the schedule")
+
+
+def level_solve(sched, V: torch.Tensor, per_level: bool = False,
+                lanes: int = None) -> torch.Tensor:
+    """K17: X with T X = V for V of shape (m, B), the LevelSchedule `sched`
+    (ops/trisolve.py) on the current stream: the whole sweep in one launch
+    (ipxt_level_sweep_f64), its tiles of k17_tile(B) lanes unless `lanes`
+    is given. `per_level` takes the form of one launch a level
+    instead, for the comparisons only. LAUNCHES counts the CUDA launches:
+    1 a sweep, nlev a per-level sweep."""
+    device = _device_of(V)
+    m, B = sched.m, _lanes(V, "V")
+    _check(V, "V", device, F64, (m, B))
+    _check_schedule(sched, device)
     X = torch.empty_like(V)
-    err = load().ipxt_level_solve_f64(
-        sched.nlev, lp.ctypes.data, B, *(t.data_ptr() for t in (
-            sched.rows, sched.entry_ptr, sched.cols, sched.vals,
-            sched.inv_diag, V, X)), _stream(device))
+    lib = load()
+    ptrs = (sched.rows, sched.entry_ptr, sched.cols, sched.vals,
+            sched.inv_diag, V, X)
+    if per_level:
+        err = lib.ipxt_level_solve_f64(
+            sched.nlev, sched.level_ptr.ctypes.data, B,
+            *(t.data_ptr() for t in ptrs), _stream(device))
+        _raise_if(err, "level_solve (per level)")
+        LAUNCHES["level_solve"] += sched.nlev
+        return X
+    err = lib.ipxt_level_sweep_f64(
+        m, sched.nlev, sched.level_ptr_dev.data_ptr(), B,
+        sweep_tiles(B, lanes), *(t.data_ptr() for t in ptrs),
+        _stream(device))
     _raise_if(err, "level_solve")
-    LAUNCHES["level_solve"] += sched.nlev
+    LAUNCHES["level_solve"] += 1
     return X

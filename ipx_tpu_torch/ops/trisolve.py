@@ -9,8 +9,10 @@ over the levels solves T X = V, each level in one parallel pass:
 
     X[r] = (V[r] - sum_j T[r, j] X[j]) / T[r, r]    for every row r of level l
 
-K17 ``level_solve`` (csrc/trisolve.cu) runs that pass, one launch per level
-on the current stream, for V of shape (m, B), B contiguous, in float64.
+K17 ``level_solve`` (csrc/trisolve.cu) runs a whole sweep in one launch on
+the current stream, for V of shape (m, B), B contiguous, in float64: the
+blocks that own a tile of lanes walk every level, a block barrier between
+levels.
 
 The schedule is kept as it is: the rows in level order with a pointer per
 level, and their off-diagonal entries as one CSR in the same row order. The
@@ -27,7 +29,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .. import kernels
+from .. import backend, kernels
 
 F64 = torch.float64
 
@@ -38,10 +40,11 @@ class LevelSchedule:
 
     rows (m,) int32: the rows in level order, ascending within a level;
     level_ptr (nlev + 1,) int64, on the host: level l is rows[level_ptr[l]
-    : level_ptr[l + 1]]; entry_ptr (m + 1,) int64, cols int32 and vals
-    float64: the off-diagonal entries of rows[p] are cols / vals[entry_ptr[p]
-    : entry_ptr[p + 1]], in the order T stores them; inv_diag (m,) float64:
-    1 / T[rows[p], rows[p]]. Rmax and Emax are the most rows and the most
+    : level_ptr[l + 1]], and level_ptr_dev the same on the schedule's
+    device (K17's sweep reads it there); entry_ptr (m + 1,) int64, cols
+    int32 and vals float64: the off-diagonal entries of rows[p] are cols /
+    vals[entry_ptr[p] : entry_ptr[p + 1]], in the order T stores them;
+    inv_diag (m,) float64: 1 / T[rows[p], rows[p]]. Rmax and Emax are the most rows and the most
     off-diagonal entries of one level (Emax at least 1), as the reference
     counts them."""
 
@@ -50,6 +53,7 @@ class LevelSchedule:
     Rmax: int
     Emax: int
     level_ptr: np.ndarray
+    level_ptr_dev: torch.Tensor
     rows: torch.Tensor
     entry_ptr: torch.Tensor
     cols: torch.Tensor
@@ -78,9 +82,13 @@ def levels(T: sp.csr_matrix, lower: bool) -> np.ndarray:
 
 
 def level_schedule(T: sp.csr_matrix, lower: bool,
-                   device=torch.device("cpu")) -> LevelSchedule:
+                   device=None) -> LevelSchedule:
     """The level schedule of the triangular CSR matrix T (lower or upper)
-    with its tensors on `device`."""
+    with its tensors on `device`; by default on the card, as the port's
+    other entry points (backend.cuda_device, which raises when there is
+    none). "cpu" keeps it on the CPU, for the plain version."""
+    device = backend.cuda_device() if device is None else torch.device(
+        device)
     T = sp.csr_matrix(T)
     m = T.shape[0]
     if T.shape != (m, m) or m == 0:
@@ -111,7 +119,8 @@ def level_schedule(T: sp.csr_matrix, lower: bool,
     return LevelSchedule(
         m=m, nlev=nlev, Rmax=int(per_level.max()),
         Emax=max(int(per_level_entries.max()), 1), level_ptr=level_ptr,
-        rows=t(order, torch.int32), entry_ptr=t(entry_ptr, torch.int64),
+        level_ptr_dev=t(level_ptr, torch.int64), rows=t(order, torch.int32),
+        entry_ptr=t(entry_ptr, torch.int64),
         cols=t(T.indices[take], torch.int32), vals=t(T.data[take], F64),
         inv_diag=t(1.0 / diag[order], F64))
 
@@ -165,7 +174,7 @@ def level_solve_plain(sched: LevelSchedule, V: torch.Tensor) -> torch.Tensor:
 
 def level_solve(sched: LevelSchedule, V: torch.Tensor) -> torch.Tensor:
     """K17: X with T X = V for V of shape (m, B), float64. On the CPU the
-    plain version; on a card one launch of K17 per level."""
+    plain version; on a card one launch of K17 a sweep."""
     if V.device.type == "cpu":
         return level_solve_plain(sched, V)
     return kernels.level_solve(sched, V)

@@ -1609,7 +1609,7 @@ def _triangular(lower):
 @pytest.mark.parametrize("lower", [True, False], ids=["L", "U"])
 def test_level_solve(dev, lower, B):
     """K17 against its plain version on the card and spsolve_triangular,
-    1e-12 relative; one launch per level; two runs equal bit for bit."""
+    1e-12 relative; one launch a sweep; two runs equal bit for bit."""
     import scipy.sparse.linalg as spla
     from ipx_tpu_torch.ops import trisolve
     T = _triangular(lower)
@@ -1620,11 +1620,95 @@ def test_level_solve(dev, lower, B):
     X = trisolve.level_solve(sched, V)
     X2 = trisolve.level_solve(sched, V)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["level_solve"] == before + 2 * sched.nlev
+    assert kernels.LAUNCHES["level_solve"] == before + 2
     assert torch.equal(X, X2)
     assert _rel(X, trisolve.level_solve_plain(sched, V)) <= 1e-12
     want = spla.spsolve_triangular(T, V.cpu().numpy(), lower=lower)
     assert _rel(X, torch.from_numpy(want)) <= 1e-12
+
+
+# lanes of a tile of the sweep held against the per-level form: the
+# rule's, and 1, 4 and 32 lanes a tile
+SWEEP_LANES = [None, 1, 4, 32]
+
+
+@pytest.mark.parametrize("lanes", SWEEP_LANES,
+                         ids=lambda t: "rule" if t is None else f"{t}lanes")
+@pytest.mark.parametrize("B", [1, 3, 256, 300, 1024])
+@pytest.mark.parametrize("lower", [True, False], ids=["L", "U"])
+def test_level_sweep_matches_per_level(dev, lower, B, lanes):
+    """K17's sweep in one launch equals its per-level form bit for bit (the
+    same roundings in the same order a row, warp tree at B = 1 included),
+    whatever its tiles, on a factor with rows longer than a warp and an
+    explicit zero; LAUNCHES counts 1 a sweep against nlev."""
+    from ipx_tpu_torch.ops import trisolve
+    T = _triangular(lower)
+    sched = trisolve.level_schedule(T, lower, dev)
+    V = torch.from_numpy(np.random.default_rng(B + 5).standard_normal(
+        (T.shape[0], B))).to(dev)
+    before = kernels.LAUNCHES["level_solve"]
+    X = kernels.level_solve(sched, V, lanes=lanes)
+    assert kernels.LAUNCHES["level_solve"] == before + 1
+    X_l = kernels.level_solve(sched, V, per_level=True)
+    assert kernels.LAUNCHES["level_solve"] == before + 1 + sched.nlev
+    torch.cuda.synchronize()
+    assert torch.equal(X, X_l)
+    assert _rel(X, trisolve.level_solve_plain(sched, V)) <= 1e-12
+
+
+def test_level_sweep_x_in_global_memory(dev):
+    """At B = 1 a schedule of more rows than shared memory holds as
+    doubles keeps X in global memory: still equal to the per-level form."""
+    from ipx_tpu_torch.ops import trisolve
+    m = 40000
+    rng = np.random.default_rng(40)
+    i = np.repeat(np.arange(1, m), 2)             # two entries a row ...
+    j = (rng.random(len(i)) * i).astype(np.int64)  # ... left of the diagonal
+    T = sp.csr_matrix((0.1 * rng.standard_normal(len(i)), (i, j)),
+                      shape=(m, m)) + sp.diags(rng.uniform(1.0, 2.0, m))
+    T = sp.csr_matrix(T)
+    sched = trisolve.level_schedule(T, True, dev)
+    assert sched.nlev > 2
+    V = torch.from_numpy(rng.standard_normal((m, 1))).to(dev)
+    X = kernels.level_solve(sched, V)
+    X_l = kernels.level_solve(sched, V, per_level=True)
+    torch.cuda.synchronize()
+    assert torch.equal(X, X_l)
+    assert _rel(X, trisolve.level_solve_plain(sched, V)) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_normal_apply_one_launch_matches_three(dev, dtype):
+    """The stand-alone K2 in one cooperative launch, its two halves with a
+    grid barrier after each and the sum of the partials inside, equals the
+    three launches bit for bit, out, the partials and the dot; and out and
+    the partials equal the two K1 launches without the dot. One apply
+    counted each time."""
+    A, rng = _matrix(700, 1500, 0.01, seed=12)
+    m, n = A.shape
+    nmd = spmv.NormalMatrixDevice(A, dev, dtype)
+    W = torch.from_numpy(rng.uniform(0.1, 3.0, n + m)).to(dtype).to(dev)
+    v = torch.from_numpy(rng.standard_normal(m)).to(dtype).to(dev)
+    nblk = kernels.plan_of(nmd.op_A, nmd.op_A.vec).nblk
+    got = {}
+    before = kernels.LAUNCHES["normal_apply"]
+    for form in ("one", "three", "two"):
+        pc = torch.full((nblk,), 7.0, dtype=dtype, device=dev)
+        dot = None if form == "two" else torch.zeros(1, dtype=dtype,
+                                                     device=dev)
+        out = kernels.normal_apply(nmd.op_At, nmd.op_A, W, v, partials=pc,
+                                   dot=dot, one_launch=form == "one")
+        got[form] = (out, pc, dot)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["normal_apply"] == before + 3
+    (o1, p1, d1), (o3, p3, d3), (o2, p2, _) = (got[k] for k in
+                                               ("one", "three", "two"))
+    assert torch.equal(o1, o3) and torch.equal(p1, p3) and torch.equal(d1, d3)
+    assert torch.equal(o1, o2) and torch.equal(p1, p2)
+    want, want_dot = spmv.normal_apply_plain(nmd, W, v)
+    assert _rel(o1, want) <= RTOL[dtype]
+    assert abs(float(d1) - float(want_dot)) <= RTOL[dtype] * abs(
+        float(want_dot))
 
 
 def test_entry_step_on_the_card(dev):

@@ -88,7 +88,8 @@ from ipx_tpu_torch import capi, entry, mps
 from ipx_tpu_torch.ops import trisolve
 step, (S,) = entry.entry(device="torch_cpu")
 assert bool(torch.isfinite(step(S)["X"]).all())
-T = trisolve.level_schedule(np.tril(np.ones((5, 5))) + 4 * np.eye(5), True)
+T = trisolve.level_schedule(np.tril(np.ones((5, 5))) + 4 * np.eye(5), True,
+                            device="cpu")
 X = trisolve.level_solve(T, torch.ones((5, 3), dtype=torch.float64))
 assert X.shape == (5, 3) and T.nlev == 5
 h = capi.ipx_new()

@@ -110,3 +110,29 @@ def test_wrappers_refuse_a_device_they_cannot_run_on():
     with pytest.raises(ValueError, match="CUDA"):
         port.csr_spmv(op, x)
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("one_launch", [True, False],
+                         ids=["one_launch", "three_launches"])
+def test_normal_apply_kernel_refuses_what_it_cannot_run(one_launch):
+    """K2's wrapper, in its one-launch and its three-launch form, refuses
+    a tensor off the card before any launch is counted;
+    spmv.normal_apply on the meta device raises instead of computing the
+    plain version."""
+    from ipx_tpu_torch import kernels
+    A, rng = _matrix(30, 50, seed=4)
+    nmd = port.NormalMatrixDevice(A, CPU, torch.float64)
+    m, n = A.shape
+    W = torch.from_numpy(rng.uniform(0.5, 2.0, n + m))
+    v = torch.from_numpy(rng.standard_normal(m))
+    dot = torch.empty(1, dtype=torch.float64)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.normal_apply(nmd.op_At, nmd.op_A, W, v, dot=dot,
+                             one_launch=one_launch)
+    with pytest.raises(ValueError, match="CUDA"):
+        port.normal_apply(nmd, W, v.to("meta"))
+    assert kernels.LAUNCHES == before
+    # the plain version on the CPU: the same pair, twice alike
+    got, again = port.normal_apply(nmd, W, v), port.normal_apply(nmd, W, v)
+    assert torch.equal(got[0], again[0]) and float(got[1]) == float(again[1])

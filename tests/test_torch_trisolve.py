@@ -78,7 +78,7 @@ def factors():
 def test_plain_sweep_matches_spsolve_triangular(factors, which, B):
     T = factors[which]
     lower = which == "L"
-    sched = trisolve.level_schedule(T, lower)
+    sched = trisolve.level_schedule(T, lower, device="cpu")
     assert sched.nlev > 1
     V = np.random.default_rng(B).standard_normal((T.shape[0], B))
     before = dict(kernels.LAUNCHES)
@@ -97,7 +97,7 @@ def test_schedule_layout(factors, lower):
     computes; Rmax and Emax are the most rows and entries of a level."""
     T = factors["L" if lower else "U"]
     m = T.shape[0]
-    sched = trisolve.level_schedule(T, lower)
+    sched = trisolve.level_schedule(T, lower, device="cpu")
     rows, ptr = sched.rows.numpy(), sched.level_ptr
     ep, cols, vals = (sched.entry_ptr.numpy(), sched.cols.numpy(),
                       sched.vals.numpy())
@@ -129,7 +129,7 @@ def test_explicit_zeros_are_dependencies():
                        np.array([0, 0, 1, 0, 2]), np.array([0, 1, 3, 5])),
                       shape=(3, 3))
     assert T.nnz == 5 and T[1, 0] == 0.0
-    sched = trisolve.level_schedule(T, lower=True)
+    sched = trisolve.level_schedule(T, lower=True, device="cpu")
     assert sched.nlev == 2 and sched.level_ptr.tolist() == [0, 1, 3]
     assert sched.rows.tolist() == [0, 1, 2]
     V = torch.tensor([[2.0], [8.0], [3.0]], dtype=torch.float64)
@@ -141,7 +141,8 @@ def test_level_solve_checks_its_input(factors):
     """V must be (m, B), float64 and on the schedule's device; a tensor on
     neither the CPU nor a card makes the wrapper raise, with no launch
     counted."""
-    sched = trisolve.level_schedule(factors["L"], lower=True)
+    sched = trisolve.level_schedule(factors["L"], lower=True,
+                                    device="cpu")
     m = sched.m
     with pytest.raises(ValueError, match="shape"):
         trisolve.level_solve(sched, torch.zeros((m + 1, 2),
@@ -154,4 +155,80 @@ def test_level_solve_checks_its_input(factors):
                                                 device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.level_solve(sched, torch.zeros((m, 2), dtype=torch.float64))
+    assert kernels.LAUNCHES == before
+
+
+def test_schedule_defaults_to_the_card(factors, monkeypatch):
+    """level_schedule with no device puts the schedule where the port's
+    rule puts it, backend.cuda_device(): without a card it raises, as the
+    port's other entry points do; with one (monkeypatched here to the meta
+    device) every tensor lies there, level_ptr_dev too; "cpu" keeps it on
+    the CPU."""
+    from ipx_tpu_torch import backend
+    T = factors["L"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        trisolve.level_schedule(T, lower=True)
+    card = torch.device("meta")
+    monkeypatch.setattr(backend, "cuda_device", lambda: card)
+    sched = trisolve.level_schedule(T, lower=True)
+    for name in ("level_ptr_dev", "rows", "entry_ptr", "cols", "vals",
+                 "inv_diag"):
+        assert getattr(sched, name).device == card, name
+    assert sched.device == card
+    for device in ("cpu", torch.device("cpu")):
+        assert trisolve.level_schedule(T, True, device).device.type == "cpu"
+
+
+@pytest.mark.parametrize("lower", [True, False], ids=["lower", "upper"])
+def test_schedule_device_level_pointer(factors, lower):
+    """level_ptr_dev is the host level_ptr on the schedule's device: int64,
+    contiguous, nlev + 1 entries from 0 to m, equal value for value; the
+    sweep's schedule check takes it and refuses one of the wrong length or
+    type."""
+    import dataclasses
+    sched = trisolve.level_schedule(factors["L" if lower else "U"], lower,
+                                    device="cpu")
+    lp = sched.level_ptr_dev
+    assert lp.dtype == torch.int64 and lp.is_contiguous()
+    assert lp.shape == (sched.nlev + 1,) and lp.device == sched.device
+    assert np.array_equal(lp.numpy(), sched.level_ptr)
+    assert int(lp[0]) == 0 and int(lp[-1]) == sched.m
+    cpu = torch.device("cpu")
+    kernels._check_schedule(sched, cpu)
+    for bad in (lp[:-1], lp.int(), lp.double()):
+        with pytest.raises(ValueError, match="level_ptr_dev"):
+            kernels._check_schedule(
+                dataclasses.replace(sched, level_ptr_dev=bad), cpu)
+    with pytest.raises(ValueError, match="level_ptr"):
+        kernels._check_schedule(dataclasses.replace(
+            sched, level_ptr=sched.level_ptr.astype(np.int32)), cpu)
+
+
+@pytest.mark.parametrize("B, want", [(1, 1), (3, 1), (254, 1), (255, 2),
+                                     (256, 2), (300, 2), (1024, 8),
+                                     (100000, 32)])
+def test_sweep_tiles_rule(B, want):
+    """k17_tile: the widest tile of at most 32 lanes that still leaves
+    K17_TILES tiles, one block a tile; sweep_tiles takes it where the
+    caller gives no choice."""
+    assert kernels.k17_tile(B) == want
+    assert kernels.sweep_tiles(B) == want
+    assert -(-B // want) >= min(kernels.K17_TILES, B)
+
+
+def test_sweep_checks_its_input(factors):
+    """The one-launch sweep's wrapper takes tiles of 1-32 lanes (a power of
+    two); the per-level form and the sweep both refuse a CPU tensor before
+    any launch is counted."""
+    for lanes in (3, 64, 0, -4):
+        with pytest.raises(ValueError, match="lanes a tile"):
+            kernels.sweep_tiles(256, lanes)
+    assert kernels.sweep_tiles(256, 4) == 4
+    sched = trisolve.level_schedule(factors["L"], lower=True, device="cpu")
+    V = torch.zeros((sched.m, 4), dtype=torch.float64)
+    before = dict(kernels.LAUNCHES)
+    for per_level in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.level_solve(sched, V, per_level=per_level)
     assert kernels.LAUNCHES == before

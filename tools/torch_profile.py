@@ -65,6 +65,16 @@ with the card's nvidia-smi name and power limit:
            and the library's product on the LP at B = 256;
   k13      K13's one cooperative launch and its seven launches in turns at
            the batch's shapes, bit for bit: device and event time;
+  k17      K17 on splu's L and U of the final host basis (chip_smoke.py
+           phase 10) at B = 1, 256 and 1024: the per-level form's device
+           time by level, then full solves of the per-level form and the
+           one-launch sweep in turns, device and event time and CUDA
+           kernels a solve, bit for bit; the sweep at other tiles (lanes
+           a tile) at B = 256 and 1024, beside the bound and
+           torch.triangular_solve (`--forms levels` for the first alone);
+  k2       the stand-alone K2 in three launches and in one cooperative
+           launch in turns, f32 and f64, bit for bit: device and event
+           time, CUDA kernels a call;
   scenarios  chip_smoke.py phase 7: the batched phase 1 of its 4
            scenarios alone (BatchedPhase1Solver, device="cuda", handoff
            "auto"; B = 4 lanes, below one warp) with its steps and CR
@@ -724,6 +734,180 @@ def part_k13(data, args, card):
         flush=True)
 
 
+def _kernel_events(prof):
+    """The CUDA kernels of a torch.profiler window in launch order, as
+    (name, device us), copies and fills left out."""
+    return [(e.name, e.self_device_time_total) for e in prof.events()
+            if e.device_type.name == "CUDA" and "Memcpy" not in e.name
+            and "Memset" not in e.name]
+
+
+def _profiled(fn, reps):
+    """fn() `reps` times under torch.profiler after a warm-up: (device ms a
+    call, CUDA kernels a call, the kernels of the window in order)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = _kernel_events(prof)
+    return (sum(us for _, us in events) / reps / 1e3, len(events) / reps,
+            events)
+
+
+def _turns(forms, order, reps):
+    """Forms timed in turns (a, b, b, a): {form: [(device ms, kernels a
+    call, event ms)]} and the kernels of each form's last window."""
+    a, b = order
+    out, windows = {k: [] for k in forms}, {}
+    for k in (a, b, b, a):
+        dms, kern, windows[k] = _profiled(forms[k], reps)
+        out[k].append((dms, kern, cuda_ms(forms[k], reps=reps, warm=1)))
+    return out, windows
+
+
+def _turns_text(out):
+    return "; ".join(
+        f"{k} device {'/'.join(f'{d:.4f}' for d, _, _ in v)} ms, event "
+        f"{'/'.join(f'{e:.4f}' for _, _, e in v)} ms, "
+        f"{v[0][1]:g} kernels a call" for k, v in out.items())
+
+
+# the sweep's tiles (lanes a tile) timed at B = 256 and 1024 beside the
+# rule's (kernels.k17_tile)
+K17_TILES = (1, 2, 4, 8, 16, 32)
+
+
+def part_k17(data, args, card):
+    """K17 on splu's L and U of the final host basis of the 20k LP (the
+    factors of chip_smoke.py phase 10), full solves (the L sweep, then the
+    U sweep) at B = 1, 256 and 1024: the per-level form's device time by
+    level, and its full solve against the one-launch sweep's, in turns
+    (per level, sweep, sweep, per level), device and event time with the
+    CUDA kernels a solve, X bit for bit; the sweep at other tiles (lanes a
+    tile) at B = 256 and 1024; the bound and
+    torch.triangular_solve's time. `--forms levels` times the per-level
+    form alone."""
+    from chip_smoke import bound, library_csr, library_solve, nbytes
+    from ipx_tpu_torch.ops import trisolve
+    dev = backend.cuda_device()
+    ref, st, _ = solve(data, "cpu")
+    if st != 1000:
+        raise RuntimeError(f"the host solve ended in status {st}")
+    L, U = trisolve.basis_factors(ref.basis)
+    m = L.shape[0]
+    sL = trisolve.level_schedule(L, True, dev)
+    sU = trisolve.level_schedule(U, False, dev)
+    print(f"k17 m={m} nnz(L)={L.nnz} nnz(U)={U.nnz}, levels L {sL.nlev} "
+          f"rows {np.diff(sL.level_ptr).tolist()}, U {sU.nlev} rows "
+          f"{np.diff(sU.level_ptr).tolist()} | {card}", flush=True)
+    L_lib, U_lib = (library_csr(spmv.CsrOperand(T.indptr, T.indices, T.data,
+                                                m, dev, torch.float64))
+                    for T in (L, U))
+    sched_bytes = sum(nbytes(s.rows, s.entry_ptr, s.cols, s.vals,
+                             s.inv_diag) for s in (sL, sU))
+    e_off = sL.cols.numel() + sU.cols.numel()
+    rng = np.random.default_rng(args.seed)
+    forms_on = args.forms.split(",")
+    if not {"levels", "sweep"} & set(forms_on):
+        return
+    for B in (1, 256, 1024):
+        V = torch.from_numpy(rng.standard_normal((m, B))).to(dev)
+        reps = 50 if B == 1 else 20
+        b = bound(sched_bytes + 2 * 2 * m * B * 8, 2 * (e_off + 2 * m) * B,
+                  "f64")
+
+        def full(V=V, **kw):
+            return kernels.level_solve(sU, kernels.level_solve(sL, V, **kw),
+                                       **kw)
+        forms = {"levels": lambda: full(per_level=True), "sweep": full}
+        forms = {k: f for k, f in forms.items() if k in forms_on}
+        # the per-level form's levels, L's then U's, from its own window
+        _, kern, events = _profiled(forms.get("levels", full), reps)
+        if "levels" in forms:
+            nl = sL.nlev + sU.nlev
+            per = np.zeros(nl)
+            for i, (_, us) in enumerate(events):
+                per[i % nl] += us / reps
+            print(f"k17 B={B} per-level form, device us by level, L: "
+                  + " ".join(f"{x:.2f}" for x in per[:sL.nlev]) + "; U: "
+                  + " ".join(f"{x:.2f}" for x in per[sL.nlev:])
+                  + f"; sum {per.sum():.2f} us | {card}", flush=True)
+        if len(forms) == 2:
+            same = torch.equal(forms["levels"](), forms["sweep"]())
+            out, _ = _turns(forms, ("levels", "sweep"), reps)
+        else:
+            same = "-"
+            (k, f), = forms.items()
+            dms, kern, _ = _profiled(f, reps)
+            out = {k: [(dms, kern, cuda_ms(f, reps=reps, warm=1))]}
+        lms = cuda_ms(lambda: library_solve(L_lib, U_lib, V), reps=reps)
+        print(f"k17 B={B} full solve, bit for bit {same} | "
+              + _turns_text(out) + f" | bound {b['bound_ms']:.5f} ms "
+              f"({b['bound_by']}) | torch.triangular_solve {lms:.4f} ms "
+              f"event | {card}", flush=True)
+        if B > 1 and "sweep" in forms:
+            times = []
+            for lanes in K17_TILES:
+                dms, _, _ = _profiled(lambda: full(lanes=lanes), reps)
+                times.append(f"{lanes} {dms:.4f}")
+            print(f"k17 B={B} sweep device ms by lanes a tile (rule "
+                  f"{kernels.k17_tile(B)}): "
+                  + ", ".join(times) + f" | {card}", flush=True)
+        del V
+        torch.cuda.empty_cache()
+
+
+def part_k2(data, args, card):
+    """The stand-alone K2 (Cv and v.Cv) at the presolved LP's shapes, f32
+    and f64: its three launches (two K1 and reduce_sum) against its one
+    cooperative launch in turns (three, one, one, three), device and event
+    time with the CUDA kernels a call, out and the dot bit for bit; the
+    bound."""
+    from chip_smoke import bound, nbytes, op_bytes
+    if not {"three", "one"} & set(args.forms.split(",")):
+        return
+    dev = backend.cuda_device()
+    host, _, _ = solve(data, "cpu", stop_at_switch=1)
+    md = host.basis.model
+    m, n = md.num_rows, md.num_cols
+    rng = np.random.default_rng(args.seed)
+    Wh, vh = 10.0 ** rng.uniform(-2, 2, n + m), rng.standard_normal(m)
+    for dtype in (torch.float32, torch.float64):
+        nmd = spmv.NormalMatrixDevice(md.A, dev, dtype)
+        W = torch.from_numpy(Wh).to(dtype).to(dev)
+        v = torch.from_numpy(vh).to(dtype).to(dev)
+        At, A = nmd.op_At, nmd.op_A
+
+        def apply(one):
+            dot = torch.empty(1, dtype=dtype, device=dev)
+            out = kernels.normal_apply(At, A, W, v, dot=dot, one_launch=one)
+            return out, dot
+        forms = {"three": lambda: apply(False), "one": lambda: apply(True)}
+        forms = {k: f for k, f in forms.items()
+                 if k in args.forms.split(",")}
+        (o3, d3), (o1, d1) = apply(False), apply(True)
+        same = torch.equal(o3, o1) and torch.equal(d3, d1)
+        if len(forms) == 2:
+            out, _ = _turns(forms, ("three", "one"), 100)
+        else:
+            (k, f), = forms.items()
+            dms, kern, _ = _profiled(f, 100)
+            out = {k: [(dms, kern, cuda_ms(f, reps=100, warm=1))]}
+        size = torch.finfo(dtype).bits // 8
+        b = bound(op_bytes(A) + op_bytes(At) + nbytes(W, v, o1) + size,
+                  4 * A.vals.numel() + n + 4 * m, FN[dtype])
+        print(f"k2 {FN[dtype]} m={m} n={n} bit for bit {same} | "
+              + _turns_text(out) + f" | bound "
+              f"{b['bound_ms']:.5f} ms ({b['bound_by']}) | {card}",
+              flush=True)
+
+
+FN = {torch.float32: "f32", torch.float64: "f64"}
+
+
 def top_items(part, prof, wall, card, k=10):
     """The device busy share of a profiled window and its k largest
     device items."""
@@ -942,7 +1126,7 @@ PARTS = {"e2e": part_e2e, "native": part_native, "threads": part_threads,
          "busy": part_busy, "batched": part_batched, "stage": part_stage,
          "scenarios": part_scenarios, "polish": part_polish,
          "sharded": part_sharded, "entry": part_entry, "k6": part_k6,
-         "k5": part_k5, "k13": part_k13}
+         "k5": part_k5, "k13": part_k13, "k17": part_k17, "k2": part_k2}
 
 
 def main():
@@ -954,6 +1138,9 @@ def main():
                     help="solves per path in the e2e part")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the vectors in the kernels part")
+    ap.add_argument("--forms", default="levels,sweep,three,one",
+                    help="the forms the k17 part (levels, sweep) and the "
+                         "k2 part (three, one) time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA card: torch.cuda.is_available() is False")
