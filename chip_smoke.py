@@ -104,7 +104,13 @@ only: no jax, and no module of ipx_tpu.
      ipx_tpu_torch.entry.entry() on the card; afiro through the port's C
      API (capi.py) with its default device, the card, and in a subprocess
      with the card hidden (CUDA_VISIBLE_DEVICES=""), where ipx_solve
-     returns 1004 and raises nothing.
+     returns 1004 and raises nothing;
+ 11. the port's six measuring tools (tools/torch_*.py), each once on
+     "cuda" in a fresh process: tools/torch_bench.py --quick at the 20k LP
+     alone, then the batched phase 1, the K6 sweep, the pipeline, the
+     finish strategies and the scaling table together at small sizes. Each
+     must exit 0 with a last line that names the card, holds statuses 1000
+     and launches of the kernels its path runs.
 
 K2 is launched in phase 4 no time: its entry's `applies_inside_cr_step`
 counts the applies that ran inside K3's cooperative launches there, as the
@@ -716,6 +722,11 @@ def main():
     rows["level_solve"], launches = trisolve_phase(card, *factors, dev)
     path_launches["level_solve"] = launches["level_solve"]
     print(f"phase 10 took {time.perf_counter() - t_tri:.1f} s; the "
+          f"script {time.perf_counter() - T_START:.1f} s", flush=True)
+
+    t_tools = time.perf_counter()
+    tools_phase(card)
+    print(f"phase 11 took {time.perf_counter() - t_tools:.1f} s; the "
           f"script {time.perf_counter() - T_START:.1f} s", flush=True)
 
     print(card, flush=True)
@@ -2630,6 +2641,118 @@ def trisolve_phase(card, L, U, dev):
                  if k.split(".")[0] in ("ipx_tpu", "jax", "jaxlib"))
     check(not bad, f"modules of ipx_tpu or jax were imported: {bad[:5]}")
     return row, launches
+
+
+# phase 11: the port's measuring tools on "cuda", each in a fresh process:
+# (tool, its arguments); the bench at its own 20k instance, the others small
+SMALL = ["--src", "300", "--snk", "450", "--density", "0.01"]
+TOOL_RUNS = (
+    ("torch_bench.py", ["--quick"]),
+    ("torch_device_batch_solve_bench.py", SMALL + ["--B", "32",
+                                                  "--handoff"]),
+    ("torch_device_batched_bench.py", ["--sources", "300", "--sinks", "450",
+                                       "--batches", "8", "256"]),
+    ("torch_pipeline_e2e_bench.py", SMALL + ["--B", "4"]),
+    ("torch_batched_finish_bench.py", ["--src", "30", "--snk", "45",
+                                       "--density", "0.3", "--B", "4"]),
+    ("torch_scaling_table.py", ["--src", "300", "--snk", "450"]),
+)
+
+
+def need(launches, names, what):
+    """Fails unless each kernel of `names` was launched in `launches`."""
+    missing = [k for k in names if launches.get(k, 0) <= 0]
+    check(not missing, f"phase 11: {what} launched no {missing}")
+
+
+def tool_checks(tool, line, card):
+    """The checks of one tool's last line: the card, its statuses and the
+    launches of the kernels its path runs."""
+    check(line.get("failures") == [], f"phase 11: {tool}: "
+          f"{line.get('failures')}")
+    if tool == "torch_bench.py":
+        extra = line["extra"]
+        check(extra["card"] == card, f"phase 11: {tool} ran on "
+              f"{extra['card']!r}")
+        check(all(st[0] == 1000 for st in extra["solve_status"].values()),
+              f"phase 11: bench statuses {extra['solve_status']}")
+        need(extra["launches"]["solve"], SINGLE, "the bench's cuda solve")
+        need(extra["launches"]["rates"], ("normal_apply",
+                                          "normal_apply_batched"),
+             "the bench's rates")
+        need(extra["batched_stage_device"]["launches"], BATCHED,
+             "the bench's stage")
+        return
+    check(line["card"] == card, f"phase 11: {tool} ran on {line['card']!r}")
+    if tool == "torch_device_batch_solve_bench.py":
+        need(line["launches"], BATCHED, tool)
+    elif tool == "torch_device_batched_bench.py":
+        need(line["launches"], ("normal_apply_batched",), tool)
+    elif tool == "torch_pipeline_e2e_bench.py":
+        check(line["optimal"] == line["B"], f"phase 11: {tool}: "
+              f"{line['optimal']} of {line['B']} optimal")
+        need(line["phase1_launches"], BATCHED, tool + " phase 1")
+        need(line["finish_launches"], SINGLE, tool + " finishes")
+    elif tool == "torch_batched_finish_bench.py":
+        need(line["phase1_launches"], BATCHED, tool + " phase 1")
+        finishes = {}
+        for k in ("r3_finish_only", "r4_shared_basis_polish",
+                  "r5_polish_with_correction"):
+            check(line[k]["optimal"] == line["B"], f"phase 11: {tool} "
+                  f"{k}: {line[k]['optimal']} of {line['B']} optimal")
+            if not k.startswith("r3"):
+                need(line[k]["launches"], POLISH, f"{tool} {k}'s polish")
+            for name in SINGLE:
+                finishes[name] = (finishes.get(name, 0)
+                                  + line[k]["launches"].get(name, 0))
+        need(finishes, SINGLE, tool + "'s finishes")
+    elif tool == "torch_scaling_table.py":
+        for row in line["rows"]:
+            check(row["trips"] == line["trips"], f"phase 11: {tool} P="
+                  f"{row['blocks']}: {row['trips']} trips")
+            need(row["launches"], ("sharded_cr_step",),
+                 f"{tool} P={row['blocks']}")
+
+
+def tools_phase(card):
+    """Phase 11: each of the port's six measuring tools once on "cuda" in
+    a fresh process: the bench alone (--quick at the 20k LP), then the
+    other five together at small sizes. Each must exit 0, and its last
+    line must name the card, hold statuses 1000 and launches of the
+    kernels its path runs."""
+    def start(tool, args):
+        return subprocess.Popen(
+            [sys.executable, os.path.join("tools", tool), "--device",
+             "cuda"] + args, cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    def finish(tool, proc):
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"phase 11: {tool} ran past 600 s")
+        check(proc.returncode == 0, f"phase 11: {tool} exited "
+              f"{proc.returncode}: {err[-2000:]}")
+        line = json.loads(out.strip().splitlines()[-1])
+        tool_checks(tool, line, card)
+        print(f"  {tool}: {json.dumps(line)}", flush=True)
+
+    (bench, bench_args), rest = TOOL_RUNS[0], TOOL_RUNS[1:]
+    t0 = time.perf_counter()
+    finish(bench, start(bench, bench_args))
+    print(f"  the bench took {time.perf_counter() - t0:.1f} s | {card}",
+          flush=True)
+    procs = [(tool, start(tool, args)) for tool, args in rest]
+    try:
+        for tool, proc in procs:
+            finish(tool, proc)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 if __name__ == "__main__":

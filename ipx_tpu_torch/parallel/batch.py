@@ -771,6 +771,21 @@ class BatchedPhase1Solver:
         """Batched diag(AI W AI') = A.^2 @ W_struct + W_slack."""
         return self.csr_spmm(self._A2op, W[:self.n]) + W[self.n:]
 
+    def handoff_rule(self, S):
+        """handoff="auto"'s test, from the starting point S on: a callable
+        that takes each step's state and is True once the batched CR has
+        spent 0.8 of step_cr_budget() or more in two steps in a row."""
+        budget = self.step_cr_budget()
+        prev_cr, saturated = S["cr"], 0
+
+        def due(S):
+            nonlocal prev_cr, saturated
+            saturated = saturated + 1 if S["cr"] - prev_cr >= 0.8 * budget \
+                else 0
+            prev_cr = S["cr"]
+            return saturated >= 2
+        return due
+
     # -------------------------------------------------------------------------
     def solve(self, handoff=None):
         """Runs the batched IPM to convergence, maxiter, or the diag-era
@@ -784,21 +799,14 @@ class BatchedPhase1Solver:
         src/lp_solver.cc:340-360), so that the basis-preconditioned
         finishes take over. The default (None) always runs to convergence
         or maxiter."""
-        budget = self.step_cr_budget()
         S = self._starting_point()
-        prev_cr = S["cr"]
-        saturated = 0
+        handoff_due = self.handoff_rule(S)
         for _ in range(self.maxiter):
             S = self._ipm_step(S)
             if bool(S["done"].all()):
                 break
-            if handoff == "auto":
-                cr = S["cr"]
-                saturated = saturated + 1 if cr - prev_cr >= 0.8 * budget \
-                    else 0
-                prev_cr = cr
-                if saturated >= 2:
-                    break
+            if handoff == "auto" and handoff_due(S):
+                break
         out = {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
                for k, v in S.items()}
         out["pobj"] = np.sum(self.lp.c.T * out["X"], axis=0)

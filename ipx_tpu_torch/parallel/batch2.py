@@ -304,8 +304,22 @@ class SharedBasisBatchedPolish:
     corrected_solves
     counts the solves that ran with an active correction, step_cr the
     shared-basis CR iterations of each step, and mu_history the per-lane
-    mu of the state run() starts from and after each step.
+    mu of the state run() starts from and after each step. mu_rise
+    lists, as [lane, final mu / starting mu], every lane that run() left
+    with its mu above where it started (inf where it is not finite), and
+    reverted_lanes the lanes of those that it handed back as they came in,
+    not done: the diverged ones, whose ratio is above DIVERGED or not
+    finite. The reference hands those on too, and a lane whose duals
+    diverge to 1e250 then makes its finish raise; the shared basis's
+    refactorizations follow the wall clock, so whether a lane diverges
+    varies from run to run. A lane whose mu rose less is handed on, as
+    the reference hands it.
     """
+
+    # a diverged lane's mu ends 1e203-1e257 times its start on the card
+    # (transportation(30, 45, 0.3), B = 4), a lane the polish merely
+    # left where it was near 1.3 times: the bound sits far from both
+    DIVERGED = 1e6
 
     def __init__(self, blp, basis, feasibility_tol=1e-6,
                  optimality_tol=1e-8, kkt_tol=0.3, cr_maxiter=500,
@@ -329,6 +343,8 @@ class SharedBasisBatchedPolish:
         self.correction_failures = 0
         self.refresh_failures = 0
         self.corrected_solves = 0
+        self.mu_rise = []
+        self.reverted_lanes = []
         self._use_correction = False
         # the shared basis must follow the batch's weight trajectory (the
         # single-LP phase 2 re-runs maxvolume every IPM iteration,
@@ -430,6 +446,17 @@ class SharedBasisBatchedPolish:
                         np.all(since_improve[active] >= 15)):
                     break
             out = {k: _host(v) for k, v in S.items()}
+            mu, start = self.mu_history[-1].copy(), self.mu_history[0]
+            ratio = np.where(np.isfinite(mu), mu / start, np.inf)
+            self.mu_rise = [[int(k), float(ratio[k])]
+                            for k in np.flatnonzero(~(mu <= start))]
+            diverged = ratio > self.DIVERGED
+            if diverged.any():
+                for k in ("X", "XL", "XU", "Y", "ZL", "ZU", "iters"):
+                    out[k][..., diverged] = _host(state[k])[..., diverged]
+                out["done"][diverged] = False
+                mu[diverged] = start[diverged]
+                self.reverted_lanes = np.flatnonzero(diverged).tolist()
             out["pobj"] = np.sum(ph.lp.c.T * out["X"], axis=0)
-            out["mu"] = self.mu_history[-1]
+            out["mu"] = mu
         return out

@@ -180,3 +180,60 @@ def test_polish_counts_what_the_reference_let_pass(monkeypatch, fault):
         assert polish.refresh_failures == len(polish.step_cr) > 0
         assert np.array_equal(s.basis.basis, before)
         assert np.all(np.isfinite(out["mu"]))
+
+
+def _polish_scaling_lane_0(monkeypatch, factor):
+    """(polish, its input state, its output) of a 3-step polish of two
+    lanes whose step scales lane 0's duals by `factor` after every step."""
+    data = transportation(20, 30, 0.2, seed=4)
+    blp = _transport_batch(data, 2, 0.98, 1.03, seed=5)
+    state = port.BatchedPhase1Solver(
+        blp, feasibility_tol=1e-3, optimality_tol=1e-3,
+        device="torch_cpu").solve()
+    p = ipx_tpu_torch.Parameters(display=0, device="cpu", scale=0,
+                                 dualize=0, crossover=0)
+    s = ipx_tpu_torch.LpSolver(p)
+    assert load_into_solver(dict(data, rhs=blp.b.mean(axis=0)), s) == 0
+    assert s.solve() == 1000
+    polish = port2.SharedBasisBatchedPolish(blp, s.basis, maxiter=3,
+                                            device="torch_cpu")
+    step = polish._ph1._ipm_step
+
+    def scaled(S):
+        S = step(S)
+        S["ZL"][:, 0] *= factor
+        S["ZU"][:, 0] *= factor
+        return S
+    monkeypatch.setattr(polish._ph1, "_ipm_step", scaled)
+    return polish, state, polish.run({k: v.copy() for k, v in state.items()})
+
+
+def test_polish_hands_back_a_lane_it_made_worse(monkeypatch):
+    """A lane whose mu the polish leaves more than DIVERGED times above
+    where it started (here lane 0's duals scaled by 1e200 after every
+    step, as a diverging lane's were on the card) comes back as it went
+    in, not done, and is listed in reverted_lanes and mu_rise; the other
+    lane keeps its polished iterate."""
+    polish, state, out = _polish_scaling_lane_0(monkeypatch, 1e200)
+    assert polish.reverted_lanes == [0]
+    assert [lane for lane, _ in polish.mu_rise] == [0]
+    assert polish.mu_rise[0][1] > polish.DIVERGED
+    for k in ("X", "XL", "XU", "Y", "ZL", "ZU"):
+        assert np.array_equal(out[k][:, 0], state[k][:, 0]), k
+        assert not np.array_equal(out[k][:, 1], state[k][:, 1]), k
+    assert out["iters"][0] == state["iters"][0] and not out["done"][0]
+    start = polish.mu_history[0]
+    assert out["mu"][0] == start[0] and out["mu"][1] <= start[1]
+
+
+def test_polish_hands_on_a_lane_whose_mu_rose_less(monkeypatch):
+    """A lane whose mu rose, but by DIVERGED or less (lane 0's duals
+    scaled by 1e7 after every step: its mu ends about 1e3 times above
+    where it started), is handed on polished, as the reference hands it,
+    and listed in mu_rise only."""
+    polish, state, out = _polish_scaling_lane_0(monkeypatch, 1e7)
+    assert polish.reverted_lanes == []
+    assert [lane for lane, _ in polish.mu_rise] == [0]
+    assert 1.0 < polish.mu_rise[0][1] <= polish.DIVERGED
+    assert not np.array_equal(out["ZL"][:, 0], state["ZL"][:, 0])
+    assert out["mu"][0] == polish.mu_history[-1][0] > polish.mu_history[0][0]

@@ -1,6 +1,10 @@
 """The port owns its host pipeline: no module of ipx_tpu_torch, neither
-chip_smoke.py nor the port's tools (tools/torch_*.py), and no example of
-the port (examples/torch_*.py) imports ipx_tpu, jax or jaxlib, and a whole
+chip_smoke.py nor the port's eight tools (tools/torch_*.py: torch_profile,
+torch_trisolve_proto, and the measuring tools torch_bench,
+torch_device_batch_solve_bench, torch_device_batched_bench,
+torch_pipeline_e2e_bench, torch_batched_finish_bench and
+torch_scaling_table), and no example of the port (examples/torch_*.py)
+imports ipx_tpu, jax or jaxlib, and a whole
 run of the port's paths on the CPU loads none of them and uses the native
 library built from ipx_tpu_torch/native/ipxlu.cc into
 ipx_tpu_torch/_build/."""
@@ -39,7 +43,7 @@ def test_no_module_of_the_port_imports_the_reference_or_jax():
     tools = sorted(glob.glob(os.path.join(REPO, "tools", "torch_*.py")))
     examples = sorted(glob.glob(os.path.join(REPO, "examples",
                                              "torch_*.py")))
-    assert len(tools) == 2 and len(examples) == 7
+    assert len(tools) == 8 and len(examples) == 7
     paths += [os.path.join(REPO, "chip_smoke.py")] + tools + examples
     assert len(paths) > 50
     bad = {os.path.relpath(p, REPO): sorted(_absolute_import_roots(p)

@@ -24,8 +24,9 @@ ends in a synchronize; compile_B*_s is the first call's time), and:
   bound_full_solve_B*_ms  the least time of a full solve on the card: the
                    bytes of both schedules (12 per entry, 20 per row) plus
                    V read and X written per sweep, over 3.35 TB/s;
-  launches_full_solve     the K17 launches of one full solve (levels of L
-                   plus levels of U);
+  launches_full_solve     the K17 launches of one full solve: 2, one a
+                   sweep (the L sweep, then the U sweep), each walking all
+                   of its levels inside its one launch;
   OMP_NUM_THREADS  beside the host baselines, which the OpenMP
                    spin-waiting of the port's process slows (PERF.md §5).
 
