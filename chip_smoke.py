@@ -111,6 +111,18 @@ only: no jax, and no module of ipx_tpu.
      finish strategies and the scaling table together at small sizes. Each
      must exit 0 with a last line that names the card, holds statuses 1000
      and launches of the kernels its path runs.
+ 12. the port's sweep tools, each once in a fresh process with --out in a
+     temporary directory, all four at once: tools/torch_stress_sweep.py
+     --quick --seeds 0-1 (the four generators, two seeds each, the first
+     three variants) and tools/torch_lu_update_compare.py --quick on
+     "cuda", and tools/torch_results_table.py --quick on "cuda" and on
+     "cpu". Each must exit 0 with a last line that names the card and no
+     failures; every "cuda" solve must end at status 1000, make a cr_step
+     launch where phase 1 ran on the device (kktiter1 > 0 and no dense
+     columns, kkt/diag.py) and an nnt launch where phase 2 ran
+     (kktiter2 > 0); the quick table's statuses on "cuda" must equal those
+     on "cpu", and its objectives (Info.pobjval and objval) agree to 1e-8
+     relative.
 
 K2 is launched in phase 4 no time: its entry's `applies_inside_cr_step`
 counts the applies that ran inside K3's cooperative launches there, as the
@@ -136,6 +148,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -727,6 +740,11 @@ def main():
     t_tools = time.perf_counter()
     tools_phase(card)
     print(f"phase 11 took {time.perf_counter() - t_tools:.1f} s; the "
+          f"script {time.perf_counter() - T_START:.1f} s", flush=True)
+
+    t_sweep = time.perf_counter()
+    sweep_phase(card)
+    print(f"phase 12 took {time.perf_counter() - t_sweep:.1f} s; the "
           f"script {time.perf_counter() - T_START:.1f} s", flush=True)
 
     print(card, flush=True)
@@ -2753,6 +2771,98 @@ def tools_phase(card):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+# phase 12: the sweep tools, each in a fresh process: (tool, device, its
+# arguments); the quick results table on "cuda" and on "cpu"
+SWEEP_RUNS = (
+    ("torch_stress_sweep.py", "cuda", ["--quick", "--seeds", "0-1"]),
+    ("torch_results_table.py", "cuda", ["--quick"]),
+    ("torch_results_table.py", "cpu", ["--quick"]),
+    ("torch_lu_update_compare.py", "cuda", ["--quick"]),
+)
+
+
+def sweep_rows(tool, line):
+    """Every "cuda" solve of a sweep tool's last line at status 1000, with
+    a cr_step launch where phase 1 ran on the device and an nnt launch
+    where phase 2 ran; returns the count of solves and their launches."""
+    total = {}
+    for r in line["rows"]:
+        tag = (f"phase 12: {tool} "
+               + " ".join(str(r[k]) for k in ("gen", "seed", "variant",
+                                              "instance", "kern") if k in r))
+        k1 = r.get("kktiter1", r.get("kkt1"))
+        k2 = r.get("kktiter2", r.get("kkt2"))
+        launches = r["launches"]
+        check(r["status"] == 1000, f"{tag}: status {r['status']}")
+        if k1 > 0 and r["dense_cols"] == 0:
+            check(launches.get("cr_step", 0) > 0, f"{tag}: phase 1 ran "
+                  f"{k1} CR iterations and launched no cr_step")
+        check(k2 <= 0 or launches.get("nnt", 0) > 0, f"{tag}: phase 2 ran "
+              f"{k2} CR iterations and launched no nnt")
+        for name, v in launches.items():
+            if name != "inside":
+                total[name] = total.get(name, 0) + v
+    return len(line["rows"]), total
+
+
+def sweep_phase(card):
+    """Phase 12: the stress sweep, the quick results table (on "cuda" and
+    on "cpu") and the quick LU comparison, each once in a fresh process,
+    all at once, --out in a temporary directory."""
+    lines = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        try:
+            for k, (tool, device, args) in enumerate(SWEEP_RUNS):
+                if tool != "torch_stress_sweep.py":
+                    args = args + ["--out", os.path.join(tmp, f"{k}.tbl")]
+                procs.append(((tool, device), subprocess.Popen(
+                    [sys.executable, os.path.join("tools", tool),
+                     "--device", device] + args, cwd=REPO,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+            for key, proc in procs:
+                try:
+                    out, err = proc.communicate(timeout=600)
+                except subprocess.TimeoutExpired:
+                    fail(f"phase 12: {key} ran past 600 s")
+                check(proc.returncode == 0, f"phase 12: {key} exited "
+                      f"{proc.returncode}: {out[-1500:]} {err[-2000:]}")
+                lines[key] = json.loads(out.strip().splitlines()[-1])
+        finally:
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    for (tool, device), line in lines.items():
+        check(line["card"] == card and line["device"] == device,
+              f"phase 12: {tool} on {device} ran on {line['card']!r}")
+        check(line["failures"] == [], f"phase 12: {tool} on {device}: "
+              f"{line['failures']}")
+        if device == "cuda":
+            n, total = sweep_rows(tool, line)
+            print(f"  {tool} on \"cuda\": {n} solves at status 1000; "
+                  f"launches {total}", flush=True)
+    table = {d: lines[("torch_results_table.py", d)]["rows"]
+             for d in ("cuda", "cpu")}
+    check([r["instance"] for r in table["cuda"]]
+          == [r["instance"] for r in table["cpu"]],
+          "phase 12: the two quick tables hold other instances")
+    for rc, rh in zip(table["cuda"], table["cpu"]):
+        errs = [abs(rc[k] - rh[k]) / abs(rh[k]) for k in ("objective",
+                                                          "objval")]
+        print(f"  {rc['instance']:22s} cuda {rc['status']} {rc['objective']!r}"
+              f" ({rc['time']:.3f} s, {rc['iter']} it) cpu {rh['status']} "
+              f"{rh['objective']!r} ({rh['time']:.3f} s, {rh['iter']} it); "
+              f"rel err pobjval {errs[0]:.1e}, objval {errs[1]:.1e}",
+              flush=True)
+        check(rc["status"] == rh["status"], f"phase 12: {rc['instance']}: "
+              f"status {rc['status']} on cuda, {rh['status']} on cpu")
+        check(max(errs) <= 1e-8, f"phase 12: {rc['instance']}: objectives "
+              f"{errs[0]:.2e} (pobjval), {errs[1]:.2e} (objval) apart")
+    print(f"  | {card}", flush=True)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,9 @@ Julia/MATLAB bindings use it).
 The port's copy of ipx_tpu/capi.py, over the port's LpSolver, Parameters,
 Info and version. A new solver's parameters are Parameters(), so it solves
 on the card ("cuda") unless ipx_set_parameters names another device. The
-bindings in bindings/ still load ipx_tpu.capi.
+Julia and MATLAB shims bindings/julia/IpxTpuTorch.jl and
+bindings/matlab/ipx_tpu_torch_solve.m load this module; IpxTpu.jl and
+ipx_tpu_solve.m load ipx_tpu.capi.
 """
 from __future__ import annotations
 

@@ -1,12 +1,13 @@
 """The port owns its host pipeline: no module of ipx_tpu_torch, neither
-chip_smoke.py nor the port's eight tools (tools/torch_*.py: torch_profile,
-torch_trisolve_proto, and the measuring tools torch_bench,
+chip_smoke.py nor the port's eleven tools (tools/torch_*.py: torch_profile,
+torch_trisolve_proto, the measuring tools torch_bench,
 torch_device_batch_solve_bench, torch_device_batched_bench,
 torch_pipeline_e2e_bench, torch_batched_finish_bench and
-torch_scaling_table), and no example of the port (examples/torch_*.py)
-imports ipx_tpu, jax or jaxlib, and a whole
-run of the port's paths on the CPU loads none of them and uses the native
-library built from ipx_tpu_torch/native/ipxlu.cc into
+torch_scaling_table, and the sweep tools torch_stress_sweep,
+torch_results_table and torch_lu_update_compare), and no example of the
+port (examples/torch_*.py) imports ipx_tpu, jax, jaxlib or the reference's
+bench.py, and a whole run of the port's paths on the CPU loads none of them
+and uses the native library built from ipx_tpu_torch/native/ipxlu.cc into
 ipx_tpu_torch/_build/."""
 import ast
 import glob
@@ -17,7 +18,7 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANNED = {"ipx_tpu", "jax", "jaxlib"}
+BANNED = {"ipx_tpu", "jax", "jaxlib", "bench"}
 
 
 def _absolute_import_roots(path):
@@ -43,7 +44,7 @@ def test_no_module_of_the_port_imports_the_reference_or_jax():
     tools = sorted(glob.glob(os.path.join(REPO, "tools", "torch_*.py")))
     examples = sorted(glob.glob(os.path.join(REPO, "examples",
                                              "torch_*.py")))
-    assert len(tools) == 8 and len(examples) == 7
+    assert len(tools) == 11 and len(examples) == 7
     paths += [os.path.join(REPO, "chip_smoke.py")] + tools + examples
     assert len(paths) > 50
     bad = {os.path.relpath(p, REPO): sorted(_absolute_import_roots(p)

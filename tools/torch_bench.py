@@ -3,7 +3,9 @@ through ipx_tpu_torch on one NVIDIA card. It follows bench.py (lines
 33-120, 247-286 and 314-418), and its helpers are shared by the port's
 other measuring tools (tools/torch_device_batch_solve_bench.py,
 torch_device_batched_bench.py, torch_pipeline_e2e_bench.py,
-torch_batched_finish_bench.py, torch_scaling_table.py).
+torch_batched_finish_bench.py, torch_scaling_table.py) and the sweep
+tools (torch_stress_sweep.py, torch_results_table.py,
+torch_lu_update_compare.py).
 
     python tools/torch_bench.py [--device cuda|torch_cpu] [--quick]
         [--src 8000 --snk 12000 --density 0.001 --seed 1] [--B 256]
@@ -219,9 +221,26 @@ def fresh_solve(device: str, inst: tuple) -> dict:
     return last_json(out.stdout)
 
 
+def machine(device: str) -> torch.device:
+    """The device whose card host_fields names, for the tools that solve
+    through LpSolver on `device` (any of backend.DEVICES): "cuda" is the
+    card with the kernel library built, or raises; on the other devices
+    the machine's card when it has one, so that a host-path run names the
+    machine it ran on, else the CPU."""
+    backend.require(device)
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
 def highs_solve_time(data: dict, method: str = "highs-ipm") -> tuple:
     """(wall, status) of scipy's linprog with HiGHS on the instance (bench.py
     lines 50-76): highs-ipm is HiGHS's IPX with crossover."""
+    t, res = highs(data, method)
+    return t, int(res.status)
+
+
+def highs(data: dict, method: str) -> tuple:
+    """(wall, scipy's OptimizeResult) of linprog(method=method) on the
+    instance."""
     from scipy.optimize import linprog
     A = matrix_of(data)
     ct = np.array(list(data["constr_type"]))
@@ -241,7 +260,7 @@ def highs_solve_time(data: dict, method: str = "highs-ipm") -> tuple:
         bounds=np.stack([data["lb"], data["ub"]], axis=1))
     t0 = time.perf_counter()
     res = linprog(data["obj"], method=method, **kw)
-    return time.perf_counter() - t0, int(res.status)
+    return time.perf_counter() - t0, res
 
 
 def host_matvec_rate(data: dict, iters: int = 40) -> float:
