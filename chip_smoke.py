@@ -123,6 +123,21 @@ only: no jax, and no module of ipx_tpu.
      (kktiter2 > 0); the quick table's statuses on "cuda" must equal those
      on "cpu", and its objectives (Info.pobjval and objval) agree to 1e-8
      relative.
+ 13. the mesh (parallel/mesh.py): 4 ranks, one process each, sharing the
+     card (gloo, its gathers staged through pinned host buffers; the
+     transport printed). One phase-1 CR solve (ShardedDiagCR) and one N N'
+     apply at the phase-2 LP over the 4 ranks, bit for bit against the
+     one-card K15 and K4 at P = 4; the 2 x 2 rows x batch batched CR at
+     B = 256 bit for bit against K16 at P = 2; LpSolver(shards=4,
+     device="cuda") inside `with mesh:` on the phase-4 LP, with the ranks'
+     counters set to 0 just before, at status 1000 with pobjval within 1e-8
+     of "cpu" and of the one-process shards=4 solve, every rank launching
+     K15's passes, K14v, K14, K1 and K4; dryrun_multichip(4) over the
+     mesh; and a 1-rank NCCL mesh for one sharded_cr_solve, bit for bit
+     with the one-card one. It prints the per-trip times, the collective's
+     share of them and the K15/K16 pass launches per rank. On a machine
+     with four cards, ``python3 chip_smoke.py --mesh-cards`` runs this
+     phase alone with one rank a card (NCCL) in place of the shared card.
 
 K2 is launched in phase 4 no time: its entry's `applies_inside_cr_step`
 counts the applies that ran inside K3's cooperative launches there, as the
@@ -745,6 +760,11 @@ def main():
     t_sweep = time.perf_counter()
     sweep_phase(card)
     print(f"phase 12 took {time.perf_counter() - t_sweep:.1f} s; the "
+          f"script {time.perf_counter() - T_START:.1f} s", flush=True)
+
+    t_mesh = time.perf_counter()
+    mesh_phase(card, data, md, N_phase2, dev)
+    print(f"phase 13 took {time.perf_counter() - t_mesh:.1f} s; the "
           f"script {time.perf_counter() - T_START:.1f} s", flush=True)
 
     print(card, flush=True)
@@ -2865,5 +2885,270 @@ def sweep_phase(card):
     print(f"  | {card}", flush=True)
 
 
+MESH_TIMEOUT = 120.0     # seconds: the mesh's start and each collective
+
+
+def mesh_trips(what, stats, card):
+    """Prints a mesh solve's per-rank trips, seconds a trip and collective
+    share (and, for the row CR, the share of the gathers of the (P, n)
+    parts of u), and returns the slowest rank's (ms a trip, share)."""
+    worst = (0.0, 0.0)
+    for st in stats:
+        per = st["seconds"] / max(st["trips"], 1) * 1e3
+        share = st["collective_s"] / max(st["seconds"], 1e-12)
+        worst = max(worst, (per, share))
+        launches = {k: v for k, v in st.items() if k.endswith("launches")}
+        parts = (f", the parts of u {st['parts_s']:.4f} s "
+                 f"({100 * st['parts_s'] / max(st['seconds'], 1e-12):.1f}%)"
+                 if "parts_s" in st else "")
+        print(f"  {what} rank {st['rank']}: {st['trips']} trips, "
+              f"{st['seconds']:.4f} s, {per:.4f} ms a trip, collectives "
+              f"{st['collective_s']:.4f} s ({100 * share:.1f}%){parts}; "
+              f"{launches} | {card}", flush=True)
+    return worst
+
+
+def mesh_phase(card, data, md, N2, dev, own_cards=False):
+    """Phase 13, the mesh (see the module docstring): its ranks share the
+    card, or with `own_cards` (--mesh-cards) each has a card of its own,
+    cards 0..P-1, over NCCL."""
+    import torch
+    from ipx_tpu_torch import LpSolver, Parameters, entry
+    from ipx_tpu_torch import testgen as tg
+    from ipx_tpu_torch.parallel import mesh as pm
+    from ipx_tpu_torch.parallel import sharding
+    from ipx_tpu_torch.sparse import normal_diag
+
+    P = P_SHARDS
+    A = md.A
+    m, n = A.shape
+    rng = np.random.default_rng(13)
+    t0 = time.perf_counter()
+    devices = ([f"cuda:{k}" for k in range(P)] if own_cards
+               else [str(dev)] * P)
+    mesh = pm.Mesh((P,), ("rows",), devices, timeout=MESH_TIMEOUT)
+    print(f"phase 13: {mesh.describe()}, started in "
+          f"{time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    if own_cards:
+        check(mesh.transport == "nccl" and not mesh.staged,
+              f"{P} ranks on {P} cards took {mesh.transport}, not NCCL")
+    else:
+        check(mesh.transport == "gloo" and mesh.staged,
+              f"4 ranks on one card took {mesh.transport}, not gloo staged")
+    summary = {"transport": mesh.describe()}
+    try:
+        # one phase-1 CR solve at the phase-2 LP, against the one-card K15
+        W = 10.0 ** rng.uniform(-2, 2, n + m)
+        diag = normal_diag(A, W)
+        resscale = 1.0 / np.sqrt(W[n:])
+        rhs = rng.standard_normal(m)
+        one = sharding.ShardedDiagCR(A, P, dev)
+        t1 = time.perf_counter()
+        want = one.solve(W[:n], W[n:], diag, resscale, rhs, 1e-8, 400)
+        torch.cuda.synchronize()
+        t_one = time.perf_counter() - t1
+        over = sharding.ShardedDiagCR(A, P, mesh=mesh)
+        t1 = time.perf_counter()
+        got = over.solve(W[:n], W[n:], diag, resscale, rhs, 1e-8, 400)
+        t_mesh = time.perf_counter() - t1
+        print(f"  ShardedDiagCR P={P} at m={m} n={n}: one card (K15's "
+              f"cooperative launch) {want[1]} trips, err {want[2]}, "
+              f"{t_one:.4f} s; mesh {got[1]} trips, err {got[2]}, "
+              f"{t_mesh:.4f} s | {card}", flush=True)
+        check(got[1:] == want[1:] and np.array_equal(got[0], want[0]),
+              "the mesh's CR solve is not the one-card K15's bit for bit")
+        mesh_trips("CR", mesh.last[-1], card)
+        # again: the per-trip time without the first solve's set-up
+        t1 = time.perf_counter()
+        again = over.solve(W[:n], W[n:], diag, resscale, rhs, 1e-8, 400)
+        t_mesh = time.perf_counter() - t1
+        check(again[1:] == got[1:] and np.array_equal(again[0], got[0]),
+              "the mesh's CR solve differs from run to run")
+        per, share = mesh_trips("CR again", mesh.last[-1], card)
+        summary["cr"] = dict(trips=got[1], ms_a_trip=per,
+                             collective_share=share,
+                             one_card_ms_a_trip=t_one / max(want[1], 1)
+                             * 1e3, wall_s=t_mesh)
+        summary["k15_pass_launches"] = {
+            st["rank"]: st["k15_launches"] for st in mesh.last[-1]}
+        check(all(st["k15_launches"] > 0 and st["k14v_launches"] > 0
+                  and st["k14_launches"] > 0 and st["k1_launches"] > 0
+                  for st in mesh.last[-1]),
+              "a rank launched no K15 pass, K14v, K14 or K1")
+
+        # one N N' apply over 4 column blocks, against the one-card K4
+        w = rng.standard_normal(m)
+        one_n = sharding.ShardedSplittedNNt(m, N2.shape[1], P, dev)
+        one_n.set_operand(N2)
+        over_n = sharding.ShardedSplittedNNt(m, N2.shape[1], P, mesh=mesh)
+        over_n.set_operand(N2)
+        z_one = one_n.apply(w)
+        t1 = time.perf_counter()
+        z_mesh = over_n.apply(w)
+        t_apply = time.perf_counter() - t1
+        print(f"  N N' over {P} column blocks, nnz(N)={N2.nnz}: "
+              f"{t_apply * 1e3:.3f} ms on the mesh | {card}", flush=True)
+        check(np.array_equal(z_mesh, z_one),
+              "the mesh's N N' is not the one-card K4's bit for bit")
+        summary["nnt_apply_ms"] = t_apply * 1e3
+
+        # the 2 x 2 rows x batch batched CR at B = 256, against K16 at P = 2
+        B = B_FULL
+        m2 = mesh.reshape((2, 2), ("rows", "batch"))
+        W2 = 10.0 ** rng.uniform(-2, 2, (n + m, B))
+        A2 = A.copy()
+        A2.data = A2.data ** 2
+        diag2 = np.asarray(A2 @ W2[:n]) + W2[n:]
+        RHS = rng.standard_normal((m, B))
+        snm2 = sharding.ShardedNormalMatrix(A, 2, dev)
+        t1 = time.perf_counter()
+        Y1, it1 = sharding.sharded_batched_cr_solve(snm2, W2[:n], W2[n:],
+                                                    diag2, RHS, 1e-8, 20)
+        t_one = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        Y2, it2 = sharding.sharded_batched_cr_solve(snm2, W2[:n], W2[n:],
+                                                    diag2, RHS, 1e-8, 20,
+                                                    mesh=m2)
+        t_mesh = time.perf_counter() - t1
+        print(f"  sharded_batched_cr_solve B={B}, 20 trips at most: K16 at "
+              f"P=2 on one card {it1} trips {t_one:.4f} s; 2 x 2 mesh "
+              f"{it2} trips {t_mesh:.4f} s | {card}", flush=True)
+        check(it1 == it2 and np.array_equal(Y1, Y2),
+              "the 2 x 2 mesh's batched CR is not K16's at P = 2 bit for bit")
+        check(all(st["exact"] for st in m2.last[-1]),
+              f"a rank of the 2 x 2 mesh at B = {B} did not keep the one "
+              f"card's grids")
+        per, share = mesh_trips("batched CR", m2.last[-1], card)
+        summary["batched_cr"] = dict(trips=it2, ms_a_trip=per,
+                                     collective_share=share,
+                                     one_card_ms_a_trip=t_one / max(it1, 1)
+                                     * 1e3)
+        summary["k16_pass_launches"] = {
+            st["rank"]: st["k16_launches"] for st in m2.last[-1]}
+        check(all(st["k16_launches"] > 0 and st["k5_launches"] > 0
+                  and st["k14_launches"] > 0 for st in m2.last[-1]),
+              "a rank launched no K16 pass, K5 or K14")
+
+        # the phase-4 LP with shards=4 over the mesh, against "cpu" and the
+        # one-process shards=4 solve
+        objs = {}
+        for how in ("cpu", "one process", "mesh"):
+            s = LpSolver(Parameters(display=0, device="cuda" if how != "cpu"
+                                    else "cpu",
+                                    shards=P if how != "cpu" else None))
+            check(tg.load_into_solver(data, s) == 0, "load_model failed")
+            mesh.reset_launches()
+            t1 = time.perf_counter()
+            if how == "mesh":
+                with mesh:
+                    st = s.solve()
+            else:
+                st = s.solve()
+            wall = time.perf_counter() - t1
+            i = s.get_info()
+            objs[how] = i.pobjval
+            print(f"  LpSolver(shards={P if how != 'cpu' else None}) "
+                  f"{how}: status {st}, pobjval {i.pobjval!r}, wall "
+                  f"{wall:.3f} s, CR iters {i.kktiter1}+{i.kktiter2}, cr1 "
+                  f"{i.time_cr1:.3f} s, cr2 {i.time_cr2:.3f} s | {card}",
+                  flush=True)
+            check(st == 1000, f"shards={P} {how}: status {st}")
+            if how == "mesh":
+                launched = mesh.launches()
+                print(f"  launches by rank in the mesh solve: {launched}",
+                      flush=True)
+                summary["solve"] = dict(wall_s=wall, kktiter1=i.kktiter1,
+                                        kktiter2=i.kktiter2,
+                                        launches=launched)
+                check(s.model._sharded_cr[1].mesh is mesh
+                      and s.model._sharded_nnt[1].mesh is mesh,
+                      "the solve's blocks were not on the mesh")
+                check(sorted(launched) == list(range(P)) and all(
+                    c.get(k, 0) > 0 for c in launched.values()
+                    for k in ("sharded_cr_step", "block_spmv_sum",
+                              "block_sum", "csr_spmv", "nnt")),
+                      "a rank launched no K15 pass, K14v, K14, K1 or K4 in "
+                      "the mesh solve")
+        for how in ("cpu", "one process"):
+            e = abs(objs["mesh"] - objs[how]) / abs(objs[how])
+            check(e <= 1e-8, f"the mesh solve's pobjval differs from "
+                  f"{how}'s by {e:.1e}")
+
+        t1 = time.perf_counter()
+        entry.dryrun_multichip(P, mesh=mesh)
+        print(f"  dryrun_multichip({P}) over the mesh: "
+              f"{time.perf_counter() - t1:.2f} s | {card}", flush=True)
+    finally:
+        mesh.close()
+
+    # a 1-rank NCCL mesh: one sharded_cr_solve, against the one-card one
+    nccl = pm.Mesh((1,), ("rows",), [str(dev)], timeout=MESH_TIMEOUT)
+    try:
+        check(nccl.transport == "nccl" and not nccl.staged,
+              f"one rank on a card took {nccl.transport}")
+        W = 10.0 ** rng.uniform(-2, 2, n + m)
+        diag = normal_diag(A, W)
+        rhs = rng.standard_normal(m)
+        want = sharding.sharded_cr_solve(sharding.ShardedNormalMatrix(
+            A, 1, dev), W[:n], W[n:], diag, rhs, 1e-8, 300)
+        snm1 = sharding.ShardedNormalMatrix(A, 1, mesh=nccl)
+        for run in ("", " again"):   # the first sets NCCL's communicator up
+            got = sharding.sharded_cr_solve(snm1, W[:n], W[n:], diag, rhs,
+                                            1e-8, 300)
+            print(f"  {nccl.describe()}: sharded_cr_solve{run} {got[1]} "
+                  f"trips (one card {want[1]}) | {card}", flush=True)
+            check(got[1] == want[1] and np.array_equal(got[0], want[0]),
+                  "the NCCL mesh's solve is not the one-card one bit for "
+                  "bit")
+            per, share = mesh_trips("NCCL CR" + run, nccl.last[-1], card)
+        summary["nccl_cr"] = dict(trips=got[1], ms_a_trip=per,
+                                  collective_share=share)
+    finally:
+        nccl.close()
+    print(json.dumps({"mesh": summary, "card": card}), flush=True)
+
+
+def mesh_cards_main():
+    """`python3 chip_smoke.py --mesh-cards`: phase 13 alone with its mesh
+    over cards 0..3, one rank a card (NCCL), on a machine with four cards;
+    the kernels are built first and the phase-2 LP presolved as main()
+    does. The last line is main()'s."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    have = torch.cuda.device_count()
+    if have < P_SHARDS:
+        fail(f"--mesh-cards needs {P_SHARDS} cards, this machine has {have}")
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    card = f"{lines[0]} (x{len(lines)})"
+    from ipx_tpu_torch import LpSolver, Parameters, backend, build
+    from ipx_tpu_torch import testgen as tg
+    from ipx_tpu_torch.kkt.splitted_normal import SplittedNormalMatrix
+    build.build_native()
+    build.build(force=True)
+    dev = backend.cuda_device()
+    data = tg.transportation(8000, 12000, 0.001, seed=1)
+    host = LpSolver(Parameters(display=0, device="cpu", stop_at_switch=1))
+    check(tg.load_into_solver(data, host) == 0, "load_model failed")
+    host.solve()
+    md = host.basis.model
+    sn = SplittedNormalMatrix(md)
+    sn.prepare(host.basis, host.iterate.scaling_factors())
+    t0 = time.perf_counter()
+    mesh_phase(card, data, md, sn.N, dev, own_cards=True)
+    print(f"phase 13 over {P_SHARDS} cards took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--mesh-cards"]:
+        mesh_cards_main()
+    else:
+        main()

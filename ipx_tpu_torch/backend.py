@@ -8,7 +8,8 @@ same device path on the CPU with the kernels' plain PyTorch versions;
 card is present and A has at least MIN_NNZ_AUTO nonzeros, and the host path
 otherwise (the contract of ipx_tpu's DeviceNormalCR.worthwhile). The
 batched and the sharded solves, which have no host path, resolve with
-their own rules (resolve_batched, resolve_sharded).
+their own rules (resolve_batched, resolve_sharded), and over a mesh of
+processes by resolve_mesh's.
 """
 from __future__ import annotations
 
@@ -96,3 +97,33 @@ def resolve_sharded(device: str) -> torch.device:
     if device == "torch_cpu":
         return torch.device("cpu")
     raise ValueError(f"unknown device {device!r}; expected one of {DEVICES}")
+
+
+def resolve_mesh(device: str, shards: int):
+    """The mesh of processes (parallel/mesh.py) that takes both phases'
+    blocks of a solve with Parameters.shards = shards, or None for the
+    blocks on one device (resolve_sharded): the active mesh (`with mesh:`)
+    when its rows axis has `shards` ranks; its ranks must be where
+    resolve_sharded(device) is (the card or the CPU), else this raises. A
+    mesh is only ever the caller's: without an active one the blocks stay on
+    one device, however many cards there are."""
+    from .parallel import mesh as _mesh
+    active = _mesh.active_mesh()
+    if active is None or active.axis_size("rows") != shards:
+        return None
+    where = resolve_sharded(device)
+    if active.device.type != where.type:
+        raise ValueError(f"Parameters.device {device!r} puts the blocks on "
+                         f"{where.type}, the active mesh is on "
+                         f"{active.devices}")
+    return active
+
+
+def sharded_place(device: str, shards: int) -> tuple:
+    """(mesh, device, key) of a solve's sharded blocks: resolve_mesh's mesh
+    or None, the device the blocks are on, and the key under which the
+    model keeps its sharded solvers (kkt/diag.py, kkt/basis_precond.py)."""
+    mesh = resolve_mesh(device, shards)
+    where = resolve_sharded(device) if mesh is None else mesh.device
+    key = (shards, str(where) if mesh is None else f"mesh {mesh.uid}")
+    return mesh, where, key

@@ -9,7 +9,10 @@
 // operands), and the collectives become reductions over the P block
 // results in a fixed block order p = 0..P-1, so a solve gives the answers P
 // ranks would, every sum in the same order, and two runs agree bit for bit.
-// No atomics anywhere.
+// No atomics anywhere. Over a mesh of processes (parallel/mesh.py) each
+// rank holds one row block and runs the host-issued passes of K15 and K16
+// over it alone; the other blocks' partials come from the other ranks by a
+// gather, and the sums over them keep the same order.
 //
 //   K14 block_sum   out = scale * (((part_0 + part_1) + part_2) + ...): the
 //                   psum of A_p' v_p (scaled by W_struct), of A_p' V_p, and
@@ -290,14 +293,20 @@ __device__ __forceinline__ void scr_pass_c(const ScrArgs<T>& a, int64_t vb,
 }
 
 // -- the host-issued form: one pass a launch --------------------------------
+// The launch runs the virtual blocks vb0 .. vb0 + gridDim.x - 1 of the pass:
+// all of them on one card (vb0 = 0), a mesh rank's own row block's on a
+// mesh (parallel/mesh.py), whose partials of the other blocks come from the
+// other ranks. The first CUDA block writes the state, so every rank keeps
+// its own copy of it.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) scr_step_kernel(int phase,
+                                                            int64_t vb0,
                                                             ScrArgs<T> a) {
   __shared__ T red[kThreads];
   T* st = a.state;
   if (loop_done(st)) return;
-  const int64_t g = blockIdx.x;
-  const bool lead = g == 0 && threadIdx.x == 0;
+  const int64_t g = vb0 + blockIdx.x;
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
   const T cdot = st[kCdot0 + (a.k & 1)];
   switch (phase) {
     case kSInit:
@@ -787,10 +796,13 @@ static ScrArgs<double> scr_args(int64_t m, int64_t P, int64_t k,
   return a;
 }
 
-// The host-issued form: one pass (`phase`) of trip k. The solvers never ask
-// for it; the card tests and chip_smoke.py hold the cooperative form
-// against it.
-extern "C" int ipxt_scr_step_f64(int phase, int64_t m, int64_t P, int64_t k,
+// The host-issued form: one pass (`phase`) of trip k over the virtual
+// blocks [vb0, vb1) of the elementwise passes (0 and nblk on one card). On
+// one card the solvers never ask for it; the card tests and chip_smoke.py
+// hold the cooperative form against it. A mesh rank runs it over its own
+// row block's blocks (parallel/mesh.py).
+extern "C" int ipxt_scr_step_f64(int phase, int64_t vb0, int64_t vb1,
+                                 int64_t m, int64_t P, int64_t k,
                                  int64_t maxiter, double tol, int ladder,
                                  const void* row_off, const void* blk_off,
                                  const void* pc_off, const void* invd,
@@ -798,13 +810,15 @@ extern "C" int ipxt_scr_step_f64(int phase, int64_t m, int64_t P, int64_t k,
                                  void* s, void* cs, void* d, void* cd,
                                  void* pa, int64_t nblk, void* pc,
                                  void* state, void* stream) {
-  if (phase < kSInit || phase > kSPassC || nblk < 1)
+  if (phase < kSInit || phase > kSPassC || nblk < 1 || vb0 < 0 ||
+      vb1 <= vb0 || vb1 > nblk)
     return (int)cudaErrorInvalidValue;
   const ScrArgs<double> a =
       scr_args(m, P, k, maxiter, tol, ladder, row_off, blk_off, pc_off, invd,
                resscale, y, r, s, cs, d, cd, pa, nblk, pc, state);
-  scr_step_kernel<double><<<(unsigned)nblk, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(phase, a);
+  scr_step_kernel<double><<<(unsigned)(vb1 - vb0), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(phase, vb0,
+                                                                 a);
   return (int)cudaGetLastError();
 }
 

@@ -5,15 +5,17 @@ entry() returns one full batched Mehrotra predictor-corrector iteration
 updates) over a batch of scenario LPs, with the state after the starting
 point: K5-K13 on the card.
 
-dryrun_multichip(n) runs the reference's multi-chip dry run on one device:
-the batched step at batch max(2n, 8), a row-blocked CR solve over n blocks
-(K14/K15), the Parameters(shards=n) full solve of a 10k-row LP against the
-host path with phase 2's column-blocked N N' engaged, and for even n the
-row-blocked batched CR over n/2 blocks (K16). The reference spreads the
-blocks and the batch over a jax mesh of n devices; here they all live on
-the device of the batched step ("cuda": the card; "torch_cpu": the CPU;
-parallel/sharding.py), and blocks across several cards wait for a
-four-chip cell.
+dryrun_multichip(n) runs the reference's multi-chip dry run: the batched
+step at batch max(2n, 8), a row-blocked CR solve over n blocks (K14/K15),
+the Parameters(shards=n) full solve of a 10k-row LP against the host path
+with phase 2's column-blocked N N' engaged, and for even n the row-blocked
+batched CR over n/2 blocks (K16). The reference spreads the blocks and the
+batch over a jax mesh of n devices. With `mesh=` (parallel/mesh.py, n
+ranks, one process each) each part runs over its ranks: the step with its
+lanes split over them, the CR over n row blocks, the solve inside `with
+mesh:`, the batched CR on an (n/2) x 2 rows x batch layout of them.
+Without, all blocks live on the device of the batched step ("cuda": the
+card; "torch_cpu": the CPU; parallel/sharding.py).
 
 Not carried over: the persistent compile cache and the CPU pinning of the
 set-up (they served jax on a TPU), and the fallback to the CPU's virtual
@@ -57,9 +59,12 @@ def entry(device="cuda"):
     return solver._ipm_step, (solver._starting_point(),)
 
 
-def dryrun_multichip(n_devices: int, device="cuda") -> None:
-    """The four parts of the reference's dry run on one device, each with
-    the reference's asserts; raises at the first that fails."""
+def dryrun_multichip(n_devices: int, device="cuda", mesh=None) -> None:
+    """The four parts of the reference's dry run, on one device or over
+    `mesh` (n_devices ranks on the card or the CPU, as `device` says), each
+    with the reference's asserts; raises at the first that fails."""
+    import contextlib
+    from . import backend
     from .lp_solver import LpSolver
     from .parameters import Parameters
     from .parallel.sharding import (ShardedNormalMatrix,
@@ -67,13 +72,29 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
                                     sharded_cr_solve)
     from .testgen import load_into_solver, transportation
 
+    rows = batch_mesh = mesh2 = None
+    if mesh is not None:
+        if mesh.size != n_devices:
+            raise ValueError(f"a mesh of {mesh.size} ranks for "
+                             f"{n_devices} devices")
+        rows = mesh.reshape((n_devices,), ("rows",))
+        batch_mesh = mesh.reshape((n_devices,), ("batch",))
+        if n_devices % 2 == 0:
+            mesh2 = mesh.reshape((n_devices // 2, 2), ("rows", "batch"))
+
     # -- the batched IPM step over max(2n, 8) scenarios --------------------
     batch = max(n_devices * 2, 8)
     solver = _make_batched_solver(batch=batch, device=device)
     dev = solver.device
+    if mesh is not None and mesh.device.type != dev.type:
+        raise ValueError(f"device {device!r} is {dev.type}, the mesh's "
+                         f"ranks are on {mesh.devices}")
     state = solver._starting_point()
     shape = tuple(state["X"].shape)
-    out = solver._ipm_step(state)
+    if batch_mesh is None:
+        out = solver._ipm_step(state)
+    else:
+        out = batch_mesh.step(solver.lp, state, solver.maxiter)
     assert tuple(out["X"].shape) == shape
 
     # -- a row-blocked CR solve over n blocks ------------------------------
@@ -88,7 +109,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     A2.data = A2.data ** 2
     diag = np.asarray(A2 @ W[:n]).ravel() + W[n:]
     rhs = rng.standard_normal(m)
-    snm = ShardedNormalMatrix(A, num_blocks=n_devices, device=dev)
+    snm = ShardedNormalMatrix(A, num_blocks=n_devices, device=dev,
+                              mesh=rows)
     y, iters = sharded_cr_solve(snm, W[:n], W[n:], diag, rhs, tol=1e-8,
                                 maxiter=10 * m)
     res = rhs - (A @ (W[:n] * (A.T @ y)) + W[n:] * y)
@@ -107,11 +129,12 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     s_sh = LpSolver(Parameters(display=0, device=sharded,
                                shards=n_devices))
     load_into_solver(data, s_sh)
-    assert s_sh.solve() == 1000, "sharded full solve failed"
+    with rows if rows is not None else contextlib.nullcontext():
+        assert s_sh.solve() == 1000, "sharded full solve failed"
+        _, _, key = backend.sharded_place(sharded, n_devices)
     rel = abs(s_sh.get_info().pobjval - s_ref.get_info().pobjval) / \
         max(1.0, abs(s_ref.get_info().pobjval))
     assert rel <= 1e-7, f"sharded objective mismatch: rel={rel}"
-    key = (n_devices, str(dev))
     assert s_sh.model._sharded_cr[0] == key
     nnt = getattr(s_sh.model, "_sharded_nnt", None)
     assert nnt is not None and nnt[0] == key and nnt[1].applies > 0, \
@@ -125,9 +148,11 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         A2w.data = A2w.data ** 2
         diag2 = np.asarray(A2w @ W2[:n]) + W2[n:]
         RHS2 = rng.standard_normal((m, B2))
-        snm2 = ShardedNormalMatrix(A, num_blocks=n_devices // 2, device=dev)
+        snm2 = ShardedNormalMatrix(A, num_blocks=n_devices // 2, device=dev,
+                                   mesh=mesh2)
         Y2, _ = sharded_batched_cr_solve(snm2, W2[:n], W2[n:], diag2, RHS2,
-                                         tol=1e-8, maxiter=10 * m)
+                                         tol=1e-8, maxiter=10 * m,
+                                         mesh=mesh2)
         for k in range(B2):
             w, yk, rk = W2[:, k], Y2[:, k], RHS2[:, k]
             r2 = rk - (A @ (w[:n] * (A.T @ yk)) + w[n:] * yk)

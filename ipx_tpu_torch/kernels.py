@@ -140,7 +140,8 @@ def _declare(lib: ctypes.CDLL) -> None:
            "ipxt_starting_point_coop_f64": [I64] * 3 + [P] * 17
            + [I64, P, D, D, P],
            "ipxt_block_sum_f64": [I64, I64] + [P] * 5,
-           "ipxt_scr_step_f64": [I, I64, I64, I64, I64, D, I] + [P] * 12
+           "ipxt_scr_step_f64": [I, I64, I64, I64, I64, I64, I64, D, I]
+           + [P] * 12
            + [I64, P, P, P],
            "ipxt_scr_solve_f64": [I64, I, I64, D, I] + [P] * 12
            + [I64, P, P, I64, P, P, P, I] + [P] * 11,
@@ -258,7 +259,12 @@ def k1_lanes(op) -> int:
     row length of `op`, within [2, 32]. On A of the 20k LP (9.6 nonzeros a
     row) 8 lanes take 18-20% less device time than the 16 of ops/spmv.py's
     lanes_per_row, which K2, K4 and K14v keep (PERF.md §6)."""
-    mean = op.vals.numel() / op.rows if op.rows else 0.0
+    return k1_lanes_of(op.vals.numel(), op.rows)
+
+
+def k1_lanes_of(nnz: int, rows: int) -> int:
+    """k1_lanes of an operand of `rows` rows and `nnz` nonzeros."""
+    mean = nnz / rows if rows else 0.0
     vec = 2
     while vec < 32 and 2 * vec <= mean:
         vec *= 2
@@ -650,12 +656,13 @@ def k5_tile(op, B: int, vw: int, itemsize: int) -> tuple:
 
 
 def _spmm(op, U, Y, rowscale=None, addw=None, addv=None, partials=None,
-          state=None, unroll=None, form=None) -> None:
+          state=None, unroll=None, form=None, vw=None) -> None:
     """One launch of the batched CSR kernel with its optional epilogues, in
     the form k5_form picks unless `form` ("tile" or "row") says otherwise,
     the row body at `unroll` gathers a thread issues together (by default
     k5_unroll(op)). The card tests and tools/torch_profile.py --what k5 ask
-    for each."""
+    for each. `vw`, the lanes a thread takes, defaults to spmm_width's; 1
+    is always valid (a mesh rank asks for it, parallel/mesh.py)."""
     device, dtype = U.device, U.dtype
     lib = load()
     _check_operand(op, device, dtype)
@@ -667,7 +674,11 @@ def _spmm(op, U, Y, rowscale=None, addw=None, addv=None, partials=None,
             _check(t, name, device, dtype, (op.rows, B))
     if (addw is None) != (addv is None):
         raise ValueError("addw and addv go together")
-    vw = spmm_width(B, dtype, U, Y, rowscale, addw, addv, partials)
+    if vw is None:
+        vw = spmm_width(B, dtype, U, Y, rowscale, addw, addv, partials)
+    elif vw != 1 and vw != spmm_width(B, dtype, U, Y, rowscale, addw, addv,
+                                      partials):
+        raise ValueError(f"K5 cannot take {vw} lanes a thread here")
     epilogue = any(t is not None for t in (rowscale, addw, partials, state))
     if form is None:
         form = k5_form(B, U.element_size(), epilogue)
@@ -698,16 +709,17 @@ def _spmm(op, U, Y, rowscale=None, addw=None, addv=None, partials=None,
 
 
 def csr_spmm(op, U: torch.Tensor, out=None, addw=None, addv=None,
-             partials=None, state=None) -> torch.Tensor:
+             partials=None, state=None, vw=None) -> torch.Tensor:
     """K5: Y = op @ U for U of shape (op.cols, B), on the card, into `out`
     if given; with addw and addv, Y = op @ U + addw * addv and, with
     `partials`, the per-block partials of the column dots addv.Y (a block
     product of the sharded solves). `state` is a CR loop's: once it says
-    done, the launch returns at once."""
+    done, the launch returns at once. `vw` as for _spmm."""
     device = _device_of(U)
     Y = torch.empty((op.rows, _lanes(U, "U")), dtype=U.dtype,
                     device=device) if out is None else out
-    _spmm(op, U, Y, addw=addw, addv=addv, partials=partials, state=state)
+    _spmm(op, U, Y, addw=addw, addv=addv, partials=partials, state=state,
+          vw=vw)
     LAUNCHES["csr_spmm"] += 1
     return Y
 
@@ -1477,34 +1489,45 @@ def block_plan_of(At_split, At, A) -> BlockNormalBatchedPlan:
 
 class _ShardedStep:
     """What the step objects of K15 and K16 share, allocated once per solve
-    on the card of `rhs`: the row blocks' operands (`A`: A_p with the
-    block's rows), the loop's vectors of rhs's shape (`r` starts as a copy
-    of rhs), the partials (`pa` of shape `pa_shape`, one partial block per
-    K15-K16 reduction block `nblk[p]` of each row block; `pc`, the block
-    products' partials, `npc[p]` rows per row block), the prefix offsets of
-    the rows and of both partials, and the state, zeros of `state_len`.
+    on the card of `rhs`: the loop's vectors of rhs's shape (`r` starts as
+    a copy of rhs), the partials at their one-card layout over all P row
+    blocks (`rows`: `pa` of shape `pa_shape`, one partial block per K15-K16
+    reduction block `nblk[p]` of each row block; `pc`, the block products'
+    partials, `npc[p]` rows per row block), the prefix offsets of the rows
+    and of both partials, and the state, zeros of `state_len`.
 
     The host-issued form (_host_issued) runs INIT, the normal apply, START,
     then TRIP (the passes of one trip, the normal apply where APPLY stands)
-    until the state says done, which it reads every POLL trips."""
+    until the state says done, which it reads at STOP every `poll` trips.
 
-    APPLY = -1
+    Over a mesh of processes (parallel/mesh.py) a rank runs the same loop
+    on row block `rank.i` alone; `rank` is its link to the ranks of its row
+    group: `rank.rows`, the rows of all P blocks, and `rank.gather(t,
+    what)`, every rank's flat t in rank order, (P, t.numel()) on t's card
+    or on the host. The other blocks' partials then come from the other
+    ranks (_share), and the state is read every trip, since the ranks'
+    gathers go on in lockstep until the loop ends. On one card `rank` is
+    None and nothing is exchanged."""
+
+    APPLY, STOP = -1, -2
     IT, DONE = 3, 5                 # state slots (csrc/common.cuh)
-    POLL = 5                        # trips between reads of done
+    POLL = 5                        # trips between reads of done, one card
 
-    def __init__(self, A, W_struct, W_slack, rhs, nblk, npc, pa_shape,
-                 state_len):
+    def __init__(self, rows, W_struct, W_slack, rhs, nblk, npc, pa_shape,
+                 state_len, rank=None):
         device = _device_of(rhs)
-        rows = [op.rows for op in A]
-        m, P, lanes = rhs.shape[0], len(rows), tuple(rhs.shape[1:])
-        if sum(rows) != m:
-            raise ValueError("row blocks do not cover the m rows")
+        lanes = tuple(rhs.shape[1:])
         e = lambda *s: torch.empty(s, dtype=F64, device=device)  # noqa: E731
-        self.A, self.P, self.m, self.device = A, P, m, device
+        self.rows, self.P, self.m = list(rows), len(rows), rhs.shape[0]
+        self.device, self.rank = device, rank
+        self.own = (0, self.P) if rank is None else (rank.i, rank.i + 1)
+        self.poll = self.POLL if rank is None else 1
+        self._sends = {}
         self.W_struct, self.W_slack = W_struct, W_slack
         self.r = rhs.clone()
-        self.y, self.s, self.cs, self.d, self.cd = (e(m, *lanes)
+        self.y, self.s, self.cs, self.d, self.cd = (e(self.m, *lanes)
                                                     for _ in range(5))
+        self.nblk_of, self.npc = list(nblk), list(npc)
         self.nblk = sum(nblk)
         self.pa, self.pc = e(*pa_shape), e(sum(npc), *lanes)
         self._off = (_offsets(rows, device), _offsets(nblk, device),
@@ -1531,12 +1554,47 @@ class _ShardedStep:
             for phase in self.TRIP:
                 if phase == self.APPLY:
                     self.normal_apply()
+                elif phase == self.STOP:
+                    if ((k + 1) % self.poll == 0 or k >= maxiter) and bool(
+                            self.state[self.DONE].item()):
+                        return
                 else:
                     self.launch(phase, k, maxiter, tol)
             k += 1
-            if (k % self.POLL == 0 or k > maxiter) and bool(
-                    self.state[self.DONE].item()):
-                return
+
+    def _share(self, dst: torch.Tensor, dim: int, sizes, what: str,
+               src: torch.Tensor = None) -> None:
+        """On a mesh, dst (all of a contiguous buffer) holding every rank's
+        part end to end along `dim` (rank q's sizes[q] long) in rank order,
+        from this rank's part: `src`, by default its own slice of dst; one
+        gather."""
+        if self.rank is None:
+            return
+        i = self.rank.i
+        if what not in self._sends:     # offsets and a send buffer, once
+            off = np.cumsum([0] + list(sizes)).tolist()
+            own = dst.narrow(dim, off[i], sizes[i]) if src is None else src
+            inner = own.numel() // sizes[i]
+            self._sends[what] = (off, inner, torch.zeros(
+                max(sizes) * inner, dtype=F64, device=self.device))
+        off, inner, send = self._sends[what]
+        if src is None:
+            src = dst.narrow(dim, off[i], sizes[i])
+        send[:src.numel()] = src.reshape(-1)
+        G = self.rank.gather(send, what)
+        pieces = []
+        for q, k in enumerate(sizes):
+            shape = list(src.shape)
+            shape[dim] = k
+            pieces.append(G[q, :k * inner].view(shape))
+        # one copy to the card, of the pieces laid end to end where G is
+        dst.copy_(torch.cat(pieces, dim))
+
+    def _gather_parts(self, part: torch.Tensor) -> torch.Tensor:
+        """The (P, *part.shape) of every rank's part, on the card."""
+        self.parts.copy_(self.rank.gather(part, "parts").view(
+            self.parts.shape))
+        return self.parts
 
 
 class ShardedCrStep(_ShardedStep):
@@ -1551,15 +1609,24 @@ class ShardedCrStep(_ShardedStep):
     split sum and the block products through K1's row body), in one
     cooperative launch; solve(cooperative=False) runs the host-issued
     passes and the apply as a K14v and a K1 launch (BlockSpmvPlan), which
-    the solvers never ask for: the card tests and chip_smoke.py hold the two
-    forms bit for bit."""
+    the solvers never ask for on one card: the card tests and chip_smoke.py
+    hold the two forms bit for bit.
+
+    On a mesh rank (`rank`, _ShardedStep; `rank.vecs` the K1 lanes a row of
+    all P blocks) `A` is [A_i] and `At` A_i' at the whole A''s lanes a row
+    (parallel/mesh.py lane_aligned, K14v at P = 1); the vectors keep all m
+    rows, of which the passes touch block i's, over its virtual blocks
+    only. The apply is K14v on A_i', a gather of the (P, n) parts, K14's
+    ordered sum scaled by W_struct and block i's K1 product; gathers fill
+    the other blocks' partials after PASS_A and after the apply. The
+    host-issued form only: a cooperative launch cannot hold a collective."""
 
     INIT, START, PASS_A, PASS_B, PASS_C = range(5)
-    TRIP = (PASS_A, PASS_B, _ShardedStep.APPLY, PASS_C)
+    TRIP = (PASS_A, PASS_B, _ShardedStep.STOP, _ShardedStep.APPLY, PASS_C)
     ERR, APPLIES, RESNORM = 4, 6, 7  # state slots (csrc/sharded.cu)
 
     def __init__(self, At, A, W_struct, W_slack, invd, resscale, rhs,
-                 ladder: bool):
+                 ladder: bool, rank=None):
         device = _device_of(rhs)
         lib = load()
         m, n = rhs.numel(), W_struct.numel()
@@ -1569,26 +1636,46 @@ class ShardedCrStep(_ShardedStep):
             shapes["resscale"] = (resscale, m)
         _check_f64(device, shapes)
         _check_split(At, device)
-        if (At.rows, At.cols, At.P) != (n, m, len(A)):
+        if rank is None:
+            rows, vecs = [op.rows for op in A], [k1_lanes(op) for op in A]
+            want = (n, m, len(A))
+        else:
+            rows, vecs = list(rank.rows), list(rank.vecs)
+            want = (n, rows[rank.i], 1)
+            if len(A) != 1 or A[0].rows != rows[rank.i]:
+                raise ValueError(f"a mesh rank holds block {rank.i} of "
+                                 f"{rows} rows, not {[op.rows for op in A]}")
+        if (At.rows, At.cols, At.P) != want or sum(rows) != m:
             raise ValueError(f"At is {At.rows} x {At.cols} in {At.P} blocks, "
-                             f"not A' of {len(A)} row blocks of {m} rows")
-        nblk = [int(lib.ipxt_scr_blocks(op.rows)) for op in A]
-        _, pc_off = block_layout([op.rows for op in A],
-                                 [k1_lanes(op) for op in A])
-        super().__init__(A, W_struct, W_slack, rhs, nblk,
+                             f"not A' of row blocks {rows} of {m} rows")
+        nblk = [int(lib.ipxt_scr_blocks(r)) for r in rows]
+        row_off, blk_off = np.cumsum([0] + rows), np.cumsum([0] + nblk)
+        _, pc_off = block_layout(rows, vecs)
+        super().__init__(rows, W_struct, W_slack, rhs, nblk,
                          np.diff(pc_off).tolist(), (2 * sum(nblk),),
-                         int(lib.ipxt_cr_state_len()))
+                         int(lib.ipxt_cr_state_len()), rank)
+        p0, p1 = self.own
+        r0, r1 = int(row_off[p0]), int(row_off[p1])
+        c0, c1 = int(pc_off[p0]), int(pc_off[p1])
+        self.vb = (int(blk_off[p0]), int(blk_off[p1]))
         self.At = At
         self.u = torch.empty(n, dtype=F64, device=device)
         self._keep = (invd, resscale)     # alive while the loop runs
         self._args = (*(t.data_ptr() for t in self._off), invd.data_ptr(),
                       _ptr(resscale), *self._tail)
         self._ladder = int(bool(ladder))
-        self._products = BlockSpmvPlan(A, self.u, self.cs, W_slack, self.s,
-                                       self.pc, self.state)
-        self._apply = (*_op_args(At), At.inner_ptr,
-                       *self._products.host_args, W_struct.data_ptr(),
-                       W_slack.data_ptr(), self.u.data_ptr(), self._stream)
+        self._products = BlockSpmvPlan(A, self.u, self.cs[r0:r1],
+                                       W_slack[r0:r1], self.s[r0:r1],
+                                       self.pc[c0:c1], self.state)
+        if rank is None:
+            self._apply = (*_op_args(At), At.inner_ptr,
+                           *self._products.host_args, W_struct.data_ptr(),
+                           W_slack.data_ptr(), self.u.data_ptr(),
+                           self._stream)
+        else:
+            self._s_own = self.s[r0:r1]
+            self._part = torch.empty(n, dtype=F64, device=device)
+            self.parts = torch.empty((self.P, n), dtype=F64, device=device)
 
     def solve(self, maxiter: int, tol: float, cooperative: bool = True):
         """Runs the loop from the start and returns (y on the card,
@@ -1596,6 +1683,8 @@ class ShardedCrStep(_ShardedStep):
         the state. The cooperative launch counts one K15 launch and adds the
         applies it ran to INSIDE, one K14v and one K1 each; a refused launch
         raises."""
+        if cooperative and self.rank is not None:
+            raise ValueError("a mesh rank runs the host-issued passes")
         if cooperative:
             err = _lib.ipxt_scr_solve_f64(self.m, self.P, maxiter, float(tol),
                                           self._ladder, *self._args,
@@ -1612,19 +1701,46 @@ class ShardedCrStep(_ShardedStep):
                 float(st[self.RESNORM]))
 
     def normal_apply(self) -> None:
-        """The host-issued form's cs = C s over the row blocks in two
-        launches, K14v then the block products (BlockSpmvPlan), with the
-        block products' partials of the dots s.cs per row block."""
-        block_spmv_sum(self.At, self.s, self.W_struct, out=self.u,
-                       state=self.state)
+        """The host-issued form's cs = C s over the row blocks, K14v then
+        the block products (BlockSpmvPlan), with the block products'
+        partials of the dots s.cs per row block; on a mesh rank K14v on
+        A_i', the gather of the parts and K14 between them, and a gather of
+        the partials after."""
+        if self.rank is None:
+            block_spmv_sum(self.At, self.s, self.W_struct, out=self.u,
+                           state=self.state)
+        else:
+            block_spmv_sum(self.At, self._s_own, out=self._part,
+                           state=self.state)
+            block_sum(self._gather_parts(self._part), self.W_struct,
+                      out=self.u, state=self.state)
         self._products.launch()
+        self._share(self.pc, 0, self.npc, "pc")
 
     def launch(self, phase: int, k: int, maxiter: int, tol: float) -> None:
-        err = _lib.ipxt_scr_step_f64(phase, self.m, self.P, k, maxiter,
-                                     float(tol), self._ladder, *self._args,
-                                     self._stream)
+        err = _lib.ipxt_scr_step_f64(phase, *self.vb, self.m, self.P, k,
+                                     maxiter, float(tol), self._ladder,
+                                     *self._args, self._stream)
         _raise_if(err, f"sharded_cr_step phase {phase}")
         LAUNCHES["sharded_cr_step"] += 1
+        if phase == self.PASS_A:
+            self._share(self.pa.view(2, self.nblk), 1, self.nblk_of, "pa")
+
+
+def mesh_lane_width(B: int, group: int) -> tuple:
+    """(vw, exact) of K5's block products on a mesh rank that holds `group`
+    of a batch's B lanes: the lanes a thread takes, at which the rank's
+    partials group rows as the one-card K16's over all B do (B / vw lane
+    chunks) where K5 can take them, else spmm_width's; and whether the
+    rank's K16 and K5 grids are the one card's, so that its loop gives the
+    one-card results bit for bit: where the lane chunks split so, and the
+    group holds all B lanes or at least 32 (a reducing pass's grid is
+    min(B, 32) lanes wide, red_grid in csrc/common.cuh)."""
+    chunks = B // spmm_width(B, F64)
+    vw = group // chunks if group % chunks == 0 else 0
+    kept = vw in (1, spmm_width(group, F64))
+    exact = kept and (group == B or group >= 32)
+    return (vw if kept else spmm_width(group, F64)), exact
 
 
 class ShardedBatchedCrStep(_ShardedStep):
@@ -1636,15 +1752,28 @@ class ShardedBatchedCrStep(_ShardedStep):
     apply goes through the operator's BlockNormalBatchedPlan, one fused
     launch where its rule allows, and only the three-stage form gets the
     (P, n, B) parts and the (n, B) U. On one card the reference's batch mesh
-    axis is the column range of these arrays, so it needs nothing here. One
-    solve an object. `fused` overrides the plan's form, for the comparisons
-    of chip_smoke.py and the card tests."""
+    axis is the column range of these arrays. One solve an object. `fused`
+    overrides the plan's form, for the comparisons of chip_smoke.py and the
+    card tests.
+
+    On a mesh rank (`rank`, _ShardedStep; `rank.lanes` the whole batch's
+    B) that holds row block i and a group of the lanes, `At_split` is None,
+    `At` [A_i'], `A` [A_i], and W_slack, invd and rhs are the rank's (rows_i,
+    B_group) and W_struct (n, B_group). The elementwise and reducing passes
+    run over them as a one-block operand, writing block i's partials alone
+    (`pa_local`, on one card `pa` itself); the lane passes read the
+    partials of all P blocks at the one-card layout, which gathers fill.
+    The apply is the three-stage form on block i, a gather of the (P, n,
+    B_group) parts before K14, K5's partials at mesh_lane_width's lanes a
+    thread. `exact` says whether the
+    rank's grids are the one card's (mesh_lane_width)."""
 
     INIT, START, PASS_A, LANE, PASS_B, BETA = range(6)
-    TRIP = (PASS_A, LANE, PASS_B, _ShardedStep.APPLY, BETA)
+    TRIP = (PASS_A, LANE, _ShardedStep.STOP, PASS_B, _ShardedStep.APPLY,
+            BETA)
 
     def __init__(self, At_split, At, A, W_struct, W_slack, invd, rhs,
-                 fused: bool = None):
+                 fused: bool = None, rank=None):
         device = _device_of(rhs)
         lib = load()
         m, B = rhs.shape[0], _lanes(rhs, "rhs")
@@ -1652,21 +1781,49 @@ class ShardedBatchedCrStep(_ShardedStep):
         _check_f64(device, dict(W_struct=(W_struct, (n, B)),
                                 W_slack=(W_slack, (m, B)),
                                 invd=(invd, (m, B)), rhs=(rhs, (m, B))))
-        self.plan = block_plan_of(At_split, At, A)
-        nblk = [red_blocks(op.rows, B) for op in A]
-        npc = self.plan.partials_rows(B, spmm_width(B, F64))
+        if rank is None:
+            self.plan = block_plan_of(At_split, At, A)
+            rows, vw, self.exact = self.plan.rows, spmm_width(B, F64), True
+            if sum(rows) != m:
+                raise ValueError("row blocks do not cover the m rows")
+        else:
+            rows = list(rank.rows)
+            if len(A) != 1 or len(At) != 1 or A[0].rows != rows[rank.i] \
+                    or m != rows[rank.i]:
+                raise ValueError(f"a mesh rank holds block {rank.i} of "
+                                 f"{rows} rows, not {m}")
+            vw, self.exact = mesh_lane_width(rank.lanes, B)
+        nblk = [red_blocks(r, B) for r in rows]
+        npc = [lane_blocks(r, B // vw) for r in rows]
         # the state's length is K7's, which K5 checks
-        super().__init__(A, W_struct, W_slack, rhs, nblk, npc,
-                         (2, B, sum(nblk)), int(lib.ipxt_sbcr_state_len(B)))
-        self.B = B
-        self.fused = self.plan.fused if fused is None else bool(fused)
-        self.parts = self.U = None
-        if not self.fused:
-            self.parts = torch.empty((self.P, n, B), dtype=F64, device=device)
-            self.U = torch.empty((n, B), dtype=F64, device=device)
+        super().__init__(rows, W_struct, W_slack, rhs, nblk, npc,
+                         (2, B, sum(nblk)), int(lib.ipxt_sbcr_state_len(B)),
+                         rank)
+        self.B, self.vw = B, vw
+        e = lambda *s: torch.empty(s, dtype=F64, device=device)  # noqa: E731
         self._keep = invd
-        self._args = (*(t.data_ptr() for t in self._off), invd.data_ptr(),
-                      *self._tail, self._stream)
+        glob = (m, self.P, *(t.data_ptr() for t in self._off),
+                invd.data_ptr(), *self._tail[:-1])
+        if rank is None:
+            self.fused = self.plan.fused if fused is None else bool(fused)
+            self.parts = self.U = None
+            if not self.fused:
+                self.parts, self.U = e(self.P, n, B), e(n, B)
+            self.pa_local, self.pc_local = self.pa, self.pc
+            self._args = {False: glob}
+            return
+        i = rank.i
+        self.fused = False
+        self.At, self.A = At[0], A[0]
+        self._part, self.parts, self.U = e(n, B), e(self.P, n, B), e(n, B)
+        self.pa_local, self.pc_local = e(2, B, nblk[i]), e(npc[i], B)
+        local = (_offsets([m], device), _offsets([nblk[i]], device),
+                 _offsets([npc[i]], device))
+        self._keep = (invd, local)
+        self._args = {False: glob, True: (
+            m, 1, *(t.data_ptr() for t in local), invd.data_ptr(),
+            *self._tail[:6], self.pa_local.data_ptr(), nblk[i],
+            self.pc_local.data_ptr())}
 
     def solve(self, maxiter: int, tol: float):
         """Runs the loop from the start and returns (Y on the card, trips).
@@ -1680,16 +1837,35 @@ class ShardedBatchedCrStep(_ShardedStep):
 
     def normal_apply(self) -> None:
         """cs = C s over the row blocks through the plan, with the blocks'
-        partials of the column dots s.cs."""
-        self.plan(self.W_struct, self.W_slack, self.s, out=self.cs,
-                  partials=self.pc, state=self.state, parts=self.parts,
-                  U=self.U, fused=self.fused)
+        partials of the column dots s.cs; on a mesh rank K5 on A_i', the
+        gather of the parts, K14 and K5 on A_i, and a gather of the
+        partials."""
+        if self.rank is None:
+            self.plan(self.W_struct, self.W_slack, self.s, out=self.cs,
+                      partials=self.pc, state=self.state, parts=self.parts,
+                      U=self.U, fused=self.fused)
+            return
+        csr_spmm(self.At, self.s, out=self._part, state=self.state)
+        block_sum(self._gather_parts(self._part), self.W_struct, out=self.U,
+                  state=self.state)
+        csr_spmm(self.A, self.U, out=self.cs, addw=self.W_slack,
+                 addv=self.s, partials=self.pc_local, state=self.state,
+                 vw=self.vw)
+        self._share(self.pc, 0, self.npc, "pc", self.pc_local)
 
     def launch(self, phase: int, k: int, maxiter: int, tol: float) -> None:
-        err = _lib.ipxt_sbcr_step_f64(phase, self.m, self.B, self.P, k,
-                                      maxiter, float(tol), *self._args)
+        """The elementwise and reducing passes over the rank's rows (on one
+        card, all rows), the lane passes over the partials of all blocks."""
+        local = self.rank is not None and phase in (self.INIT, self.PASS_A,
+                                                    self.PASS_B)
+        m, P, *rest = self._args[local]
+        err = _lib.ipxt_sbcr_step_f64(phase, m, self.B, P, k, maxiter,
+                                      float(tol), *rest,
+                                      self.state.data_ptr(), self._stream)
         _raise_if(err, f"sharded_batched_cr_step phase {phase}")
         LAUNCHES["sharded_batched_cr_step"] += 1
+        if phase == self.PASS_A:
+            self._share(self.pa, 2, self.nblk_of, "pa", self.pa_local)
 
 
 # -- K17: the level-scheduled triangular solve, float64 ---------------------

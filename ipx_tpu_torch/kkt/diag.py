@@ -106,24 +106,26 @@ class KKTSolverDiag(KKTSolver):
     def _prepare_sharded(self) -> None:
         """Row-blocked CR when Parameters.shards > 1 (SURVEY §2.3: the
         model-parallel axis, reachable from LpSolver). The blocks live on
-        the device of backend.resolve_sharded; the solver is built once per
-        model and device and kept on the model. Errors raise: there is no
-        unsharded fallback."""
+        the ranks of backend.resolve_mesh's mesh, one block a rank, or
+        without one on the device of backend.resolve_sharded; the solver is
+        built once per model and device (or mesh) and kept on the model.
+        Errors raise: there is no unsharded fallback."""
         self._sharded = None
         params = self.control.parameters
         if params.shards is None or params.shards <= 1:
             return
         if self.precond.Adense is not None:
             return      # dense-column SMW runs on host
-        device = backend.resolve_sharded(params.device)
-        key = (int(params.shards), str(device))
+        P = int(params.shards)
+        mesh, device, key = backend.sharded_place(params.device, P)
         cached = getattr(self.model, "_sharded_cr", None)
         if cached is not None and cached[0] == key:
             self._sharded = cached[1]
             return
-        cr = ShardedDiagCR(self.model.A, int(params.shards), device)
-        self.control.log(f" sharded phase-1 CR: {params.shards} row blocks "
-                         f"on {device}\n")
+        cr = ShardedDiagCR(self.model.A, P, device, mesh)
+        where = device if mesh is None else mesh.describe()
+        self.control.log(f" sharded phase-1 CR: {P} row blocks on {where}"
+                         f"\n")
         self.model._sharded_cr = (key, cr)
         self._sharded = cr
 

@@ -59,6 +59,24 @@ F64, F32 = torch.float64, torch.float32
 RHO = 0.05          # the starting point's dual fix-up (reference batch.py:369)
 
 
+class _Lanes:
+    """A batch's reductions over its lanes when it holds them all: the
+    values themselves (parallel/mesh.py gathers them over a mesh's lane
+    groups)."""
+
+    @staticmethod
+    def any(flag: bool) -> bool:
+        return flag
+
+    @staticmethod
+    def max(x: float) -> float:
+        return x
+
+    @staticmethod
+    def trips(t: int) -> int:
+        return t
+
+
 @dataclasses.dataclass
 class BatchedLp:
     """B scenario LPs min c_k'x st A x + slack = b_k, lb <= x <= ub
@@ -572,6 +590,19 @@ class BatchedPhase1Solver:
         self.cr_dtype = cr_dtype
         self.nmd32 = (NormalMatrixDevice(lp.A, dev, F32)
                       if cr_dtype == "f32" else None)
+        # the step's reductions over the lanes: its own, unless its lanes
+        # are a group of a mesh's (take_lanes)
+        self._lanes = _Lanes()
+
+    def take_lanes(self, l0: int, l1: int, lanes) -> None:
+        """Keeps lanes l0 .. l1 - 1 of the batch, one group of a mesh's
+        (parallel/mesh.py): the norms and limits stay those of the whole
+        batch, and `lanes` gives the reductions over all groups (any, max,
+        trips) where the CR loops test them, as XLA's collectives give each
+        device the reference's."""
+        self.bT = self.bT[:, l0:l1].contiguous()
+        self.cT = self.cT[:, l0:l1].contiguous()
+        self._lanes = lanes
 
     # -- batched products (arrays (dim, B)) -------------------------------------
     def _A_mul(self, U):
@@ -616,9 +647,11 @@ class BatchedPhase1Solver:
         the defect. Returns (Y, trips)."""
         st = self.static
         inv_diag = 1.0 / diag
+        lanes = self._lanes
         if self.cr_dtype != "f32":
-            return self._cr_loop(self.nmd, W, inv_diag, resscale, RHS, tol,
+            Y, t = self._cr_loop(self.nmd, W, inv_diag, resscale, RHS, tol,
                                  st["cr_maxiter"])
+            return Y, lanes.trips(t)
         W32, inv32, rs32, tol32 = (x.to(F32) for x in
                                    (W, inv_diag, resscale, tol))
         chunk = min(125, st["cr_maxiter"])
@@ -630,21 +663,23 @@ class BatchedPhase1Solver:
         Y = torch.zeros_like(RHS)
         R = RHS
         trips, best, stalled = 0, INF, False
-        while (trips < maxit and bool((resnorm(R) > tol).any())
+        while (trips < maxit and lanes.any(bool((resnorm(R) > tol).any()))
                and not stalled):
             dY32, t = self._cr_loop(self.nmd32, W32, inv32, rs32,
                                     R.to(F32), tol32,
                                     min(chunk, maxit - trips))
+            t = lanes.trips(t)
             Y = Y + dY32.to(RHS.dtype)
             R = RHS - self._normal_apply(W, Y)
             rn = resnorm(R)
-            worst = float(torch.amax(torch.where(rn > tol, rn / tol, 0.0)))
+            worst = lanes.max(float(torch.amax(
+                torch.where(rn > tol, rn / tol, 0.0))))
             stalled = worst >= 0.9 * best
             best = min(best, worst)
             trips += t
         dY, t2 = self._cr_loop(self.nmd, W, inv_diag, resscale, R, tol,
                                st["cr64_maxiter"])
-        return Y + dY, trips + t2
+        return Y + dY, trips + lanes.trips(t2)
 
     # -------------------------------------------------------------------------
     def _starting_point(self):

@@ -1,5 +1,5 @@
-"""Row-blocked and column-blocked KKT solves on one torch device (port of
-ipx_tpu/parallel/sharding.py).
+"""Row-blocked and column-blocked KKT solves on one torch device or over a
+mesh of processes (port of ipx_tpu/parallel/sharding.py).
 
 The reference partitions A's rows into P contiguous blocks over a jax
 device mesh. Each device holds its block's CSR and CSC arrays, and one
@@ -12,13 +12,22 @@ normal-matrix apply is
 with the CR's dots psum-reduced and its residual norm pmax-reduced. Phase 2
 splits N into P column blocks and sums N_p (N_p' w) the same way.
 
-Here the P blocks live on the one device that backend.resolve_sharded picks
-for Parameters.device. The program is single-controller, as the
-reference's is; each psum becomes an ordered sum over the P block results
-and each pmax a max. A solve gives what P ranks would, with every sum taken
-in block order p = 0..P-1. Spreading the blocks over several cards waits for
-a four-chip cell. The reference's second mesh axis ("batch") is the column
-range of the (m, B) arrays here and needs nothing.
+Without a mesh the P blocks live on the one device that
+backend.resolve_sharded picks for Parameters.device. The program is
+single-controller, as the reference's is; each psum becomes an ordered sum
+over the P block results and each pmax a max, so a solve gives what P ranks
+would, with every sum taken in block order p = 0..P-1, and the reference's
+second mesh axis ("batch") is the column range of the (m, B) arrays. With
+`mesh=` (parallel/mesh.py, one process per rank) each rank holds its own
+blocks and runs the loops below on them, the psums gathers combined in
+rank order (the `psum` hook of the plain loops, the `rank` of the card's
+steps), which give the one-process results bit for bit (the card's rows x
+batch CR where each rank keeps the one card's grids, kernels.
+mesh_lane_width): ShardedNormalMatrix, ShardedDiagCR and
+sharded_cr_solve over a ("rows",) mesh, sharded_batched_cr_solve over a
+("rows", "batch") one, ShardedSplittedNNt over the ranks of a ("rows",)
+mesh as column blocks (backend.resolve_mesh picks the mesh for
+Parameters.shards).
 
 Kernels, each wrapper with its plain PyTorch version beside it:
 
@@ -43,9 +52,10 @@ Kernels, each wrapper with its plain PyTorch version beside it:
   writes neither the parts nor W_struct * sum_p A_p' V_p where A's columns
   are short (kernels.BlockNormalBatchedPlan), else the three-stage form.
 
-Not carried over: make_row_mesh and its fallback to the CPU's virtual
-devices (the device rule is backend.resolve_sharded's, and a failure
-raises); the padding of the blocks to m_block rows and to a common nonzero
+Not carried over: make_row_mesh's fallback to the CPU's virtual devices
+(parallel/mesh.py has make_row_mesh; the device rule is
+backend.resolve_sharded's and resolve_mesh's, and a failure raises); the
+padding of the blocks to m_block rows and to a common nonzero
 capacity, LANES and flat_cumsum, which existed for XLA's static shapes
 (blocks here are ragged: the last holds what is left); the static capacity
 of ShardedSplittedNNt, its overflow return and its mode="fill" padding
@@ -98,6 +108,22 @@ def _t(x, device) -> torch.Tensor:
         device)
 
 
+def col_sums(X: torch.Tensor, bounds=None) -> torch.Tensor:
+    """Column sums of X (rows, B), (B,), or with `bounds` over each row
+    range (r0, r1) of it, (len(bounds), B), from one transposed copy of X:
+    each column summed as the column alone would be, the same for any B and
+    any group of columns, which torch.sum over dim 0 is not (its order
+    follows the width)."""
+    T = X.t().contiguous()
+    if bounds is None:
+        return T.sum(dim=1)
+    return torch.stack([T[:, r0:r1].sum(dim=1) for r0, r1 in bounds])
+
+
+def _array(x) -> np.ndarray:
+    return np.ascontiguousarray(x, dtype=np.float64)
+
+
 # -- K14: the ordered sum over the blocks -------------------------------------
 def block_sum_plain(parts: torch.Tensor, scale=None) -> torch.Tensor:
     """Plain version of K14: parts[0] + parts[1] + ... in order, times
@@ -106,6 +132,22 @@ def block_sum_plain(parts: torch.Tensor, scale=None) -> torch.Tensor:
     for p in range(1, parts.shape[0]):
         s = s + parts[p]
     return s * scale if scale is not None else s
+
+
+class BlockSums:
+    """The psum and pmax of the plain row-blocked loops when every block
+    is in this process: `sums` (P, ...) of the blocks summed in block order,
+    `maxes` taken as they are. Over a mesh (parallel/mesh.py) each rank
+    runs the same loops on its own block, with a BlockSums whose call
+    gathers the ranks' values and combines them in rank order. `what`
+    names the reduction for the mesh's timers: "parts" (the partial
+    products A_p' v_p) or "dots"."""
+
+    def __call__(self, sums, maxes=None, what: str = "dots"):
+        return block_sum_plain(sums), maxes
+
+
+LOCAL = BlockSums()
 
 
 def block_sum(parts: torch.Tensor, scale=None) -> torch.Tensor:
@@ -125,17 +167,25 @@ class ShardedNormalMatrix:
     (n rows) for A_p' V_p, on `device`, in the format K1 and K5 take.
     `op_At_split` is the whole A' split at the blocks' row bounds, for the
     vector apply's K14v. `device` None means the card, and raises without
-    one."""
+    one. With `mesh` (parallel/mesh.py, its rows axis num_blocks ranks) the
+    blocks are built on the ranks, each holding its own, and nothing here:
+    the solves of this module take them there, and apply() does not."""
 
     def __init__(self, A: sp.csc_matrix, num_blocks: int,
-                 device: torch.device = None):
+                 device: torch.device = None, mesh=None):
         A = sp.csc_matrix(A)
         m, n = A.shape
         self.m, self.n = m, n
+        self.A = A
         self.num_blocks = num_blocks
-        self.device = device = _where(device)
         self.rows = block_sizes(m, num_blocks)
         self.bounds = _bounds(self.rows)
+        self.mesh, self._keys = mesh, {}
+        if mesh is not None:
+            self.device = mesh.device
+            self.key(mesh)
+            return
+        self.device = device = _where(device)
         A_csr = A.tocsr()
         A_csr.sort_indices()
         A_csc = A_csr.tocsc()
@@ -155,17 +205,28 @@ class ShardedNormalMatrix:
             self.op_At.append(CsrOperand(Abc.indptr, Abc.indices, Abc.data,
                                          r1 - r0, device, F64))
 
+    def key(self, mesh) -> int:
+        """The key of the blocks on `mesh` (a layout of its ranks), put
+        there at the first use."""
+        k = (id(mesh._ranks), mesh.layout)
+        if k not in self._keys:
+            self._keys[k] = mesh.load_rows(self.A, self.num_blocks)
+        return self._keys[k]
+
     def apply(self, W_struct, W_slack, v):
         """C v for v (m,) or (m, B) with W_struct (n,) or (n, B) and W_slack
         of v's shape: the reference's block_normal_apply(_batched) on every
         block with its psum."""
+        if self.mesh is not None:
+            raise ValueError("the blocks are on a mesh; its solves apply "
+                             "them")
         return block_normal_apply(self, W_struct, W_slack, v)
 
 
-def _block_apply_plain(snm, W_struct, W_slack, v, prod):
+def _block_apply_plain(snm, W_struct, W_slack, v, prod, psum=LOCAL):
     parts = torch.stack([prod(op, v[r0:r1])
                          for op, (r0, r1) in zip(snm.op_At, snm.bounds)])
-    u = block_sum_plain(parts, W_struct)
+    u = psum(parts, what="parts")[0] * W_struct
     return torch.cat([prod(op, u) + W_slack[r0:r1] * v[r0:r1]
                       for op, (r0, r1) in zip(snm.op_A, snm.bounds)])
 
@@ -190,27 +251,31 @@ def block_normal_apply(snm: ShardedNormalMatrix, W_struct, W_slack, v):
 
 # -- K15: the row-blocked CR --------------------------------------------------
 def sharded_cr_plain(snm, W_struct, W_slack, invd, resscale, rhs, tol: float,
-                     maxiter: int, ladder: bool = True):
+                     maxiter: int, ladder: bool = True, psum=LOCAL):
     """Plain version of K15: the reference's cr_local loop of ShardedDiagCR
     (`ladder`, with the scaled norm) or of sharded_cr_solve (resscale None),
-    each dot the ordered sum of the block dots, the loop test on the host.
+    each dot the psum of the block dots and the residual norm the pmax of
+    the block maxima, the loop test on the host. `psum` (BlockSums) takes
+    them over the blocks of `snm` by default; a mesh rank runs the loop on
+    its own block and rows with one that gathers (parallel/mesh.py).
     Returns (y, iterations, error code, residual norm at the stop)."""
     bounds = snm.bounds
 
-    def dot(a, b):          # the psum of the block dots
-        total = None
-        for r0, r1 in bounds:
-            d = torch.dot(a[r0:r1], b[r0:r1])
-            total = d if total is None else total + d
-        return total
+    def block_dots(a, b):
+        return torch.stack([torch.dot(a[r0:r1], b[r0:r1])
+                            for r0, r1 in bounds])
 
     def C(v):
-        out = _block_apply_plain(snm, W_struct, W_slack, v, csr_spmv_plain)
-        return out, dot(v, out)
+        out = _block_apply_plain(snm, W_struct, W_slack, v, csr_spmv_plain,
+                                 psum)
+        return out, psum(block_dots(v, out))[0]
 
-    def resnorm_of(r):      # the pmax of the block maxima
-        return torch.max(torch.abs(resscale * r if resscale is not None
+    def head(r, cd):        # a trip's residual norm and pdot, one psum
+        pcd = cd * invd
+        rmax = torch.max(torch.abs(resscale * r if resscale is not None
                                    else r))
+        pdot, rmax = psum(block_dots(cd, pcd), rmax.view(1))
+        return rmax[0], pdot, pcd
 
     zero = torch.zeros((), dtype=F64, device=rhs.device)
     y = torch.zeros_like(rhs)
@@ -219,9 +284,10 @@ def sharded_cr_plain(snm, W_struct, W_slack, invd, resscale, rhs, tol: float,
     cs, cdot = C(s)
     d, cd = s, cs
     it, err = 0, 0
-    while bool(resnorm_of(r) > tol) and it < maxiter and err == 0:
-        pcd = cd * invd
-        pdot = dot(cd, pcd)
+    while True:
+        resnorm, pdot, pcd = head(r, cd)
+        if not (bool(resnorm > tol) and it < maxiter and err == 0):
+            break
         alpha = cdot / pdot
         ok = True
         if ladder:
@@ -245,7 +311,7 @@ def sharded_cr_plain(snm, W_struct, W_slack, invd, resscale, rhs, tol: float,
         cd = cs + beta * cd
         cdot = cdot_new
         it += 1
-    return y, it, err, float(resnorm_of(r))
+    return y, it, err, float(resnorm)
 
 
 def sharded_cr(snm, W_struct, W_slack, invd, resscale, rhs, tol: float,
@@ -273,11 +339,13 @@ class ShardedDiagCR:
     ||resscale . r||_inf <= tol (reference: src/kkt_solver.h:11-27), with
     the error ladder 202 (cdot <= 0), 203 (pdot <= 0), 205 (alpha or the
     next cdot not finite), the iterate frozen after an error. Counters:
-    solves and iterations. `device` as for ShardedNormalMatrix."""
+    solves and iterations. `device` and `mesh` as for ShardedNormalMatrix:
+    over a mesh each rank runs the solve on its own blocks."""
 
     def __init__(self, A: sp.csc_matrix, num_blocks: int,
-                 device: torch.device = None):
-        self.snm = ShardedNormalMatrix(A, num_blocks, device)
+                 device: torch.device = None, mesh=None):
+        self.snm = ShardedNormalMatrix(A, num_blocks, device, mesh)
+        self.mesh = mesh
         self.device = self.snm.device
         self.solves = 0
         self.iterations = 0
@@ -290,24 +358,40 @@ class ShardedDiagCR:
         if maxiter < 0:
             maxiter = snm.m + 100
         dev = self.device
-        y, iters, err, resnorm = sharded_cr(
-            snm, _t(W_struct, dev), _t(W_slack, dev),
-            _t(1.0 / np.asarray(diag, dtype=np.float64), dev),
-            _t(resscale, dev), _t(rhs, dev), tol, maxiter, ladder=True)
+        if self.mesh is not None:
+            y, iters, err, resnorm, _ = self.mesh.cr_solve(
+                snm.key(self.mesh), _array(W_struct), _array(W_slack),
+                1.0 / _array(diag), _array(resscale), _array(rhs), tol,
+                maxiter, ladder=True)
+        else:
+            y, iters, err, resnorm = sharded_cr(
+                snm, _t(W_struct, dev), _t(W_slack, dev),
+                _t(1.0 / np.asarray(diag, dtype=np.float64), dev),
+                _t(resscale, dev), _t(rhs, dev), tol, maxiter, ladder=True)
+            y = y.cpu().numpy()
         # success only on a finite residual within tolerance; a NaN residual
         # must never read as converged (errflag policy per ADVICE r3)
         if err == 0 and not (np.isfinite(resnorm) and resnorm <= tol):
             err = 205 if not np.isfinite(resnorm) else 201
         self.solves += 1
         self.iterations += iters
-        return y.cpu().numpy(), iters, err
+        return y, iters, err
 
 
 def sharded_cr_solve(snm: ShardedNormalMatrix, W_struct, W_slack, diag, rhs,
-                     tol: float, maxiter: int):
+                     tol: float, maxiter: int, mesh=None):
     """Diagonal-preconditioned CR on the normal equations over the row
     blocks, stopping on the unscaled ||r||_inf, with no error ladder.
-    Returns (y, iters) with y on the host."""
+    `mesh` (or the one snm was built on), a mesh whose rows axis has
+    snm.num_blocks ranks: each rank solves on its own blocks. Returns (y,
+    iters) with y on the host."""
+    mesh = snm.mesh if mesh is None else mesh
+    if mesh is not None:
+        y, iters, _, _, _ = mesh.cr_solve(
+            snm.key(mesh), _array(W_struct), _array(W_slack),
+            1.0 / _array(diag), None, _array(rhs), tol, maxiter,
+            ladder=False)
+        return y, iters
     dev = snm.device
     y, iters, _, _ = sharded_cr(
         snm, _t(W_struct, dev), _t(W_slack, dev),
@@ -318,22 +402,18 @@ def sharded_cr_solve(snm: ShardedNormalMatrix, W_struct, W_slack, diag, rhs,
 
 # -- K16: the row-blocked batched CR ------------------------------------------
 def sharded_batched_cr_plain(snm, W_struct, W_slack, invd, RHS, tol: float,
-                             maxiter: int):
+                             maxiter: int, psum=LOCAL):
     """Plain version of K16: the reference's lane-masked cr_local of
-    sharded_batched_cr_solve, each column dot the ordered sum of the block
-    column sums, the loop test on the host. Returns (Y, trips)."""
+    sharded_batched_cr_solve, each column dot the psum of the block column
+    sums and each lane's residual norm the pmax of the block maxima, the
+    loop test on the host; `psum` as for sharded_cr_plain (a mesh rank runs
+    the loop on its own block and lanes). Returns (Y, trips)."""
     bounds = snm.bounds
 
-    def dots(X, Z):         # the psum of the block column dots
-        total = None
-        for r0, r1 in bounds:
-            d = torch.sum(X[r0:r1] * Z[r0:r1], dim=0)
-            total = d if total is None else total + d
-        return total
-
     def C(V):
-        out = _block_apply_plain(snm, W_struct, W_slack, V, csr_spmm_plain)
-        return out, dots(V, out)
+        out = _block_apply_plain(snm, W_struct, W_slack, V, csr_spmm_plain,
+                                 psum)
+        return out, psum(col_sums(V * out, bounds))[0]
 
     Y = torch.zeros_like(RHS)
     R = RHS.clone()
@@ -343,9 +423,10 @@ def sharded_batched_cr_plain(snm, W_struct, W_slack, invd, RHS, tol: float,
     done = torch.zeros(RHS.shape[1], dtype=torch.bool, device=RHS.device)
     it = 0
     while not bool(done.all()) and it < maxiter:
-        done = done | (torch.amax(torch.abs(R), dim=0) <= tol)
         PCD = CD * invd
-        pdot = dots(CD, PCD)
+        pdot, rmax = psum(col_sums(CD * PCD, bounds),
+                          torch.amax(torch.abs(R), dim=0))
+        done = done | (rmax <= tol)
         alpha = torch.where(done, 0.0,
                             cdot / torch.where(pdot == 0.0, 1.0, pdot))
         Y = Y + alpha * D
@@ -377,13 +458,21 @@ def sharded_batched_cr(snm, W_struct, W_slack, invd, RHS, tol: float,
 
 
 def sharded_batched_cr_solve(snm: ShardedNormalMatrix, W_struct, W_slack,
-                             diag, RHS, tol: float, maxiter: int):
+                             diag, RHS, tol: float, maxiter: int, mesh=None):
     """Scenario-batched, row-blocked CR (the composition of the
     data-parallel and model-parallel axes, SURVEY §2.3) with per-scenario
     weights W_struct (n, B), W_slack, diag and RHS (m, B). Converged
     scenarios freeze while the rest keep iterating. On one device the
-    reference's batch axis is the column range of the (m, B) arrays, so it
-    takes no mesh. Returns (Y (m, B) on the host, iters)."""
+    reference's batch axis is the column range of the (m, B) arrays. Over a
+    ("rows", "batch") `mesh` of snm.num_blocks x nb ranks, rank (i, j)
+    holds row block i and the j-th of nb lane groups, each lane group
+    running its own loop; iters is then the most of any group's, which is
+    the one-device loop's. Returns (Y (m, B) on the host, iters)."""
+    if mesh is not None:
+        Y, iters, _ = mesh.batched_cr_solve(
+            snm.key(mesh), _array(W_struct), _array(W_slack),
+            1.0 / _array(diag), _array(RHS), tol, maxiter)
+        return Y, iters
     dev = snm.device
     Y, iters = sharded_batched_cr(
         snm, _t(W_struct, dev), _t(W_slack, dev),
@@ -419,15 +508,19 @@ class ShardedSplittedNNt:
     first apply, or a comparison with the plain version. The B / B'
     triangular solves stay on the host (sequential by nature), so the
     phase-2 CR is host solve -> device N N' -> host solve per iteration.
-    `applies` counts the applies. `device` as for ShardedNormalMatrix.
+    `applies` counts the applies. `device` as for ShardedNormalMatrix. With
+    `mesh`, a ("rows",) mesh of num_blocks ranks, rank p holds column block
+    p, and an apply broadcasts w, runs K4 on every block and sums the
+    gathered results in order on rank 0 (parallel/mesh.py).
     """
 
     def __init__(self, m: int, n: int, num_blocks: int,
-                 device: torch.device = None):
+                 device: torch.device = None, mesh=None):
         self.m = m
         self.n = n
         self.num_blocks = num_blocks
-        self.device = _where(device)
+        self.mesh, self._key = mesh, None
+        self.device = mesh.device if mesh is not None else _where(device)
         self._N = None
         self._blocks = None
         self.plan = None
@@ -436,6 +529,9 @@ class ShardedSplittedNNt:
     def set_operand(self, N) -> None:
         """Packs a fresh epoch's N (m x n) split at its column blocks'
         bounds, as it is: there is no static capacity to overflow."""
+        if self.mesh is not None:
+            self._key = self.mesh.set_nnt(N, self.num_blocks, self._key)
+            return
         N = sp.csc_matrix(N, copy=True)
         N.sort_indices()
         self._N, self._blocks = N, None
@@ -450,7 +546,10 @@ class ShardedSplittedNNt:
     @property
     def blocks(self) -> list:
         """(N_p', N_p) as CSR operands on `device` per column block, packed
-        from the epoch's N at the first use."""
+        from the epoch's N at the first use; not on a mesh, whose ranks
+        hold them."""
+        if self.mesh is not None:
+            raise ValueError("the column blocks are on a mesh")
         if self._blocks is None:
             N = self._N
             self._blocks = []
@@ -467,6 +566,8 @@ class ShardedSplittedNNt:
 
     def apply(self, w: np.ndarray) -> np.ndarray:
         self.applies += 1
+        if self.mesh is not None:
+            return self.mesh.nnt_apply(self._key, w)
         return self.plan.apply(w)
 
 

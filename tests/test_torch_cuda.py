@@ -1739,3 +1739,95 @@ def test_dryrun_multichip_on_the_card(dev):
     entry.dryrun_multichip(4)
     for name in ("block_sum", "sharded_cr_step", "sharded_batched_cr_step"):
         assert kernels.LAUNCHES[name] > 0, name
+
+
+# -- the mesh (parallel/mesh.py): 4 ranks sharing the card ----------------------
+@pytest.fixture(scope="module")
+def card_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from ipx_tpu_torch import backend
+    from ipx_tpu_torch.parallel import mesh as pm
+    m = pm.Mesh((4,), ("rows",), [str(backend.cuda_device())] * 4,
+                timeout=120.0)
+    yield m
+    m.close()
+
+
+def _mesh_system(m, n, B=None, seed=15):
+    """A with rows and columns longer than a warp (so the ranks' split sums
+    start at lanes the whole rows set), W, diag and rhs."""
+    A, rng = _matrix(m, n, 0.05, seed)
+    A = sp.csc_matrix(A + sp.eye(m, n))
+    shape = (n + m,) if B is None else (n + m, B)
+    W = 10.0 ** rng.uniform(-1, 1, shape)
+    A2 = A.copy()
+    A2.data = A2.data ** 2
+    diag = np.asarray(A2 @ W[:n]) + W[n:]
+    rhs = rng.standard_normal((m,) if B is None else (m, B))
+    return A, W, diag, rhs
+
+
+def test_mesh_cr_is_k15_bit_for_bit(dev, card_mesh):
+    """ShardedDiagCR and sharded_cr_solve over 4 ranks sharing the card
+    against the one-card K15 (its cooperative launch) at P = 4, on an A
+    whose rows of A' are long: y, trips and error code bit for bit."""
+    from ipx_tpu_torch.parallel import sharding
+    A, W, diag, rhs = _mesh_system(403, 700)
+    n = 700
+    rs = 1.0 / np.sqrt(W[n:])
+    want = sharding.ShardedDiagCR(A, 4, dev).solve(W[:n], W[n:], diag, rs,
+                                                   rhs, 1e-10, 500)
+    got = sharding.ShardedDiagCR(A, 4, mesh=card_mesh).solve(
+        W[:n], W[n:], diag, rs, rhs, 1e-10, 500)
+    assert got[1:] == want[1:] and want[1] > 0
+    np.testing.assert_array_equal(got[0], want[0])
+    want = sharding.sharded_cr_solve(sharding.ShardedNormalMatrix(A, 4, dev),
+                                     W[:n], W[n:], diag, rhs, 1e-10, 500)
+    got = sharding.sharded_cr_solve(
+        sharding.ShardedNormalMatrix(A, 4, mesh=card_mesh), W[:n], W[n:],
+        diag, rhs, 1e-10, 500)
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[0], want[0])
+    assert all(s["k15_launches"] > 0 for s in card_mesh.last[-1])
+
+
+def test_mesh_nnt_is_k4_bit_for_bit(dev, card_mesh):
+    """N N' over 4 ranks' column blocks against one K4 launch at P = 4, on
+    an N whose rows are longer than a warp: bit for bit."""
+    from ipx_tpu_torch.parallel import sharding
+    N, rng = _matrix(300, 1001, 0.05, seed=16)
+    w = rng.standard_normal(300)
+    one = sharding.ShardedSplittedNNt(300, 1001, 4, dev)
+    one.set_operand(N)
+    over = sharding.ShardedSplittedNNt(300, 1001, 4, mesh=card_mesh)
+    over.set_operand(N)
+    np.testing.assert_array_equal(over.apply(w), one.apply(w))
+
+
+@pytest.mark.parametrize("B", [64, 8])
+def test_mesh_batched_cr_is_k16_bit_for_bit(dev, card_mesh, B):
+    """sharded_batched_cr_solve on 2 x 2 ranks against K16 at P = 2 over all
+    B lanes: bit for bit at B = 64 (each rank's K5 partials at the whole
+    batch's lane chunks, its grids the one card's: every rank `exact`),
+    converged to 1e-10; at B = 8 the lane groups' reducing grids group rows
+    otherwise than the whole batch's (no rank `exact`), so 20 trips of
+    both, Y within 1e-12."""
+    from ipx_tpu_torch.parallel import sharding
+    A, W, diag, RHS = _mesh_system(403, 700, B=B)
+    n = 700
+    tol, maxiter = (1e-10, 300) if B == 64 else (1e-14, 20)
+    snm = sharding.ShardedNormalMatrix(A, 2, dev)
+    want = sharding.sharded_batched_cr_solve(snm, W[:n], W[n:], diag, RHS,
+                                             tol, maxiter)
+    m2 = card_mesh.reshape((2, 2), ("rows", "batch"))
+    got = sharding.sharded_batched_cr_solve(snm, W[:n], W[n:], diag, RHS, tol,
+                                            maxiter, mesh=m2)
+    assert got[1] == want[1] > 0
+    exact = [st["exact"] for st in m2.last[-1]]
+    assert exact == [B == 64] * 4
+    if B == 64:
+        np.testing.assert_array_equal(got[0], want[0])
+    else:
+        assert _rel(torch.from_numpy(got[0]),
+                    torch.from_numpy(want[0])) <= 1e-12

@@ -8,7 +8,8 @@ torch_results_table and torch_lu_update_compare), and no example of the
 port (examples/torch_*.py) imports ipx_tpu, jax, jaxlib or the reference's
 bench.py, and a whole run of the port's paths on the CPU loads none of them
 and uses the native library built from ipx_tpu_torch/native/ipxlu.cc into
-ipx_tpu_torch/_build/."""
+ipx_tpu_torch/_build/. The workers of a mesh (parallel/mesh.py) load none
+of them either."""
 import ast
 import glob
 import os
@@ -155,3 +156,47 @@ def test_both_native_libraries_in_one_process():
     assert os.path.dirname(ref_path) == os.path.join(REPO, "ipx_tpu",
                                                      "native")
     assert objvals[1] == pytest.approx(objvals[0], rel=1e-12)
+
+
+MESH_RUN = r'''
+import os, sys
+import numpy as np
+import scipy.sparse as sp
+from ipx_tpu_torch.parallel import mesh as pm
+from ipx_tpu_torch.parallel import sharding
+from ipx_tpu_torch import entry
+
+m = pm.make_row_mesh(2, "torch_cpu", timeout=60)
+A = (sp.random(20, 30, density=0.3, format="csc", random_state=1)
+     + sp.eye(20, 30)).tocsc()
+y, it = sharding.sharded_cr_solve(
+    sharding.ShardedNormalMatrix(A, 2, mesh=m), np.ones(30), np.ones(20),
+    np.asarray((A.multiply(A)).sum(axis=1)).ravel() + 1.0, np.ones(20),
+    1e-8, 200)
+assert it > 0
+s = entry._make_batched_solver(batch=8, device="torch_cpu")
+out = m.reshape((2,), ("batch",)).step(s.lp, s._starting_point(), 50)
+assert out["X"].shape[1] == 8
+maps = [open(f"/proc/{p.pid}/maps").read() for p in m._ranks.procs]
+print("WORKER", [sorted({line.split()[-1] for line in t.splitlines()
+                         if "jaxlib" in line or "/ipx_tpu/" in line})
+                 for t in maps])
+m.close()
+print("LOADED", sorted(k for k in sys.modules
+                       if k.split(".")[0] in ("ipx_tpu", "jax", "jaxlib")))
+'''
+
+
+def test_mesh_workers_load_no_reference_module():
+    """In a fresh process: a 2-rank mesh on the CPU runs a row-blocked CR
+    solve and a batched step. Neither the process, which imported the
+    workers' entry module (ipx_tpu_torch.parallel.mesh), nor a worker has
+    loaded jax, jaxlib or ipx_tpu: no module of theirs in the process, no
+    file of jaxlib or of ipx_tpu mapped into a worker."""
+    out = subprocess.run([sys.executable, "-c", MESH_RUN], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
+                 if line.startswith(("LOADED", "WORKER")))
+    assert lines["LOADED"] == "[]"
+    assert lines["WORKER"] == "[[]]"
