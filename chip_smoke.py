@@ -30,13 +30,17 @@ only: no jax, and no module of ipx_tpu.
      launches none of the kernels, and compares; K3's launches there must
      equal the inner CR solves, and K2's applies, which run inside them,
      1 + trips + rechecks of each, with no K2 launch of its own; then an
-     f64-precision "cuda" solve, and "cuda", "cpu", "cuda" in each of three
-     fresh processes under the caller's thread setting and under
-     OMP_NUM_THREADS=4, the processes in turns (default, 4, 4, default,
-     default, 4), each wall beside the OpenMP team and the OpenBLAS pools'
-     size in a solve (native/threads.py); it fails if the best "cuda" wall
-     of the default setting is above 1.15x its best under
-     OMP_NUM_THREADS=4 or above 1.5x the best "cpu" wall;
+     f64-precision "cuda" solve, and the walls of six fresh processes,
+     three under the caller's thread setting and three under
+     OMP_NUM_THREADS=4, in turns (default, 4, 4, default, default, 4) and
+     two at a time: each pair is started together and runs a first "cuda"
+     solve each, left out of the guard, then "cuda" solves interleaved
+     a b b a a b b a and one "cpu" solve each, every wall beside the
+     OpenMP team and the OpenBLAS pools' size in a solve
+     (native/threads.py); it fails (thread_guard) if the median of the
+     default setting's twelve "cuda" walls is above 1.15x their median
+     under OMP_NUM_THREADS=4 or above 1.5x the median "cpu" wall, and
+     prints the best walls' ratios beside the medians';
   5. holds the batched kernels K5-K9 against their plain versions at the
      shapes of that LP as a batch of B = 256 scenarios (m = 20 000,
      n + m = 116 002), in float64 and float32, and K10-K13, the rest of the
@@ -98,9 +102,14 @@ only: no jax, and no module of ipx_tpu.
      launch a sweep, each sweep against its plain version and scipy's
      spsolve_triangular and bit for bit against K17's per-level form, the
      two forms timed in turns beside torch.triangular_solve on the same
-     factors; the CUDA kernels of one sweep and of one stand-alone K2
-     apply with its dot (one each), from torch.profiler in a fresh
-     process; one step of
+     factors; the CUDA kernels of one sweep, of one stand-alone K2 apply
+     with its dot (one each), of K2's three launches (three) and of one
+     per-level sweep (its levels), from CAPTURES torch.profiler captures a
+     case, each open MARGIN s on either side of the call, in a fresh
+     process (count_failures: every capture that recorded
+     the call's kernels must count them exactly, and one at least must
+     have recorded them); the host cost of a K5 call at phase 2, here and
+     in that fresh process (k5_host_cost); one step of
      ipx_tpu_torch.entry.entry() on the card; afiro through the port's C
      API (capi.py) with its default device, the card, and in a subprocess
      with the card hidden (CUDA_VISIBLE_DEVICES=""), where ipx_solve
@@ -160,6 +169,7 @@ the same function where there is one (`library_ms`). The last line is
 """
 import json
 import os
+import select
 import statistics
 import subprocess
 import sys
@@ -417,7 +427,8 @@ def main():
     md = host.basis.model
     m, n = md.num_rows, md.num_cols
     print(f"phase 2: presolved model m={m} n={n} nnz(A)={md.A.nnz}; "
-          f"{card}", flush=True)
+          f"{card}\n  K5 host probe, before any kernel of phase 2 (phase 10 "
+          f"reads it again): {k5_host_cost(dev)} | {card}", flush=True)
     rng = np.random.default_rng(0)
     rows = {}
 
@@ -860,44 +871,228 @@ class counted_inner_solves:
             c.inner_solve = saved
 
 
-# phase 4's solves, "cuda", "cpu", "cuda", in a fresh process whose OpenMP
-# setting is its environment's
+# phase 4's walls come from a worker in a fresh process whose OpenMP
+# setting is its environment's: it makes the LP, prints "ready", then
+# solves on the device named by each line of its input and prints the
+# solve as one JSON line (status, wall, objval, the host's steal ticks
+# over the solve from /proc/stat, the iteration counts); at the end of its
+# input it prints its OpenMP team, the OpenBLAS pools' size in a solve and
+# the CPUs its main thread may run on
 WALLS = r"""
-import json, os, time
+import json, os, sys, time
 import torch
 from ipx_tpu_torch import LpSolver, Parameters, testgen as tg
 from ipx_tpu_torch.native import threads
 data = tg.transportation(8000, 12000, 0.001, seed=1)
-out = {"cuda": [], "cpu": []}
-for device in ("cuda", "cpu", "cuda"):
-    s = LpSolver(Parameters(display=0, device=device))
+def steal():
+    try:
+        with open("/proc/stat") as f:
+            v = f.readline().split()
+        return int(v[8])
+    except (OSError, IndexError, ValueError):
+        return 0
+print(json.dumps({"ready": True}), flush=True)
+for line in sys.stdin:
+    s = LpSolver(Parameters(display=0, device=line.strip()))
     assert tg.load_into_solver(data, s) == 0
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    k0, t0 = steal(), time.perf_counter()
     st = s.solve()
     torch.cuda.synchronize()
-    out[device].append((st, time.perf_counter() - t0, s.get_info().objval))
-out["team"] = torch.get_num_threads()
-# the pools' size in a solve: 1 unless the environment sets it
-out["blas"] = (threads.blas_threads(os.environ)
-               or [get() for get, _ in threads.blas_pools()])
-print(json.dumps(out))
+    wall = time.perf_counter() - t0
+    i = s.get_info()
+    print(json.dumps({"st": st, "wall": wall, "objval": i.objval,
+                      "steal": steal() - k0,
+                      "iters": [i.iter, i.kktiter1, i.kktiter2]}), flush=True)
+print(json.dumps({"team": torch.get_num_threads(),
+                  "blas": (threads.blas_threads(os.environ)
+                           or [get() for get, _ in threads.blas_pools()]),
+                  "cpus": len(os.sched_getaffinity(0))}), flush=True)
 """
 
 # the thread settings phase 4 compares: the caller's, and OMP_NUM_THREADS=4
 SETTINGS = {"default": {}, "omp4": {"OMP_NUM_THREADS": "4"}}
+SHORT = {"default": "default", "omp4": "4"}   # as the turns are printed
+# phase 4's six fresh processes, in turns and two at a time: each pair is
+# started together and its solves are interleaved, so that a host whose
+# load changes over the call weighs on both settings alike
+PAIRS = (("default", "omp4"), ("omp4", "default"), ("default", "omp4"))
+# the solves of a pair (a, b), 0 for a and 1 for b: a first "cuda" solve
+# each, which pays the process's first-use costs (12% of a wall, the median
+# of 30 processes; PERF.md §6) and is left out of the guard, then "cuda"
+# solves a b b a a b b a, then one "cpu" solve each
+SOLVES = ((("first", 0), ("first", 1))
+          + tuple(("cuda", k) for k in (0, 1, 1, 0, 0, 1, 1, 0))
+          + (("cpu", 0), ("cpu", 1)))
+# seconds between two solves, in which the other worker's threads stop
+# spinning
+PAUSE = 0.25
+WORKER_TIMEOUT = 300.0  # seconds a worker may take to start or to solve
+# phase 4's thread guard: the default setting's "cuda" wall at most this
+# many times its wall under OMP_NUM_THREADS=4, and at most this many times
+# the "cpu" wall, each setting's walls taken by their median
+OVER_OMP4 = 1.15
+OVER_CPU = 1.5
+
+
+def guard_ratios(runs):
+    """The walls and ratios of phase 4's thread guard under each statistic:
+    "median", the one the guard decides by, and "best" (the least wall),
+    printed beside it. `runs` maps each setting of SETTINGS to its "cuda"
+    and "cpu" walls in seconds; returns {statistic: {"walls": {setting:
+    {device: s}}, "omp4": ratio, "cpu": ratio}}."""
+    out = {}
+    for name, stat in (("median", statistics.median), ("best", min)):
+        w = {k: {d: stat(runs[k][d]) for d in ("cuda", "cpu")} for k in runs}
+        out[name] = dict(walls=w,
+                         omp4=w["default"]["cuda"] / w["omp4"]["cuda"],
+                         cpu=w["default"]["cuda"] / w["default"]["cpu"])
+    return out
+
+
+def thread_guard(runs):
+    """The failures of phase 4's thread guard on `runs` (as guard_ratios
+    takes them), each a message; empty when it passes. The fault it guards
+    against: the native regions waiting on the BLAS pools' spinning workers
+    made the card path 1.8x the host path and about 5x its own time under
+    OMP_NUM_THREADS=4 (PERF.md §5). It decides on each setting's median
+    wall, which no single wall sets: the shared LU refactorizes on measured
+    time, so one solve's path, and its wall, can stray from the rest. With
+    the pools quiet the host path, whose whole phase-2 CR is native, is
+    faster than the card path on this LP, so no bound asks the card to
+    win."""
+    w = guard_ratios(runs)["median"]["walls"]
+    card, omp4, cpu = (w["default"]["cuda"], w["omp4"]["cuda"],
+                       w["default"]["cpu"])
+    failures = []
+    if card > OVER_OMP4 * omp4:
+        failures.append(f"phase 4: the card path's median wall ({card:.3f} "
+                        f"s) is above {OVER_OMP4}x its median under "
+                        f"OMP_NUM_THREADS=4 ({omp4:.3f} s)")
+    if card > OVER_CPU * cpu:
+        failures.append(f"phase 4: the card path's median wall ({card:.3f} "
+                        f"s) is above {OVER_CPU}x the host path's median "
+                        f"({cpu:.3f} s)")
+    return failures
+
+
+def guard_line(runs):
+    """Phase 4's walls with the OpenMP team, the OpenBLAS pools, the main
+    thread's CPUs, the host's steal time over the "cuda" solves and their
+    iteration counts of each setting, then the guard's ratios under both
+    statistics."""
+    fmt = lambda v: "/".join(f"{x:.3f}" for x in v)  # noqa: E731
+    said = "; ".join(
+        f"{k} (OpenMP team {r['team']} of {len(os.sched_getaffinity(0))} "
+        f"CPUs, main thread on {r['cpus']}, OpenBLAS pools {r['blas']} in a "
+        f"solve): cuda {fmt(r['cuda'])} s, cpu {fmt(r['cpu'])} s, steal "
+        f"over the cuda solves {r['steal']:.2f} CPU s, IPM/CR iterations "
+        f"{sorted(r['iters'])}" for k, r in runs.items())
+    ratios = "; ".join(
+        f"{name} cuda / {name} cpu {r['cpu']:.3f}, {name} cuda / {name} cuda "
+        f"at OMP_NUM_THREADS=4 {r['omp4']:.3f}"
+        for name, r in guard_ratios(runs).items())
+    first = "; ".join(f"{k} {fmt(r['first'])} s" for k, r in runs.items())
+    pairs = ", ".join("(" + ", ".join(SHORT[k] for k in p) + ")"
+                      for p in PAIRS)
+    return (f"walls, six fresh processes in pairs {pairs}, each pair's "
+            f"cuda solves a b b a a b b a: {said}; {ratios} (the guard: "
+            f"median, at most {OVER_CPU} and {OVER_OMP4}); each process's "
+            f"first cuda solve, left out: {first}")
+
+
+class Phase4Worker:
+    """A WALLS worker in a fresh process under the environment `env`, asked
+    for one solve at a time; `what` names it in a failure."""
+
+    def __init__(self, env, what):
+        self.what = what
+        self.err = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", WALLS], cwd=REPO, env=env, text=True,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.err)
+
+    def read(self):
+        """The worker's next JSON line, parsed (other lines skipped); fails
+        if none comes within WORKER_TIMEOUT seconds of the last."""
+        while True:
+            ready, _, _ = select.select([self.proc.stdout], [], [],
+                                        WORKER_TIMEOUT)
+            line = self.proc.stdout.readline() if ready else ""
+            if not line:
+                self.stop()
+                self.err.seek(0)
+                fail(f"phase 4: the {self.what} worker failed: "
+                     + self.err.read()[-2000:])
+            if line.startswith("{"):
+                return json.loads(line)
+
+    def solve(self, device):
+        try:
+            self.proc.stdin.write(device + "\n")
+            self.proc.stdin.flush()
+        except BrokenPipeError:
+            pass
+        return self.read()
+
+    def finish(self):
+        """Ends the worker's input; its team, pools and CPUs."""
+        self.proc.stdin.close()
+        out = self.read()
+        self.proc.wait(timeout=WORKER_TIMEOUT)
+        return out
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def phase4_runs(host_objval):
+    """The walls of WALLS workers under each thread setting of SETTINGS on
+    top of this process's environment: the six processes of PAIRS, two at a
+    time, each pair's solves in the order of SOLVES with PAUSE between two.
+    Fails unless every solve is at status 1000 with `host_objval` to 1e-8.
+    Returns {setting: {"cuda": walls, "cpu": walls, "first": the first
+    "cuda" walls, "steal": the host's steal CPU seconds over the "cuda"
+    solves, "iters": the (IPM, CR phase 1, CR phase 2) iterations of the
+    "cuda" solves, "team": the OpenMP team, "blas": the OpenBLAS pools' size
+    in a solve, "cpus": the CPUs of a worker's main thread}}."""
+    tick = os.sysconf("SC_CLK_TCK")
+    runs = {k: {"first": [], "cuda": [], "cpu": [], "steal": 0.0,
+                "iters": set()} for k in SETTINGS}
+    for pair in PAIRS:
+        workers = [Phase4Worker(dict(os.environ, **SETTINGS[k]), k)
+                   for k in pair]
+        try:
+            for w in workers:
+                check(w.read() == {"ready": True}, f"phase 4: the {w.what} "
+                      "worker did not start")
+            for key, i in SOLVES:
+                time.sleep(PAUSE)
+                got = workers[i].solve("cpu" if key == "cpu" else "cuda")
+                rel = abs(got["objval"] - host_objval) / abs(host_objval)
+                check(got["st"] == 1000 and rel <= 1e-8, f"phase 4 "
+                      f"{pair[i]} {key}: status {got['st']}, objval rel "
+                      f"diff {rel:.1e}")
+                r = runs[pair[i]]
+                r[key].append(got["wall"])
+                if key == "cuda":
+                    r["steal"] += got["steal"] / tick
+                    r["iters"].add(tuple(got["iters"]))
+            for k, w in zip(pair, workers):
+                runs[k].update(w.finish())
+        finally:
+            for w in workers:
+                w.stop()
+    return runs
 
 
 def walls_phase4(card, data, host_objval):
     """The rest of phase 4: an f64-precision "cuda" solve (the f64 device
-    CR), then "cuda", "cpu", "cuda" in each of three fresh processes under
-    each thread setting (the caller's, and OMP_NUM_THREADS=4), the
-    processes in turns (default, 4, 4, default, default, 4) so that a host
-    whose load changes over the call weighs on both settings alike, each
-    wall beside the OpenMP team and the OpenBLAS pools' size in a solve. Fails if a solve is not at status 1000
-    with the host objval to 1e-8, or if the best "cuda" wall of the default
-    setting is above 1.15x its best under OMP_NUM_THREADS=4 or above 1.5x
-    the best "cpu" wall."""
+    CR), then the walls of phase4_runs, each beside the OpenMP team and the
+    OpenBLAS pools' size in a solve. Fails if a solve is not at status 1000
+    with the host objval to 1e-8, or on thread_guard's failures."""
     import torch
     from ipx_tpu_torch import LpSolver, Parameters
     from ipx_tpu_torch import testgen as tg
@@ -916,47 +1111,13 @@ def walls_phase4(card, data, host_objval):
     check(st == 1000 and rel(f64.objval) <= 1e-8, f"phase 4 f64 precision: "
           f"status {st}, objval rel diff {rel(f64.objval):.1e}")
 
-    runs = {k: {"cuda": [], "cpu": []} for k in SETTINGS}
-    for setting in ("default", "omp4", "omp4", "default", "default", "omp4"):
-        out = subprocess.run([sys.executable, "-c", WALLS], cwd=REPO,
-                             capture_output=True, text=True, timeout=300,
-                             env=dict(os.environ, **SETTINGS[setting]))
-        check(out.returncode == 0, f"phase 4: the {setting} walls run "
-              "failed: " + out.stderr[-2000:])
-        got = json.loads(out.stdout.strip().splitlines()[-1])
-        for device in ("cuda", "cpu"):
-            for st, wall, objval in got[device]:
-                check(st == 1000 and rel(objval) <= 1e-8, f"phase 4 "
-                      f"{setting} {device}: status {st}, objval rel diff "
-                      f"{rel(objval):.1e}")
-                runs[setting][device].append(wall)
-        runs[setting]["team"], runs[setting]["blas"] = got["team"], got["blas"]
-    best = {k: {d: min(runs[k][d]) for d in ("cuda", "cpu")} for k in runs}
-    fmt = lambda v: "/".join(f"{x:.3f}" for x in v)  # noqa: E731
-    said = "; ".join(
-        f"{k} (OpenMP team {r['team']} of {len(os.sched_getaffinity(0))} "
-        f"CPUs, OpenBLAS pools {r['blas']} in a solve): cuda "
-        f"{fmt(r['cuda'])} s, cpu {fmt(r['cpu'])} s" for k, r in runs.items())
+    runs = phase4_runs(host_objval)
     print(f"  f64-precision cuda {f64_wall:.3f} s (cr1 {f64.time_cr1:.3f} s, "
           f"CR iters {f64.kktiter1}+{f64.kktiter2}, objval rel diff "
-          f"{rel(f64.objval):.1e})\n  walls, fresh processes in turns "
-          f"(default, 4, 4, default, default, 4): {said}; best cuda / best "
-          f"cpu {best['default']['cuda'] / best['default']['cpu']:.3f}, best "
-          f"cuda / best cuda at OMP_NUM_THREADS=4 "
-          f"{best['default']['cuda'] / best['omp4']['cuda']:.3f} | {card}",
+          f"{rel(f64.objval):.1e})\n  {guard_line(runs)} | {card}",
           flush=True)
-    # the fault this guards against: the native regions waiting on the
-    # BLAS pools' spinning workers made the card path 1.8x the host path
-    # and about 5x its own time under OMP_NUM_THREADS=4 (PERF.md §5). With
-    # the pools quiet the host path, whose whole phase-2 CR is native, is
-    # faster than the card path on this LP, so no gate asks the card to win
-    check(best["default"]["cuda"] <= 1.15 * best["omp4"]["cuda"],
-          f"phase 4: the card path ({best['default']['cuda']:.3f} s) is "
-          f"above 1.15x its time under OMP_NUM_THREADS=4 "
-          f"({best['omp4']['cuda']:.3f} s)")
-    check(best["default"]["cuda"] <= 1.5 * best["default"]["cpu"],
-          f"phase 4: the card path ({best['default']['cuda']:.3f} s) is "
-          f"above 1.5x the host path ({best['default']['cpu']:.3f} s)")
+    failures = thread_guard(runs)
+    check(not failures, "; ".join(failures))
 
 
 def k6_forms(card, nmd, W, V, b):
@@ -2404,15 +2565,29 @@ TRI_B = (1, 256, 1024)
 TRI_ROW_B = 256       # the case of K17's row in the kernels line
 
 
-# the CUDA kernels one K17 sweep (at each B of TRI_B, on a lower factor of
-# 3000 rows) and one stand-alone K2 apply with its dot (both forms) start,
-# counted by torch.profiler in a fresh process
+# torch.profiler captures of each case of ONE_LAUNCH: a capture can miss a
+# call's kernel (ROADMAP Queue 3 item 8), so no one capture decides
+CAPTURES = 5
+# seconds each capture stays open before the call and after its
+# synchronize: the profiler drops a kernel whose device timestamps fall
+# outside its window, and a kernel that ends just before the window closes
+# can, by the skew between the device's clock and the host's
+MARGIN = 0.005
+
+# the CUDA kernels one K17 sweep (at each B of argv[2:], on a lower factor
+# of 3000 rows), one stand-alone K2 apply with its dot (both forms) and, as
+# the negative control, one K17 sweep in its per-level form (nlev launches)
+# start, counted by torch.profiler in argv[1] captures a case, each open
+# argv[2] seconds before the call and after it, in a fresh process; with
+# the K5 host probe (k5_host_cost) before the first capture and after the
+# last
 ONE_LAUNCH = r"""
-import json, sys
+import json, sys, time
 import numpy as np
 import scipy.sparse as sp
 import torch
 from torch.profiler import ProfilerActivity, profile
+from chip_smoke import k5_host_cost
 from ipx_tpu_torch import backend, kernels
 from ipx_tpu_torch.ops import spmv, trisolve
 dev = backend.cuda_device()
@@ -2428,40 +2603,131 @@ nmd = spmv.NormalMatrixDevice(A, dev)
 W = torch.ones(2200, dtype=torch.float64, device=dev)
 v = torch.ones(700, dtype=torch.float64, device=dev)
 dot = torch.empty(1, dtype=torch.float64, device=dev)
+captures, margin = int(sys.argv[1]), float(sys.argv[2])
+Bs = [int(b) for b in sys.argv[3:]]
 
 
 def kernels_of(fn):
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and "Memcpy" not in e.key
-               and "Memset" not in e.key)
+    counts = []
+    for _ in range(captures):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(margin)
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type.name == "CUDA"
+                          and "Memcpy" not in e.key
+                          and "Memset" not in e.key))
+    return counts
 
 
+host = {"before": k5_host_cost(dev)}
 out = {}
-for B in map(int, sys.argv[1:]):
+for B in Bs:
     V = torch.ones((m, B), dtype=torch.float64, device=dev)
     out[f"sweep B={B}"] = kernels_of(lambda: kernels.level_solve(sched, V))
 out["K2 with its dot"] = kernels_of(lambda: kernels.normal_apply(
     nmd.op_At, nmd.op_A, W, v, dot=dot))
 out["K2 three"] = kernels_of(lambda: kernels.normal_apply(
     nmd.op_At, nmd.op_A, W, v, dot=dot, one_launch=False))
-print(json.dumps(out))
+# V is the last B's
+out[f"per level B={Bs[-1]}"] = kernels_of(
+    lambda: kernels.level_solve(sched, V, per_level=True))
+host["after"] = k5_host_cost(dev)
+print(json.dumps({"nlev": sched.nlev, "captures": out, "k5_host": host}))
 """
 
 
-def one_launch_counts():
-    """{case: CUDA kernels a call} of ONE_LAUNCH, run in a fresh process
-    (late in this one torch.profiler misses kernels, PERF.md §6)."""
-    out = subprocess.run([sys.executable, "-c", ONE_LAUNCH,
-                          *map(str, TRI_B)], cwd=REPO, capture_output=True,
-                         text=True, timeout=300)
+def one_launch_expected(nlev, Bs=TRI_B):
+    """{case of ONE_LAUNCH: its CUDA kernels a call}: one a K17 sweep at
+    every B, one a stand-alone K2 apply with its dot, three for K2's three
+    launches, and `nlev` for the per-level sweep at the last B."""
+    return {**{f"sweep B={B}": 1 for B in Bs}, "K2 with its dot": 1,
+            "K2 three": 3, f"per level B={Bs[-1]}": nlev}
+
+
+def count_failures(captures, expected):
+    """The failures of phase 10's kernel count, each a message; empty when
+    it passes. `captures` maps each case to the CUDA kernels that each of
+    its profiler captures recorded, `expected` each case to its count. A
+    capture that recorded none of the call's kernels lost the trace and
+    decides nothing; any other count than the expected one fails, and so
+    does a case whose every capture recorded none."""
+    failures = []
+    for case, want in expected.items():
+        got = captures.get(case, [])
+        wrong = [c for c in got if c not in (0, want)]
+        if wrong:
+            failures.append(f"{case}: captures counted {wrong} CUDA kernels "
+                            f"a call, not {want} (all captures {got})")
+        elif not any(got):
+            failures.append(f"{case}: no capture recorded its kernels "
+                            f"(captures {got})")
+    return failures
+
+
+def one_launch_counts(captures=CAPTURES, margin=MARGIN):
+    """ONE_LAUNCH's output, run in a fresh process (late in this one
+    torch.profiler misses kernels, PERF.md §6): {"nlev", "captures": {case:
+    CUDA kernels of each capture}, "k5_host": {"before", "after"}}."""
+    out = subprocess.run([sys.executable, "-c", ONE_LAUNCH, str(captures),
+                          str(margin), *map(str, TRI_B)], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
     check(out.returncode == 0, "the one-launch counts failed: "
           + out.stderr[-2000:])
     return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def k5_host_cost(dev, calls=200, rounds=5):
+    """What a K5 call costs this process's host, and what may make it cost
+    more (ROADMAP Queue 3 item 6): the host microseconds of one
+    kernels.csr_spmm call (700 x 1500 operand from a seed, B = 4, f64),
+    the median of `rounds` rounds of `calls` issued back to back (a launch
+    queue far from full); the process's threads; the CPU seconds its other
+    threads burn while this one sleeps 0.5 s (workers left spinning); and
+    whether a torch.profiler session is open."""
+    import threading
+    import scipy.sparse as sp
+    import torch
+    from ipx_tpu_torch import kernels
+    from ipx_tpu_torch.ops import spmv
+    rng = np.random.default_rng(5)
+    A = sp.random(700, 1500, density=0.01, random_state=rng, format="csc")
+    op = spmv.NormalMatrixDevice(A, dev).op_A
+    U = torch.from_numpy(rng.standard_normal((1500, 4))).to(dev)
+    Y = kernels.csr_spmm(op, U)
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            kernels.csr_spmm(op, U, out=Y)
+        per.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+
+    def others_cpu():
+        tick, me = os.sysconf("SC_CLK_TCK"), threading.get_native_id()
+        total = 0
+        for tid in os.listdir("/proc/self/task"):
+            try:
+                with open(f"/proc/self/task/{tid}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            if int(tid) != me:
+                total += int(fields[11]) + int(fields[12])
+        return total / tick
+
+    c0 = others_cpu()
+    time.sleep(0.5)
+    spin = others_cpu() - c0
+    return dict(us=round(statistics.median(per), 2),
+                threads=len(os.listdir("/proc/self/task")),
+                others_cpu_s=round(spin, 2),
+                profiler_on=bool(torch.autograd.profiler._is_profiler_enabled))
 
 
 def library_solve(L_lib, U_lib, V):
@@ -2590,14 +2856,21 @@ def trisolve_phase(card, L, U, dev):
     del Vs, X
     torch.cuda.empty_cache()
     check(launches["level_solve"] > 0, "K17 was not launched")
-    # the CUDA kernels of a K17 sweep and of a stand-alone K2 apply, from
-    # torch.profiler in a fresh process
+    # the CUDA kernels of a K17 sweep, of a stand-alone K2 apply and of the
+    # per-level sweep, from torch.profiler in a fresh process; the K5 host
+    # probe here, late in this process, beside phase 2's and the fresh
+    # process's
+    late = k5_host_cost(dev)
     kern = one_launch_counts()
-    print(f"  CUDA kernels a call, torch.profiler in a fresh process: {kern}"
-          f" | {card}", flush=True)
-    check(all(kern[f"sweep B={B}"] == 1 for B in TRI_B)
-          and kern["K2 with its dot"] == 1 and kern["K2 three"] == 3,
-          f"K17's sweep or K2's apply is not one CUDA launch: {kern}")
+    print(f"  CUDA kernels a call, {CAPTURES} torch.profiler captures a case "
+          f"({MARGIN} s open on each side) in a fresh process (nlev "
+          f"{kern['nlev']}): {kern['captures']} | {card}\n  K5 host probe: "
+          f"phase 10 {late}; fresh process before "
+          f"its captures {kern['k5_host']['before']}, after them "
+          f"{kern['k5_host']['after']} | {card}", flush=True)
+    failures = count_failures(kern["captures"],
+                              one_launch_expected(kern["nlev"]))
+    check(not failures, "phase 10's kernel count: " + "; ".join(failures))
 
     # entry(): one batched IPM step with the default device, the card, then
     # timed from copies of the same state, beside the plain versions' step

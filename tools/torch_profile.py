@@ -34,6 +34,27 @@ with the card's nvidia-smi name and power limit:
            1 and 4 alone (the pools at as many);
   precision  the "cuda" solve with Parameters.precision "mixed" and "f64"
            in turns (the mixed and the f64 device CR of phase 1);
+  walls    chip_smoke.py phase 4's walls and thread guard as chip_smoke
+           runs them, `--turns` times: the walls, the ratios of the median
+           and of the best walls, and the guard's failures;
+  binding  chip_smoke.py phase 4's walls and thread guard `--turns`
+           times each, in turns, with the workers' OpenMP binding as they
+           inherit it from chip_smoke (OMP_PROC_BIND=spread, set by the
+           port on import) and with OMP_PROC_BIND=false;
+  guard    chip_smoke.py phase 4's walls and thread guard with the
+           OpenBLAS pools one thread per CPU in every solve
+           (OPENBLAS_NUM_THREADS set to the CPUs, which the package leaves
+           as it is): the fault the guard exists for; the walls, the
+           ratios of the median and of the best walls, and the guard's
+           failures;
+  counts   chip_smoke.py phase 10's count of CUDA kernels a call in
+           `--runs` fresh processes of each form, in turns: one profiler
+           capture a case closed right after the call, chip_smoke.CAPTURES
+           such captures, and chip_smoke.CAPTURES captures open
+           chip_smoke.MARGIN s on either side (chip_smoke's form): the
+           captures that lost the call's kernels and the wrong counts, by
+           case, the runs the check fails, and the host cost of a K5 call
+           in each process before and after its captures;
   kernels  K1-K4 (K4 through the phase-2 CR's NntPlan) and their plain
            versions at the shapes of the presolved LP: host wall time per
            call and device time per call from torch.profiler, and the
@@ -113,6 +134,7 @@ import pstats
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -298,6 +320,90 @@ def part_threads(data, args, card):
         if out.returncode != 0:
             raise RuntimeError(f"{setting}: {out.stderr[-2000:]}")
         print(out.stdout, end="", flush=True)
+
+
+def guard_runs(data, card, what, env, turns):
+    """chip_smoke.py phase 4's walls (chip_smoke.phase4_runs) `turns`
+    times with `env` set on top of this process's environment: each time
+    the walls, both statistics' ratios and the thread guard's failures."""
+    from chip_smoke import guard_line, phase4_runs, thread_guard
+    host, st, _ = solve(data, "cpu")
+    if st != 1000:
+        raise RuntimeError(f"the host solve ended at {st}")
+    with mock.patch.dict(os.environ, env):
+        for _ in range(turns):
+            runs = phase4_runs(host.get_info().objval)
+            failures = "; ".join(thread_guard(runs))
+            print(f"{what} {env} | {guard_line(runs)} | the guard "
+                  f"{'fails: ' + failures if failures else 'passes'} | "
+                  f"{card}", flush=True)
+
+
+def part_walls(data, args, card):
+    """chip_smoke.py phase 4's walls and thread guard as chip_smoke runs
+    them, `--turns` times: the spread of the guard's statistics on a
+    fault-free tree."""
+    guard_runs(data, card, "walls", {}, args.turns)
+
+
+def part_binding(data, args, card):
+    """chip_smoke.py phase 4's walls and thread guard `--turns` times
+    each, in turns, with the workers' OpenMP binding as chip_smoke's
+    workers inherit it (OMP_PROC_BIND=spread, which the port sets on
+    import; a libgomp may then bind a process's main thread, and every
+    thread it starts later, to one CPU) and with OMP_PROC_BIND=false."""
+    settings = ({}, {"OMP_PROC_BIND": "false"})
+    for i in range(args.turns):
+        for env in settings[::-1] if i % 2 else settings:
+            guard_runs(data, card, "binding", env, 1)
+
+
+def part_guard(data, args, card):
+    """chip_smoke.py phase 4's walls and thread guard with the OpenBLAS
+    pools one thread per CPU in every solve: OPENBLAS_NUM_THREADS set to
+    the CPUs, which native/threads.py leaves as the user sized it. That is
+    the fault the guard exists for, made outside the package."""
+    guard_runs(data, card, "guard", {"OPENBLAS_NUM_THREADS": str(len(
+        os.sched_getaffinity(0)))}, 1)
+
+
+def part_counts(data, args, card):
+    """chip_smoke.py phase 10's count of CUDA kernels a call (ONE_LAUNCH)
+    in `--runs` fresh processes of each form, in turns: one capture a case
+    closed right after the call (the count as it was decided on one
+    capture), chip_smoke.CAPTURES such captures a case, and
+    chip_smoke.CAPTURES captures each open chip_smoke.MARGIN seconds on
+    either side of the call (chip_smoke's form). For each form: the
+    captures that recorded no kernel, and those that recorded another
+    count than the expected one, by case; the runs that
+    chip_smoke.count_failures fails; and the K5 host probe of the runs
+    (median microseconds a call, before and after the captures)."""
+    from chip_smoke import (CAPTURES, MARGIN, count_failures,
+                            one_launch_counts, one_launch_expected)
+    forms = ((1, 0.0), (CAPTURES, 0.0), (CAPTURES, MARGIN))
+    tally = {f: dict(lost={}, wrong={}, failed=0, runs=0, host={})
+             for f in forms}
+    for _ in range(args.runs):
+        for f in forms:
+            out = one_launch_counts(*f)
+            want = one_launch_expected(out["nlev"])
+            t = tally[f]
+            t["runs"] += 1
+            t["failed"] += bool(count_failures(out["captures"], want))
+            for case, got in out["captures"].items():
+                lost = sum(1 for k in got if k == 0)
+                wrong = [k for k in got if k not in (0, want[case])]
+                t["lost"][case] = t["lost"].get(case, 0) + lost
+                t["wrong"].setdefault(case, []).extend(wrong)
+            for when, probe in out["k5_host"].items():
+                t["host"].setdefault(when, []).append(probe["us"])
+    for (c, margin), t in tally.items():
+        host = {k: f"{np.median(v):.2f}" for k, v in t["host"].items()}
+        print(f"counts {c} capture(s) a case, {margin} s open on each side, "
+              f"{t['runs']} fresh processes, nlev {out['nlev']}: captures "
+              f"with no kernel {t['lost']}; wrong counts {t['wrong']}; runs "
+              f"the check fails {t['failed']}; K5 host us a call (median) "
+              f"{host} | {card}", flush=True)
 
 
 # the port's kernel of each CUDA function of csrc/, by name prefix
@@ -1121,7 +1227,9 @@ def part_entry(data, args, card):
 
 
 PARTS = {"e2e": part_e2e, "native": part_native, "threads": part_threads,
-         "precision": part_precision,
+         "precision": part_precision, "walls": part_walls,
+         "binding": part_binding, "guard": part_guard,
+         "counts": part_counts,
          "kernels": part_kernels,
          "busy": part_busy, "batched": part_batched, "stage": part_stage,
          "scenarios": part_scenarios, "polish": part_polish,
@@ -1141,6 +1249,8 @@ def main():
     ap.add_argument("--forms", default="levels,sweep,three,one",
                     help="the forms the k17 part (levels, sweep) and the "
                          "k2 part (three, one) time")
+    ap.add_argument("--runs", type=int, default=20,
+                    help="fresh processes of each form in the counts part")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA card: torch.cuda.is_available() is False")
