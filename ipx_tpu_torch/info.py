@@ -85,6 +85,9 @@ class Info:
     time_kkt_solve: float = 0.0
     time_maxvol: float = 0.0
     time_cr1: float = 0.0
+    # the normal matrix applies' part of time_cr1, measured on the host
+    # paths; not measured on the device CR (ops/device_cr.py), whose
+    # applies run inside K3's launch, where it stays 0.0
     time_cr1_AAt: float = 0.0
     time_cr1_pre: float = 0.0
     time_cr2: float = 0.0

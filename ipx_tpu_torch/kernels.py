@@ -43,7 +43,7 @@ import ctypes
 import numpy as np
 import torch
 
-from . import build as _build
+from . import build as _build, trace
 
 # launches per kernel since the last reset_launches()
 LAUNCHES = dict.fromkeys(("csr_spmv", "normal_apply", "cr_step", "nnt",
@@ -915,10 +915,12 @@ class BatchedCrStep:
                              U=self.U, partials=self.pc, state=self.state)
 
     def done(self) -> bool:
+        trace.count("host_syncs")
         return bool(self.state[self.DONE].item())
 
     def result(self):
         """(Y on the card, trips)."""
+        trace.count("host_syncs")
         return self.Y, int(self.state[self.IT].item())
 
 

@@ -41,7 +41,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .. import backend, kernels
+from .. import backend, kernels, trace
 from ..ops import spmv
 from ..ops.spmv import CsrOperand, NormalMatrixDevice
 from ..status import SolveStatus
@@ -123,6 +123,7 @@ def batched_cr_plain(nmd: NormalMatrixDevice, W, invd, resscale, rhs, tol,
     it = 0
     while it < maxiter:
         active = torch.amax(torch.abs(resscale * R), dim=0) > tol
+        trace.count("host_syncs")
         if not bool(active.any()):
             break
         PCD, pdot = P(CD)
@@ -541,10 +542,49 @@ class BatchedPhase1Solver:
                  maxiter=100, cr_dtype="auto", cr64_maxiter=None,
                  device="cuda"):
         self.device = dev = backend.resolve_batched(device)
+        if cr_dtype == "auto":
+            cr_dtype = "f32" if dev.type == "cuda" else "f64"
+        if cr_dtype not in ("f32", "f64"):
+            raise ValueError(f"cr_dtype must be 'auto', 'f32' or 'f64', got "
+                             f"{cr_dtype!r}")
         self.lp = lp
-        m, n = lp.A.shape
-        self.m, self.n = m, n
+        self.m, self.n = lp.A.shape
+        self.cr_dtype = cr_dtype
+        self.maxiter = maxiter
+        # the spans and counters of the constructor and of each solve()
+        self.trace = trace.Record()
+        with trace.recording(self.trace), trace.span("ipxt.construct"):
+            with trace.span("ipxt.construct.operands"):
+                self._operands()
+            with trace.span("ipxt.construct.inputs"):
+                self._inputs(feasibility_tol, optimality_tol, kkt_tol,
+                             cr_maxiter, cr64_maxiter)
+        # the step's reductions over the lanes: its own, unless its lanes
+        # are a group of a mesh's (take_lanes)
+        self._lanes = _Lanes()
+
+    def _operands(self) -> None:
+        """What the constructor builds from A alone: A and A' in float64
+        (and float32 for the f32 CR), A.^2, and on the card the K6 plans
+        of the CR loops."""
+        lp, dev, n = self.lp, self.device, self.n
         self.nmd = NormalMatrixDevice(lp.A, dev, F64)
+        A2 = lp.A.tocsr().copy()
+        A2.data = A2.data ** 2
+        A2.sort_indices()
+        self._A2op = CsrOperand(A2.indptr, A2.indices, A2.data, n, dev, F64)
+        self.nmd32 = (NormalMatrixDevice(lp.A, dev, F32)
+                      if self.cr_dtype == "f32" else None)
+        if dev.type == "cuda":
+            for nmd in (self.nmd, self.nmd32):
+                if nmd is not None:
+                    kernels.normal_plan_of(nmd.op_At, nmd.op_A)
+
+    def _inputs(self, feasibility_tol, optimality_tol, kkt_tol, cr_maxiter,
+                cr64_maxiter) -> None:
+        """What the constructor takes from the request: the bounds, b' and
+        c' on the device, the norms and the convergence limits."""
+        lp, dev = self.lp, self.device
 
         def t(x):
             return torch.from_numpy(
@@ -575,24 +615,8 @@ class BatchedPhase1Solver:
             feasibility_tol * (1.0 + st["norm_bounds"]),
             feasibility_tol * (1.0 + st["norm_c"]), optimality_tol, kkt_tol,
             self._num_fin)
-        self.maxiter = maxiter
         self.bT = t(lp.b.T)          # (m, B)
         self.cT = t(lp.c.T)          # (n+m, B)
-        A2 = lp.A.tocsr().copy()
-        A2.data = A2.data ** 2
-        A2.sort_indices()
-        self._A2op = CsrOperand(A2.indptr, A2.indices, A2.data, n, dev, F64)
-        if cr_dtype == "auto":
-            cr_dtype = "f32" if dev.type == "cuda" else "f64"
-        if cr_dtype not in ("f32", "f64"):
-            raise ValueError(f"cr_dtype must be 'auto', 'f32' or 'f64', got "
-                             f"{cr_dtype!r}")
-        self.cr_dtype = cr_dtype
-        self.nmd32 = (NormalMatrixDevice(lp.A, dev, F32)
-                      if cr_dtype == "f32" else None)
-        # the step's reductions over the lanes: its own, unless its lanes
-        # are a group of a mesh's (take_lanes)
-        self._lanes = _Lanes()
 
     def take_lanes(self, l0: int, l1: int, lanes) -> None:
         """Keeps lanes l0 .. l1 - 1 of the batch, one group of a mesh's
@@ -644,42 +668,62 @@ class BatchedPhase1Solver:
         true residual recomputed through K6 in float64), until the lanes
         converge, the budget is spent or a chunk stops reducing the worst
         scaled residual; then a float64 finish of cr64_maxiter trips runs on
-        the defect. Returns (Y, trips)."""
-        st = self.static
-        inv_diag = 1.0 / diag
-        lanes = self._lanes
-        if self.cr_dtype != "f32":
-            Y, t = self._cr_loop(self.nmd, W, inv_diag, resscale, RHS, tol,
-                                 st["cr_maxiter"])
-            return Y, lanes.trips(t)
-        W32, inv32, rs32, tol32 = (x.to(F32) for x in
-                                   (W, inv_diag, resscale, tol))
-        chunk = min(125, st["cr_maxiter"])
-        maxit = st["cr_maxiter"]
+        the defect. Returns (Y, trips).
 
-        def resnorm(R):
-            return torch.amax(torch.abs(resscale * R), dim=0)
+        Spans (trace.py): ipxt.cr around it all, ipxt.cr.f32 around each
+        float32 chunk, ipxt.cr.f64 around the float64 loop. Counters: the
+        trips of each kind (cr_f32_trips, cr_f64_trips, reduced over a
+        mesh's lanes as the returned trips are) and host_syncs."""
+        with trace.span("ipxt.cr"):
+            st = self.static
+            inv_diag = 1.0 / diag
+            lanes = self._lanes
+            if self.cr_dtype != "f32":
+                with trace.span("ipxt.cr.f64"):
+                    Y, t = self._cr_loop(self.nmd, W, inv_diag, resscale,
+                                         RHS, tol, st["cr_maxiter"])
+                    t = lanes.trips(t)
+                trace.count("cr_f64_trips", t)
+                return Y, t
+            W32, inv32, rs32, tol32 = (x.to(F32) for x in
+                                       (W, inv_diag, resscale, tol))
+            chunk = min(125, st["cr_maxiter"])
+            maxit = st["cr_maxiter"]
 
-        Y = torch.zeros_like(RHS)
-        R = RHS
-        trips, best, stalled = 0, INF, False
-        while (trips < maxit and lanes.any(bool((resnorm(R) > tol).any()))
-               and not stalled):
-            dY32, t = self._cr_loop(self.nmd32, W32, inv32, rs32,
-                                    R.to(F32), tol32,
-                                    min(chunk, maxit - trips))
-            t = lanes.trips(t)
-            Y = Y + dY32.to(RHS.dtype)
-            R = RHS - self._normal_apply(W, Y)
-            rn = resnorm(R)
-            worst = lanes.max(float(torch.amax(
-                torch.where(rn > tol, rn / tol, 0.0))))
-            stalled = worst >= 0.9 * best
-            best = min(best, worst)
-            trips += t
-        dY, t2 = self._cr_loop(self.nmd, W, inv_diag, resscale, R, tol,
-                               st["cr64_maxiter"])
-        return Y + dY, trips + lanes.trips(t2)
+            def resnorm(R):
+                return torch.amax(torch.abs(resscale * R), dim=0)
+
+            Y = torch.zeros_like(RHS)
+            R = RHS
+            trips, best, stalled = 0, INF, False
+            while trips < maxit:
+                # a chunk with the test before it and its stall test after
+                # (the test that ends the loop has a span of its own)
+                with trace.span("ipxt.cr.f32"):
+                    trace.count("host_syncs")
+                    if (not lanes.any(bool((resnorm(R) > tol).any()))
+                            or stalled):
+                        break
+                    dY32, t = self._cr_loop(self.nmd32, W32, inv32, rs32,
+                                            R.to(F32), tol32,
+                                            min(chunk, maxit - trips))
+                    t = lanes.trips(t)
+                    Y = Y + dY32.to(RHS.dtype)
+                    R = RHS - self._normal_apply(W, Y)
+                    rn = resnorm(R)
+                    trace.count("host_syncs")
+                    worst = lanes.max(float(torch.amax(
+                        torch.where(rn > tol, rn / tol, 0.0))))
+                    stalled = worst >= 0.9 * best
+                    best = min(best, worst)
+                    trips += t
+                    trace.count("cr_f32_trips", t)
+            with trace.span("ipxt.cr.f64"):
+                dY, t2 = self._cr_loop(self.nmd, W, inv_diag, resscale, R,
+                                       tol, st["cr64_maxiter"])
+                t2 = lanes.trips(t2)
+            trace.count("cr_f64_trips", t2)
+            return Y + dY, trips + t2
 
     # -------------------------------------------------------------------------
     def _starting_point(self):
@@ -834,17 +878,25 @@ class BatchedPhase1Solver:
         src/lp_solver.cc:340-360), so that the basis-preconditioned
         finishes take over. The default (None) always runs to convergence
         or maxiter."""
-        S = self._starting_point()
-        handoff_due = self.handoff_rule(S)
-        for _ in range(self.maxiter):
-            S = self._ipm_step(S)
-            if bool(S["done"].all()):
-                break
-            if handoff == "auto" and handoff_due(S):
-                break
-        out = {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
-               for k, v in S.items()}
-        out["pobj"] = np.sum(self.lp.c.T * out["X"], axis=0)
+        with trace.recording(self.trace), trace.span("ipxt.solve"):
+            with trace.span("ipxt.start"):
+                S = self._starting_point()
+            handoff_due = self.handoff_rule(S)
+            for _ in range(self.maxiter):
+                with trace.span("ipxt.step"):
+                    S = self._ipm_step(S)
+                    trace.count("host_syncs")
+                    all_done = bool(S["done"].all())
+                if all_done:
+                    break
+                if handoff == "auto" and handoff_due(S):
+                    break
+            with trace.span("ipxt.copy_out"):
+                trace.count("host_syncs", sum(map(torch.is_tensor,
+                                                  S.values())))
+                out = {k: v.cpu().numpy() if torch.is_tensor(v)
+                       else np.asarray(v) for k, v in S.items()}
+                out["pobj"] = np.sum(self.lp.c.T * out["X"], axis=0)
         return out
 
 

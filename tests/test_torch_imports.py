@@ -1,6 +1,6 @@
 """The port owns its host pipeline: no module of ipx_tpu_torch, neither
-chip_smoke.py nor the port's eleven tools (tools/torch_*.py: torch_profile,
-torch_trisolve_proto, the measuring tools torch_bench,
+chip_smoke.py nor the port's twelve tools (tools/torch_*.py: torch_profile,
+torch_spans, torch_trisolve_proto, the measuring tools torch_bench,
 torch_device_batch_solve_bench, torch_device_batched_bench,
 torch_pipeline_e2e_bench, torch_batched_finish_bench and
 torch_scaling_table, and the sweep tools torch_stress_sweep,
@@ -45,7 +45,7 @@ def test_no_module_of_the_port_imports_the_reference_or_jax():
     tools = sorted(glob.glob(os.path.join(REPO, "tools", "torch_*.py")))
     examples = sorted(glob.glob(os.path.join(REPO, "examples",
                                              "torch_*.py")))
-    assert len(tools) == 11 and len(examples) == 7
+    assert len(tools) == 12 and len(examples) == 7
     paths += [os.path.join(REPO, "chip_smoke.py")] + tools + examples
     assert len(paths) > 50
     bad = {os.path.relpath(p, REPO): sorted(_absolute_import_roots(p)
