@@ -511,6 +511,21 @@ def starting_point(X0, ATDY, DY, ATY, Y, cT, lb, ub, finl, finu):
                                   finu, RHO)[:6]
 
 
+def _absmax(x) -> torch.Tensor:
+    """max |x| over all of x, with no temporary of x's size."""
+    return torch.linalg.vector_norm(x, INF)
+
+
+def _count_copy(host: torch.Tensor) -> None:
+    """Adds the bytes of a transfer to or from the host tensor `host` to
+    copy_bytes_pinned or, where `host` is not page-locked, to
+    copy_bytes_pageable, and 0 to the other, so that a record holds both."""
+    n = host.numel() * host.element_size()
+    pinned = host.is_pinned()
+    trace.count("copy_bytes_pinned", n if pinned else 0)
+    trace.count("copy_bytes_pageable", 0 if pinned else n)
+
+
 # -- the batched phase 1 ------------------------------------------------------------
 class BatchedPhase1Solver:
     """The batched phase-1 IPM over the scenarios of a BatchedLp.
@@ -582,22 +597,24 @@ class BatchedPhase1Solver:
 
     def _inputs(self, feasibility_tol, optimality_tol, kkt_tol, cr_maxiter,
                 cr64_maxiter) -> None:
-        """What the constructor takes from the request: the bounds, b' and
-        c' on the device, the norms and the convergence limits."""
-        lp, dev = self.lp, self.device
-
-        def t(x):
-            return torch.from_numpy(
-                np.ascontiguousarray(x, dtype=np.float64)).to(dev)
-
-        lb, ub = t(lp.lb), t(lp.ub)
+        """What the constructor takes from the request: the bounds, b and c
+        on the device in the caller's layout, b' and c' transposed there,
+        the norms and the convergence limits, with one read of the
+        device."""
+        lp = self.lp
+        lb, ub, b, c = self._up(lp.lb, lp.ub, lp.b, lp.c)
+        self.bT = b.T.contiguous()          # (m, B)
+        self.cT = c.T.contiguous()          # (n+m, B)
+        del b, c
+        finl, finu = torch.isfinite(lb), torch.isfinite(ub)
+        # maxima and a count: the host's formulas' values in any order
+        norm_b, norm_lb, norm_ub, norm_c, num_fin = self._read(torch.stack([
+            _absmax(self.bT), _absmax(torch.where(finl, lb, 0.0)),
+            _absmax(torch.where(finu, ub, 0.0)), _absmax(self.cT),
+            (finl.sum() + finu.sum()).to(F64)]))
         self.static = dict(
-            lb=lb, ub=ub, finl=torch.isfinite(lb), finu=torch.isfinite(ub),
-            norm_bounds=float(max(
-                np.abs(lp.b).max(initial=0.0),
-                np.abs(lp.lb[np.isfinite(lp.lb)]).max(initial=0.0),
-                np.abs(lp.ub[np.isfinite(lp.ub)]).max(initial=0.0))),
-            norm_c=float(np.abs(lp.c).max(initial=0.0)),
+            lb=lb, ub=ub, finl=finl, finu=finu,
+            norm_bounds=max(norm_b, norm_lb, norm_ub), norm_c=norm_c,
             feasibility_tol=feasibility_tol,
             optimality_tol=optimality_tol,
             kkt_tol=kkt_tol,
@@ -606,8 +623,7 @@ class BatchedPhase1Solver:
             cr64_maxiter=(cr64_maxiter if cr64_maxiter is not None
                           else cr_maxiter),
         )
-        self._num_fin = int(np.isfinite(lp.lb).sum()
-                            + np.isfinite(lp.ub).sum())
+        self._num_fin = int(num_fin)
         st = self.static
         # the convergence limits and the CR tolerance factor, as K10 takes
         # them
@@ -615,8 +631,69 @@ class BatchedPhase1Solver:
             feasibility_tol * (1.0 + st["norm_bounds"]),
             feasibility_tol * (1.0 + st["norm_c"]), optimality_tol, kkt_tol,
             self._num_fin)
-        self.bT = t(lp.b.T)          # (m, B)
-        self.cT = t(lp.c.T)          # (n+m, B)
+
+    # -- the request's transfers between host and device ------------------------
+    def _up(self, *arrays):
+        """The arrays as float64 tensors on the device, each copied on the
+        host first only where it is not C-contiguous float64. On the card
+        each goes through a block of page-locked memory from torch's
+        caching host allocator, filled by one host copy, and a DMA that
+        does not block the host; on the CPU they are the arrays' own
+        memory."""
+        hosts = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64))
+                 for a in arrays]
+        if self.device.type == "cpu":
+            return hosts
+        out = []
+        for h in hosts:
+            stage = torch.empty_like(h, pin_memory=True)
+            stage.copy_(h)
+            _count_copy(stage)
+            out.append(stage.to(self.device, non_blocking=True))
+        return out
+
+    def _read(self, t) -> list:
+        """The values of the small tensor t as Python numbers: on the card
+        by a DMA into page-locked memory and one wait."""
+        if self.device.type == "cpu":
+            return t.tolist()
+        host = torch.empty_like(t, device="cpu", pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        _count_copy(host)
+        self._wait()
+        return host.tolist()
+
+    def _wait(self) -> None:
+        """Waits for the card's work so far (counted in host_syncs)."""
+        trace.count("host_syncs")
+        torch.cuda.current_stream(self.device).synchronize()
+
+    def _copy_out(self, S) -> dict:
+        """S with the per-lane pobj = sum(c' .* X) as numpy arrays (a value
+        that is no tensor through np.asarray). On the card each tensor goes
+        by DMA into its part of one block of page-locked memory from
+        torch's caching host allocator, then one wait: each array is a
+        C-contiguous view of the block in its tensor's dtype and keeps the
+        block alive. On the CPU the arrays are the tensors' own memory."""
+        S = dict(S, pobj=(self.cT * S["X"]).sum(0))
+        if self.device.type == "cpu":
+            return {k: v.numpy() if torch.is_tensor(v) else np.asarray(v)
+                    for k, v in S.items()}
+        tensors = {k: v for k, v in S.items() if torch.is_tensor(v)}
+        at, offsets = 0, {}
+        for k, v in tensors.items():
+            offsets[k] = at
+            at += -(-v.numel() * v.element_size() // 64) * 64
+        block = torch.empty(at, dtype=torch.uint8, pin_memory=True)
+        views = {}
+        for k, v in tensors.items():
+            part = block[offsets[k]:offsets[k] + v.numel() * v.element_size()]
+            views[k] = part.view(v.dtype).view(v.shape)
+            views[k].copy_(v, non_blocking=True)
+        _count_copy(block)
+        self._wait()
+        return {k: views[k].numpy() if k in views else np.asarray(v)
+                for k, v in S.items()}
 
     def take_lanes(self, l0: int, l1: int, lanes) -> None:
         """Keeps lanes l0 .. l1 - 1 of the batch, one group of a mesh's
@@ -877,7 +954,12 @@ class BatchedPhase1Solver:
         reference's phase switch on the CR iteration trend, reference:
         src/lp_solver.cc:340-360), so that the basis-preconditioned
         finishes take over. The default (None) always runs to convergence
-        or maxiter."""
+        or maxiter.
+
+        On the card the returned arrays are views of one block of
+        page-locked host memory from torch's caching host allocator
+        (_copy_out), which returns to that cache once no array of the
+        dict is left; on the CPU they share the solver's memory."""
         with trace.recording(self.trace), trace.span("ipxt.solve"):
             with trace.span("ipxt.start"):
                 S = self._starting_point()
@@ -892,11 +974,7 @@ class BatchedPhase1Solver:
                 if handoff == "auto" and handoff_due(S):
                     break
             with trace.span("ipxt.copy_out"):
-                trace.count("host_syncs", sum(map(torch.is_tensor,
-                                                  S.values())))
-                out = {k: v.cpu().numpy() if torch.is_tensor(v)
-                       else np.asarray(v) for k, v in S.items()}
-                out["pobj"] = np.sum(self.lp.c.T * out["X"], axis=0)
+                out = self._copy_out(S)
         return out
 
 

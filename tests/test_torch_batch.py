@@ -12,6 +12,7 @@ test_batched's B = 4 setup end after [13, 14, 11, 12] and [11, 11, 11, 13]
 steps, and at B = 1024 their pobj differ by 6e-15, 4e-9 and 1e-6 after
 steps 1, 2 and 3, as the port's do from the jitted run.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -504,3 +505,74 @@ def test_plain_solver_is_the_cpu_path():
     for k in ("X", "Y", "ZL", "ZU", "iters", "pobj"):
         assert np.array_equal(got[k], want[k]), k
     assert got["cr"] == want["cr"]
+
+
+# -- the request's transfers (_inputs, _copy_out) ------------------------------------
+def _layouts(layout, b, c):
+    """b and c as the caller may hold them: C-contiguous, strided views of
+    larger arrays, or Fortran-ordered."""
+    if layout == "view":
+        wide = lambda x: np.repeat(x, 2, axis=1)[:, ::2]  # noqa: E731
+        return wide(b), wide(c)
+    if layout == "fortran":
+        return np.asfortranarray(b), np.asfortranarray(c)
+    return b, c
+
+
+@pytest.mark.parametrize("layout", ["c_order", "view", "fortran"])
+def test_request_transfers_keep_the_host_formulas(layout):
+    """On the CPU the constructor's b', c', norms and limits equal the host
+    formulas they replaced bit for bit (maxima and a count, exact in any
+    order); a solve's dict has the keys, shapes, dtypes and C-contiguity of
+    the tensors copied out one by one, the same values bit for bit, and
+    pobj within 1e-12 of numpy's sum of c' .* X. A b or c held as a view
+    or in Fortran order gives the answer of its C-contiguous copy."""
+    data = tg.transportation(30, 45, 0.3, seed=1)
+    rng = np.random.default_rng(1)
+    m = data["num_constr"]
+    b = data["rhs"][None, :] * rng.uniform(0.95, 1.05, (3, m))
+    blp = port.BatchedScenarioSolver(data, b).blp
+    c = blp.c * rng.uniform(0.5, 1.5, blp.c.shape)      # a c per lane
+    base = port.BatchedLp(A=blp.A, b=blp.b, c=c, lb=blp.lb, ub=blp.ub)
+    lb, ub = base.lb, base.ub
+    bv, cv = _layouts(layout, base.b, c)
+    assert np.array_equal(bv, base.b) and np.array_equal(cv, c)
+    lp = dataclasses.replace(base, b=bv, c=cv)
+
+    seen = {}
+
+    class Kept(port.BatchedPhase1Solver):
+        def _copy_out(self, S):
+            seen["S"] = {k: v.clone() if torch.is_tensor(v) else v
+                         for k, v in S.items()}
+            return super()._copy_out(S)
+
+    kw = dict(feasibility_tol=1e-4, optimality_tol=1e-4, maxiter=4,
+              device="cpu")
+    s = Kept(lp, **kw)
+    assert torch.equal(s.bT, torch.from_numpy(np.ascontiguousarray(b.T)))
+    assert torch.equal(s.cT, torch.from_numpy(np.ascontiguousarray(c.T)))
+    norm_bounds = float(max(np.abs(b).max(initial=0.0),
+                            np.abs(lb[np.isfinite(lb)]).max(initial=0.0),
+                            np.abs(ub[np.isfinite(ub)]).max(initial=0.0)))
+    norm_c = float(np.abs(c).max(initial=0.0))
+    num_fin = int(np.isfinite(lb).sum() + np.isfinite(ub).sum())
+    assert s.static["norm_bounds"] == norm_bounds
+    assert s.static["norm_c"] == norm_c
+    assert s._tests == (1e-4 * (1.0 + norm_bounds), 1e-4 * (1.0 + norm_c),
+                        1e-4, 0.3, num_fin)
+    out = s.solve(handoff="auto")
+    old = {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+           for k, v in seen["S"].items()}
+    assert list(out) == list(old) + ["pobj"]
+    for k, v in old.items():
+        assert out[k].dtype == v.dtype and out[k].shape == v.shape, k
+        assert out[k].flags.c_contiguous == v.flags.c_contiguous, k
+        assert np.array_equal(out[k], v), k
+    want = np.sum(c.T * old["X"], axis=0)
+    assert out["pobj"].dtype == np.float64
+    assert np.all(np.abs(out["pobj"] - want) <= 1e-12 * np.abs(want))
+    if layout != "c_order":
+        ref_out = port.BatchedPhase1Solver(base, **kw).solve(handoff="auto")
+        for k in out:
+            assert np.array_equal(out[k], ref_out[k]), k

@@ -24,8 +24,9 @@ NESTING = {"ipxt.construct": ("ipxt.construct.operands",
                               "ipxt.construct.inputs"),
            "ipxt.solve": ("ipxt.start", "ipxt.step", "ipxt.copy_out"),
            "ipxt.cr": ("ipxt.cr.f32", "ipxt.cr.f64")}
-# the tensors the solve's copy to the host moves
-COPIED = 9
+# the host's waits in the solve's copy to the host on the CPU: none, its
+# arrays are the state's own memory (on the card one, after every DMA)
+COPIED = 0
 
 
 def _lp(B=4, seed=1):
@@ -71,15 +72,18 @@ def test_trips_by_precision_add_up_to_cr(cr_dtype):
 
 def _count_reads(monkeypatch):
     """Counts each read of a tensor's value into Python: bool, float, int,
-    item and the copy to the host."""
+    item and the copy to the host, and each wait for a card's stream (the
+    copy out's, after its DMAs)."""
     reads = []
-    for name in ("__bool__", "__float__", "__int__", "item", "cpu"):
-        orig = getattr(torch.Tensor, name)
+    for cls, name in [(torch.Tensor, n) for n in ("__bool__", "__float__",
+                                                   "__int__", "item", "cpu")
+                      ] + [(torch.cuda.Stream, "synchronize")]:
+        orig = getattr(cls, name)
 
         def wrapped(self, *a, _orig=orig, **k):
             reads.append(1)
             return _orig(self, *a, **k)
-        monkeypatch.setattr(torch.Tensor, name, wrapped)
+        monkeypatch.setattr(cls, name, wrapped)
     return reads
 
 
@@ -187,7 +191,9 @@ def test_no_record_outside_a_solver():
 def test_the_record_holds_what_a_request_would_read():
     """The five numbers of a request that its per-layer metrics would read
     (tools/torch_spans.request_numbers): the constructor's halves and the
-    copy out in host seconds, the float64 trips and the host reads."""
+    copy out in host seconds, the float64 trips and the host reads; and
+    the bytes copied through page-locked and pageable memory, none on the
+    CPU, where nothing is copied."""
     import importlib.util
     import os
     path = os.path.join(os.path.dirname(os.path.dirname(
@@ -199,12 +205,14 @@ def test_the_record_holds_what_a_request_would_read():
     out = s.solve(handoff="auto")
     got = tool.request_numbers(s.trace)
     assert set(got) == {"construct_operands_s", "construct_inputs_s",
-                        "copy_out_s", "cr_f64_trips", "host_syncs"}
+                        "copy_out_s", "cr_f64_trips", "host_syncs",
+                        "copy_bytes_pinned", "copy_bytes_pageable"}
     assert got["construct_operands_s"] + got["construct_inputs_s"] \
         <= s.trace.seconds["ipxt.construct"]
     assert 0 < got["cr_f64_trips"] < out["cr"]
     assert got["host_syncs"] == s.trace.counts["host_syncs"]
     assert got["copy_out_s"] > 0
+    assert got["copy_bytes_pinned"] == got["copy_bytes_pageable"] == 0
 
 
 @pytest.mark.parametrize("mixed", [False, True])
@@ -244,10 +252,12 @@ def test_card_counts_and_spans(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     s = _solver("f32", device="cuda")
+    # the constructor's one wait, for its limits, is not the solve's
+    assert s.trace.counts["host_syncs"] == 1
     reads = _count_reads(monkeypatch)
     s.solve(handoff="auto")
     monkeypatch.undo()
-    assert s.trace.counts["host_syncs"] == len(reads)
+    assert s.trace.counts["host_syncs"] == 1 + len(reads)
     s0, out0, moved0, _ = _run("f32", False, device="cuda")
     s1, out1, moved1, prof = _run("f32", True, device="cuda")
     c = s0.trace.counts

@@ -11,15 +11,15 @@ request's solver record (BatchedPhase1Solver.trace) is kept beside the
 harness's own numbers for it.
 
 Prints, per window, one JSON line: the rate (scenarios/s, the benchmark's
-scen_per_s over this window), the means of the five numbers a request's
-per-layer metrics would read (`request_numbers`), every span's mean
-seconds a request, the ratio of ipxt.construct to the harness's construct_s
-request by request; and, traced, the device's idle share, the device
-operations by name, the idle gaps labelled by the innermost `ipxt.` span
-and the host operation under it, the ipxt. spans found outside every
-lpbench.* span (none expected) and the device operations named like a span
-(none expected). The whole record of each window goes to
-chiprun_out/spans_<workload>.json.
+scen_per_s over this window), the means of the numbers a request's
+per-layer metrics would read and of its bytes copied (`request_numbers`),
+every span's mean seconds a request, the ratio of ipxt.construct to the
+harness's construct_s request by request; and, traced, the device's idle
+share, the device operations by name, the idle gaps labelled by the
+innermost `ipxt.` span and the host operation under it, the ipxt. spans
+found outside every lpbench.* span (none expected) and the device
+operations named like a span (none expected). The whole record of each
+window goes to chiprun_out/spans_<workload>.json.
 
 `--device torch_cpu` rehearses on the CPU with lpbench's tiny cell (the
 plain versions; no rate or device number means anything there).
@@ -48,13 +48,17 @@ GAPS = 30           # idle-gap labels kept, the longest first
 def request_numbers(record: trace.Record) -> dict:
     """The numbers of one request that the per-layer metrics
     construct_operands_s, construct_inputs_s, copy_out_s, cr_f64_trips and
-    host_syncs would read from its solver's record."""
+    host_syncs would read from its solver's record, and beside host_syncs
+    the bytes its constructor's inputs and its copy out moved through
+    page-locked and pageable host memory."""
     s, c = record.seconds, record.counts
     return dict(construct_operands_s=s.get("ipxt.construct.operands", 0.0),
                 construct_inputs_s=s.get("ipxt.construct.inputs", 0.0),
                 copy_out_s=s.get("ipxt.copy_out", 0.0),
                 cr_f64_trips=c.get("cr_f64_trips", 0),
-                host_syncs=c.get("host_syncs", 0))
+                host_syncs=c.get("host_syncs", 0),
+                copy_bytes_pinned=c.get("copy_bytes_pinned", 0),
+                copy_bytes_pageable=c.get("copy_bytes_pageable", 0))
 
 
 class _NullSpan:
