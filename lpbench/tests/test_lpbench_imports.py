@@ -1,7 +1,8 @@
 """Nothing the benchmark runs loads JAX or the JAX package, and the plain
-reference loads nothing of the program: each in a fresh process, top-level
+references load nothing of the program: each in a fresh process, top-level
 module names compared whole (the port's name begins with the JAX
-package's)."""
+package's). The harness's case imports every entry that a traffic mix
+names, the references' case every module under lpbench/reference/."""
 import json
 import os
 import subprocess
@@ -12,7 +13,7 @@ from conftest import ROOT
 FORBIDDEN = {"jax", "jaxlib", "flax", "ipx_tpu"}
 
 HARNESS = r"""
-import importlib, json, sys
+import glob, importlib, json, os, sys
 sys.path.insert(0, {root!r})
 from lpbench import run, tracing, yardstick
 from lpbench.entries import batched_phase1
@@ -24,12 +25,22 @@ entry = batched_phase1.Entry(config, dict(cell["traffic"], lanes=4,
 entry.warm_up()
 for m in bench["per_layer"]:
     importlib.import_module("lpbench.metrics." + m["name"])
+# every entry that some traffic mix names
+for path in sorted(glob.glob(os.path.join({root!r}, "lpbench", "traffic",
+                                          "*.json"))):
+    with open(path) as f:
+        importlib.import_module("lpbench.entries." + json.load(f)["entry"])
 print(json.dumps(sorted({{k.split(".")[0] for k in sys.modules}})))
 """
 
 REFERENCE = r"""
-import json, sys
+import importlib, json, pkgutil, sys
 sys.path.insert(0, {root!r})
+import lpbench.reference
+# every module of the plain references, those of later entries too
+for info in pkgutil.walk_packages(lpbench.reference.__path__,
+                                  "lpbench.reference."):
+    importlib.import_module(info.name)
 from lpbench.reference import judge, stage
 from lpbench.generators import transportation
 from lpbench import yardstick

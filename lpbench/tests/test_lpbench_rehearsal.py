@@ -1,7 +1,9 @@
 """A rehearsal of a whole run on the CPU, at a size that no cell has: the
 harness's functions end to end on "torch_cpu", untraced and traced; the
-readers of the per-layer metrics on a traced record of the card's kind;
-and run.py itself without a card."""
+readers of the per-layer metrics, each on a traced record of the card's
+kind from the entry its cells run (lpbench/tests/records/<entry>.py); and
+run.py itself without a card."""
+import importlib.util
 import json
 import os
 import shutil
@@ -51,64 +53,64 @@ def test_a_run_on_the_cpu(trace):
     assert all(line.endswith(" ok") for line in judged)
 
 
-def card_record():
-    """A traced record as the card gives it, at the 20k cell's sizes."""
-    k6 = "void ipxt::normal_batched_kernel<float, 4>(long, long, ...)"
-    k6d = "void ipxt::normal_batched_kernel<double, 2>(long, long, ...)"
-    ca = "void ipxt::bcr_elem_kernel<float, 2>(ipxt::BcrArgs<float>)"
-    pb = "void ipxt::bcr_elem_kernel<double, 4>(ipxt::BcrArgs<double>)"
-    other = "void ipxt::bcr_lane_kernel<float, 3>(ipxt::BcrArgs<float>)"
-    blk = "void ipxt::block_normal_batched_kernel<float, 4>(long, ...)"
-    return dict(
-        sizes=dict(m=20000, n=96002, nnz=192004, B=256), lanes=256,
-        requests=[dict(construct_s=0.4, steps=12, trips=6792, finite=True),
-                  dict(construct_s=0.5, steps=12, trips=6792, finite=True)],
-        launches={"normal_apply_batched": 14272, "batched_cr_step": 56336},
-        window_peak_bytes=6 * 2 ** 30,
-        trace=dict(kernels=[(k6, 9648, 9648 * 130e-6),
-                            (k6d, 4624, 4624 * 260e-6),
-                            (ca, 9648, 9648 * 77e-6),
-                            (pb, 4624, 4624 * 128e-6),
-                            (other, 9648, 9648 * 6.4e-6),
-                            (blk, 10, 1.0)],
-                   busy_s=7.0, window_s=8.0, device_ops=[], idle_gaps=[]))
+def metrics_by_entry() -> dict:
+    """{entry: the per-layer metrics whose cells run it}: each metric's
+    cells (its `workloads`, else every cell), each through its traffic file
+    (lpbench/traffic/<traffic>.json) to the entry that file names."""
+    b = bench()
+    cells = {w["name"]: w for w in b["workloads"]}
+    out = {}
+    for m in b["per_layer"]:
+        for cell in m.get("workloads", list(cells)):
+            with open(os.path.join(ROOT, "lpbench", "traffic",
+                                   f"{cells[cell]['traffic']}.json")) as f:
+                names = out.setdefault(json.load(f)["entry"], [])
+            if m["name"] not in names:
+                names.append(m["name"])
+    return out
 
 
-def test_every_reader_reads_a_card_record():
-    import importlib
-    from lpbench import yardstick
-    rec = card_record()
-    got = {}
-    for m in bench()["per_layer"]:
-        got[m["name"]] = importlib.import_module(
-            f"lpbench.metrics.{m['name']}").read(rec)
-        assert isinstance(got[m["name"]], float), m["name"]
-    assert got["construct_s"] == pytest.approx(0.45)
-    assert got["ipm_steps"] == 12 and got["cr_trips"] == 6792
-    assert got["launches_per_trip"] == pytest.approx(70608 / 13584)
-    assert got["idle_share"] == pytest.approx(12.5)
-    assert got["peak_mem_gib"] == 6.0
-    # K6: the fused launches alone (not the sharded block form), each
-    # launch's least time over its device time
-    b32 = yardstick.bound_s(yardstick.k6_bytes(20000, 96002, 192004, 256,
-                                               "f32"))
-    b64 = yardstick.bound_s(yardstick.k6_bytes(20000, 96002, 192004, 256,
-                                               "f64"))
-    assert got["k6_roofline"] == pytest.approx(
-        100 * (9648 * b32 + 4624 * b64) / (9648 * 130e-6 + 4624 * 260e-6))
-    ca = yardstick.bound_s(yardstick.k7_bytes(20000, 256, "f32")["kPassCA"])
-    pb = yardstick.bound_s(yardstick.k7_bytes(20000, 256, "f64")["kPassB"])
-    assert got["k7_roofline"] == pytest.approx(
-        100 * (9648 * ca + 4624 * pb) / (9648 * 77e-6 + 4624 * 128e-6))
+def record_of(entry: str):
+    """lpbench/tests/records/<entry>.py: a traced record of the entry as the
+    card gives it (card_record()) and what each reader reads on it
+    (expected())."""
+    rel = f"lpbench/tests/records/{entry}.py"
+    path = os.path.join(ROOT, *rel.split("/"))
+    if not os.path.exists(path):
+        pytest.fail(f"the cells of entry {entry!r} have per-layer metrics "
+                    f"but no card record: add {rel}, with card_record() and "
+                    f"expected() as lpbench/tests/records/batched_phase1.py "
+                    f"has them")
+    spec = importlib.util.spec_from_file_location(f"card_record_{entry}",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
-def test_readers_that_find_nothing_return_none():
-    import importlib
-    rec = dict(card_record(), trace=None, window_peak_bytes=None,
-               launches={}, requests=[])
-    for m in bench()["per_layer"]:
-        assert importlib.import_module(
-            f"lpbench.metrics.{m['name']}").read(rec) is None, m["name"]
+def read(names, record) -> dict:
+    return {name: importlib.import_module(f"lpbench.metrics.{name}").read(
+        record) for name in names}
+
+
+@pytest.mark.parametrize("entry", sorted(metrics_by_entry()))
+def test_every_reader_reads_a_card_record(entry):
+    names = metrics_by_entry()[entry]
+    record = record_of(entry)
+    got = read(names, record.card_record())
+    for name in names:
+        assert isinstance(got[name], float), name
+    for name, want in record.expected().items():
+        assert name in got, name
+        assert got[name] == want, name
+
+
+@pytest.mark.parametrize("entry", sorted(metrics_by_entry()))
+def test_readers_that_find_nothing_return_none(entry):
+    rec = dict(record_of(entry).card_record(), trace=None,
+               window_peak_bytes=None, launches={}, requests=[])
+    for name, value in read(metrics_by_entry()[entry], rec).items():
+        assert value is None, name
 
 
 def test_run_py_needs_a_card(tmp_path):

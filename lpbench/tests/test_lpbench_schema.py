@@ -109,6 +109,8 @@ def test_files_are_where_the_names_say():
             traffic = json.load(f)
         assert os.path.exists(os.path.join(
             ROOT, "lpbench", "entries", f"{traffic['entry']}.py"))
+        assert os.path.exists(os.path.join(
+            ROOT, "lpbench", "limits", f"{traffic['entry']}.json"))
     for m in b["per_layer"]:
         assert os.path.exists(os.path.join(ROOT, "lpbench", "metrics",
                                            f"{m['name']}.py"))
