@@ -29,7 +29,7 @@ from ..basis.indexed_vector import IndexedVector
 from ..basis.maxvolume import Maxvolume
 from ..control import Control
 from ..info import Info
-from .. import backend
+from .. import backend, trace
 from ..model import Model
 from ..ops.device_cr2 import DeviceSplittedCR
 from ..parallel.sharding import ShardedPhase2CR, ShardedSplittedNNt
@@ -88,82 +88,84 @@ class KKTSolverBasis(KKTSolver):
 
     # ------------------------------------------------------------------
     def _factorize(self, iterate, info: Info) -> None:
-        info.errflag = 0
-        self.factorized = False
-        prev_iters = self._iters
-        self._iters = 0
-        self.changes = 0
+        with trace.span("ipxt.lp.factorize"):
+            info.errflag = 0
+            self.factorized = False
+            prev_iters = self._iters
+            self._iters = 0
+            self.changes = 0
 
-        # feedback control of the maxvolume tolerance (see __init__)
-        vt_max = max(self.control.parameters.volume_tol, 1.0)
-        if prev_iters > 60:
-            self._vt = max(1.05, self._vt * 0.75)
-        elif prev_iters and prev_iters < 25:
-            self._vt = min(vt_max, self._vt * 1.3)
+            # feedback control of the maxvolume tolerance (see __init__)
+            vt_max = max(self.control.parameters.volume_tol, 1.0)
+            if prev_iters > 60:
+                self._vt = max(1.05, self._vt * 0.75)
+            elif prev_iters and prev_iters < 25:
+                self._vt = min(vt_max, self._vt * 1.3)
 
-        self.colscale = iterate.scaling_factors()
+            self.colscale = iterate.scaling_factors()
 
-        # Drop degenerate variables unless the model looks infeasible
-        # (pobj < dobj), reference: src/kkt_solver_basis.cc:30-43.
-        if iterate.pobjective() >= iterate.dobjective():
-            self._drop_primal(iterate, info)
-            if info.errflag:
-                return
-            self._drop_dual(iterate, info)
-            if info.errflag:
-                return
+            # Drop degenerate variables unless the model looks infeasible
+            # (pobj < dobj), reference: src/kkt_solver_basis.cc:30-43.
+            if iterate.pobjective() >= iterate.dobjective():
+                self._drop_primal(iterate, info)
+                if info.errflag:
+                    return
+                self._drop_dual(iterate, info)
+                if info.errflag:
+                    return
 
-        # Refresh-skip: when the previous refresh was nearly dry AND CR
-        # stayed cheap, the basis is still volume-good for the drifted
-        # weights — skip at most every other refresh (the scaling D2 is
-        # rebuilt from the CURRENT iterate either way via
-        # splitted.prepare, so only candidate scanning is saved). No
-        # reference counterpart (the reference refreshes uncondition-
-        # ally, src/kkt_solver_basis.cc:44-57).
-        m = self.model.num_rows
-        dry = (getattr(self, "_prev_mv_updates", 1 << 30)
-               <= max(4, m // 50000)
-               and prev_iters and prev_iters < 40
-               and not getattr(self, "_skipped_last", False))
-        if dry:
-            self._skipped_last = True
-        else:
-            self._skipped_last = False
-            maxvol = Maxvolume(self.control, volume_tol=self._vt)
-            if self.control.parameters.update_heuristic == 0:
-                info.errflag = maxvol.run_sequential(self.colscale,
-                                                     self.basis)
+            # Refresh-skip: when the previous refresh was nearly dry AND CR
+            # stayed cheap, the basis is still volume-good for the drifted
+            # weights — skip at most every other refresh (the scaling D2 is
+            # rebuilt from the CURRENT iterate either way via
+            # splitted.prepare, so only candidate scanning is saved). No
+            # reference counterpart (the reference refreshes uncondition-
+            # ally, src/kkt_solver_basis.cc:44-57).
+            m = self.model.num_rows
+            dry = (getattr(self, "_prev_mv_updates", 1 << 30)
+                   <= max(4, m // 50000)
+                   and prev_iters and prev_iters < 40
+                   and not getattr(self, "_skipped_last", False))
+            if dry:
+                self._skipped_last = True
             else:
-                info.errflag = maxvol.run_heuristic(self.colscale,
-                                                    self.basis)
-            info.updates_ipm += maxvol.updates
-            info.time_maxvol += maxvol.time
-            info.maxvol_updates += maxvol.updates
-            info.maxvol_skipped += maxvol.skipped
-            info.maxvol_passes += max(maxvol.passes, 0)
-            info.volume_increase += maxvol.volinc
-            self.changes += maxvol.updates
-            self._prev_mv_updates = maxvol.updates
-            if info.errflag:
-                return
+                self._skipped_last = False
+                maxvol = Maxvolume(self.control, volume_tol=self._vt)
+                if self.control.parameters.update_heuristic == 0:
+                    info.errflag = maxvol.run_sequential(self.colscale,
+                                                         self.basis)
+                else:
+                    info.errflag = maxvol.run_heuristic(self.colscale,
+                                                        self.basis)
+                info.updates_ipm += maxvol.updates
+                trace.count("basis_updates", maxvol.updates)
+                info.time_maxvol += maxvol.time
+                info.maxvol_updates += maxvol.updates
+                info.maxvol_skipped += maxvol.skipped
+                info.maxvol_passes += max(maxvol.passes, 0)
+                info.volume_increase += maxvol.volinc
+                self.changes += maxvol.updates
+                self._prev_mv_updates = maxvol.updates
+                if info.errflag:
+                    return
 
-        # Refactorize only when cost-driven: the splitted operator runs
-        # through the eta-aware FTRAN/BTRAN, so (unlike the reference, which
-        # needs fresh explicit factors each iteration, reference:
-        # src/kkt_solver_basis.cc:58-66) a stale factorization plus updates
-        # is exact. need_fresh fires when the accumulated eta-application
-        # work exceeds a multiple of the factor size.
-        if (not self.basis.factorization_is_fresh
-                and self.basis.lu.need_fresh_factorization()):
-            info.errflag = self.basis.factorize()
-            if info.errflag:
-                return
-        self.splitted.prepare(self.basis, self.colscale)
-        self._prepare_sharded()
-        self._prepare_device()
-        self._epoch_lhs = None      # slot-space warm start, valid only for
-                                    # this prepared operator
-        self.factorized = True
+            # Refactorize only when cost-driven: the splitted operator runs
+            # through the eta-aware FTRAN/BTRAN, so (unlike the reference,
+            # which needs fresh explicit factors each iteration, reference:
+            # src/kkt_solver_basis.cc:58-66) a stale factorization plus updates
+            # is exact. need_fresh fires when the accumulated eta-application
+            # work exceeds a multiple of the factor size.
+            if (not self.basis.factorization_is_fresh
+                    and self.basis.lu.need_fresh_factorization()):
+                info.errflag = self.basis.factorize()
+                if info.errflag:
+                    return
+            self.splitted.prepare(self.basis, self.colscale)
+            self._prepare_sharded()
+            self._prepare_device()
+            self._epoch_lhs = None      # slot-space warm start, valid only for
+                                        # this prepared operator
+            self.factorized = True
 
     def _prepare_sharded(self) -> None:
         """Phase-2 N N' over column blocks when Parameters.shards > 1
@@ -269,6 +271,33 @@ class KKTSolverBasis(KKTSolver):
         # the native kernel when available (triangular solves + NN' product
         # + recurrence without Python crossings per iteration).
         self.splitted.reset_time()
+        with trace.span("ipxt.lp.kkt2"):
+            lhs = self._cr(workp, tol, info)
+        if info.errflag:
+            return np.zeros(n + m), np.zeros(m)
+        y = lhs
+
+        # recover dual solution: y[p] /= D[j] for basic, a[j] for free basic
+        with np.errstate(invalid="ignore", divide="ignore"):
+            y = np.where(normal_basic, y / dbasic, a[bvars_all])
+        y = basis.solve_dense(y, "T")
+
+        # x[nonbasic] and work = b - N x[nonbasic]
+        aty = md.AIt_mul(y)
+        x = np.where(nonbasic, (a - aty) * d2, 0.0)
+        work = b - md.AI_mul(np.where(nonbasic, x, 0.0))
+
+        # x[basic]
+        sol = basis.solve_dense(work, "N")
+        x[bvars_all] = sol
+        return x, y
+
+    def _cr(self, workp: np.ndarray, tol: float, info: Info) -> np.ndarray:
+        """The CR solve of the preconditioned normal equations for the
+        right-hand side workp (basis-slot space): its solution, the trips
+        added to info.kktiter2 and counted in kkt2_trips."""
+        m = self.model.num_rows
+        iters_before = self._iters
         if getattr(self, "_device_cr", None) is not None:
             from time import perf_counter
             deadline = 0.0
@@ -341,24 +370,8 @@ class KKTSolverBasis(KKTSolver):
         info.time_cr2_NNt += self.splitted.time_NNt
         info.time_cr2_B += self.splitted.time_B
         info.time_cr2_Bt += self.splitted.time_Bt
-        if info.errflag:
-            return np.zeros(n + m), np.zeros(m)
-        y = lhs
-
-        # recover dual solution: y[p] /= D[j] for basic, a[j] for free basic
-        with np.errstate(invalid="ignore", divide="ignore"):
-            y = np.where(normal_basic, y / dbasic, a[bvars_all])
-        y = basis.solve_dense(y, "T")
-
-        # x[nonbasic] and work = b - N x[nonbasic]
-        aty = md.AIt_mul(y)
-        x = np.where(nonbasic, (a - aty) * d2, 0.0)
-        work = b - md.AI_mul(np.where(nonbasic, x, 0.0))
-
-        # x[basic]
-        sol = basis.solve_dense(work, "N")
-        x[bvars_all] = sol
-        return x, y
+        trace.count("kkt2_trips", self._iters - iters_before)
+        return lhs
 
     def _iter(self) -> int:
         return self._iters
@@ -470,6 +483,7 @@ class KKTSolverBasis(KKTSolver):
                     iterate.make_implied_ub(jb)
             info.primal_dropped += len(dropped)
             info.updates_ipm += changes
+            trace.count("basis_updates", changes)
             self.changes += changes
             return
 
@@ -505,6 +519,7 @@ class KKTSolverBasis(KKTSolver):
                     continue
                 invscale_basic[p] = 1.0 / self.colscale[jmax]
                 info.updates_ipm += 1
+                trace.count("basis_updates")
                 self.changes += 1
             else:
                 with np.errstate(invalid="ignore"):
@@ -559,6 +574,7 @@ class KKTSolverBasis(KKTSolver):
                 iterate.make_fixed(int(jn))
             info.dual_dropped += len(dropped)
             info.updates_ipm += changes
+            trace.count("basis_updates", changes)
             self.changes += changes
             return
 
@@ -594,6 +610,7 @@ class KKTSolverBasis(KKTSolver):
                     continue
                 invscale_basic[pmax] = 1.0 / self.colscale[jn]
                 info.updates_ipm += 1
+                trace.count("basis_updates")
                 self.changes += 1
             else:
                 iterate.make_fixed(jn)

@@ -33,7 +33,7 @@ import numpy as np
 
 from ..control import Control
 from ..info import Info
-from .. import backend
+from .. import backend, trace
 from ..model import Model
 from ..ops.device_cr import DeviceNormalCR, MixedPrecisionDeviceCR
 from ..parallel.sharding import ShardedDiagCR
@@ -273,6 +273,7 @@ class KKTSolverDiag(KKTSolver):
             y = np.zeros(m)
         self.normal_matrix.reset_time()
         self.precond.reset_time()
+        iters_before = self._iters
 
         if getattr(self, "_sharded", None) is not None:
             from time import perf_counter
@@ -344,6 +345,7 @@ class KKTSolverDiag(KKTSolver):
             info.time_cr1_AAt += self.normal_matrix.time
             info.time_cr1_pre += self.precond.time
             self._iters += cr.iter
+        trace.count("kkt1_trips", self._iters - iters_before)
 
         # Recover solution to the KKT system: x = W*(a - AI'y) for structural
         # part; x_slack = b - A*x_struct keeps residual in the slack rows.

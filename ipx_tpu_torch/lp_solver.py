@@ -24,7 +24,7 @@ from typing import Optional
 
 import numpy as np
 
-from . import backend
+from . import backend, trace
 from .control import Control
 from .info import Info
 from .ipm import IPM
@@ -61,6 +61,8 @@ class LpSolver:
         self._resume_ckpt = None       # set by load_checkpoint()
         self._checkpoint = None        # final pre-postsolve snapshot
         self._ckpt_last_write = 0.0
+        # the spans and counters of the last solve() (trace.py)
+        self.trace = trace.Record()
 
     # ------------------------------------------------------------------
     # Model loading (reference: src/lp_solver.cc:18-52)
@@ -174,8 +176,10 @@ class LpSolver:
     # ------------------------------------------------------------------
     def solve(self) -> int:
         # numpy's and scipy's BLAS pools on one thread for the solve, unless
-        # the user sized them (native/threads.py)
-        with threads.quiet_blas():
+        # the user sized them (native/threads.py); a new record of the
+        # solve's spans and counters, in progress inside it
+        self.trace = trace.Record()
+        with threads.quiet_blas(), trace.recording(self.trace):
             return self._solve()
 
     def _solve(self) -> int:
@@ -210,6 +214,7 @@ class LpSolver:
                 info.time_btran = b.time_btran
                 info.mean_fill = b.mean_fill
                 info.max_fill = b.max_fill
+                trace.count("lu_factorizations", b.num_factorizations)
             if (info.status_ipm in (int(SolveStatus.PRIMAL_INFEAS),
                                     int(SolveStatus.DUAL_INFEAS))
                     or info.status_crossover in
@@ -503,44 +508,46 @@ class LpSolver:
         ipm.load_starting_point(x, xl, xu, y, zl, zu, self.iterate, self.info)
 
     def _compute_starting_point(self, ipm: IPM) -> None:
-        t0 = perf_counter()
-        kkt = KKTSolverDiag(self.control, self.model)
-        ipm.compute_starting_point(kkt, self.iterate, self.info)
-        self.info.time_ipm1 += perf_counter() - t0
+        with trace.span("ipxt.lp.ipm1"):
+            t0 = perf_counter()
+            kkt = KKTSolverDiag(self.control, self.model)
+            ipm.compute_starting_point(kkt, self.iterate, self.info)
+            self.info.time_ipm1 += perf_counter() - t0
 
     def _run_initial_ipm(self, ipm: IPM) -> None:
         """reference: src/lp_solver.cc:384-420"""
-        t0 = perf_counter()
-        params = self.control.parameters
-        kkt = KKTSolverDiag(self.control, self.model)
-        switchiter = params.switchiter
-        if switchiter < 0:
-            kkt.maxiter = min(500, 10 + self.model.num_rows // 20)
-            ipm.maxiter = params.ipm_maxiter
-            # auto mode additionally ends phase 1 on a sustained growth
-            # trend in CR iterations (see IPM.phase1_trend_switch); only
-            # for large models so tiny-LP status expectations are unchanged
-            ipm.phase1_trend_switch = self.model.num_rows >= 5000
-        else:
-            ipm.maxiter = min(switchiter, params.ipm_maxiter)
-        ipm.iteration_callback = self._checkpoint_tick
-        ipm.driver(kkt, self.iterate, self.info)
-        ipm.phase1_trend_switch = False
-        ipm._kkt_iter_hist = []
-        info = self.info
-        if info.status_ipm == int(SolveStatus.OPTIMAL):
-            # Still run the basis-preconditioned IPM so a starting basis is
-            # available for crossover.
-            info.status_ipm = int(SolveStatus.NOT_RUN)
-        elif info.status_ipm == int(SolveStatus.NO_PROGRESS):
-            info.status_ipm = int(SolveStatus.NOT_RUN)
-        elif info.status_ipm == int(SolveStatus.FAILED):
-            info.status_ipm = int(SolveStatus.NOT_RUN)
-            info.errflag = 0
-        elif info.status_ipm == int(SolveStatus.ITER_LIMIT):
-            if info.iter < params.ipm_maxiter:   # stopped at switchiter
+        with trace.span("ipxt.lp.ipm1"):
+            t0 = perf_counter()
+            params = self.control.parameters
+            kkt = KKTSolverDiag(self.control, self.model)
+            switchiter = params.switchiter
+            if switchiter < 0:
+                kkt.maxiter = min(500, 10 + self.model.num_rows // 20)
+                ipm.maxiter = params.ipm_maxiter
+                # auto mode additionally ends phase 1 on a sustained growth
+                # trend in CR iterations (see IPM.phase1_trend_switch); only
+                # for large models so tiny-LP status expectations are unchanged
+                ipm.phase1_trend_switch = self.model.num_rows >= 5000
+            else:
+                ipm.maxiter = min(switchiter, params.ipm_maxiter)
+            ipm.iteration_callback = self._checkpoint_tick
+            ipm.driver(kkt, self.iterate, self.info)
+            ipm.phase1_trend_switch = False
+            ipm._kkt_iter_hist = []
+            info = self.info
+            if info.status_ipm == int(SolveStatus.OPTIMAL):
+                # Still run the basis-preconditioned IPM so a starting basis is
+                # available for crossover.
                 info.status_ipm = int(SolveStatus.NOT_RUN)
-        info.time_ipm1 += perf_counter() - t0
+            elif info.status_ipm == int(SolveStatus.NO_PROGRESS):
+                info.status_ipm = int(SolveStatus.NOT_RUN)
+            elif info.status_ipm == int(SolveStatus.FAILED):
+                info.status_ipm = int(SolveStatus.NOT_RUN)
+                info.errflag = 0
+            elif info.status_ipm == int(SolveStatus.ITER_LIMIT):
+                if info.iter < params.ipm_maxiter:   # stopped at switchiter
+                    info.status_ipm = int(SolveStatus.NOT_RUN)
+            info.time_ipm1 += perf_counter() - t0
 
     def _build_starting_basis(self) -> None:
         """reference: src/lp_solver.cc:422-454"""
@@ -551,18 +558,19 @@ class LpSolver:
             return
         from .basis.basis import Basis
         from .basis.starting_basis import build_starting_basis
-        t0 = perf_counter()
-        self.basis = Basis(self.control, self.model)
-        self.control.log(" Constructing starting basis...\n")
-        try:
-            build_starting_basis(self.iterate, self.basis, info,
-                                 preset=getattr(self, "_preset_basis",
-                                                None))
-        except InterruptError:
-            info.status_ipm = int(SolveStatus.TIME_LIMIT)
-            return
-        finally:
-            info.time_starting_basis += perf_counter() - t0
+        with trace.span("ipxt.lp.basis"):
+            t0 = perf_counter()
+            self.basis = Basis(self.control, self.model)
+            self.control.log(" Constructing starting basis...\n")
+            try:
+                build_starting_basis(self.iterate, self.basis, info,
+                                     preset=getattr(self, "_preset_basis",
+                                                    None))
+            except InterruptError:
+                info.status_ipm = int(SolveStatus.TIME_LIMIT)
+                return
+            finally:
+                info.time_starting_basis += perf_counter() - t0
         if info.errflag == int(Errflag.INTERRUPT_TIME):
             info.errflag = 0
             info.status_ipm = int(SolveStatus.TIME_LIMIT)
@@ -587,12 +595,13 @@ class LpSolver:
 
     def _run_main_ipm(self, ipm: IPM) -> None:
         from .kkt.basis_precond import KKTSolverBasis
-        t0 = perf_counter()
-        kkt = KKTSolverBasis(self.control, self.basis)
-        ipm.maxiter = self.control.parameters.ipm_maxiter
-        ipm.iteration_callback = self._checkpoint_tick
-        ipm.driver(kkt, self.iterate, self.info)
-        self.info.time_ipm2 = perf_counter() - t0
+        with trace.span("ipxt.lp.ipm2"):
+            t0 = perf_counter()
+            kkt = KKTSolverBasis(self.control, self.basis)
+            ipm.maxiter = self.control.parameters.ipm_maxiter
+            ipm.iteration_callback = self._checkpoint_tick
+            ipm.driver(kkt, self.iterate, self.info)
+            self.info.time_ipm2 = perf_counter() - t0
 
     def _run_crossover(self) -> None:
         """reference: src/lp_solver.cc:464-537"""
@@ -609,7 +618,8 @@ class LpSolver:
 
         weights = self.iterate.scaling_factors()
         crossover = Crossover(control)
-        crossover.push_all(self.basis, x, y, z, weights, info)
+        with trace.span("ipxt.lp.crossover"):
+            crossover.push_all(self.basis, x, y, z, weights, info)
         info.time_crossover = crossover.time_primal + crossover.time_dual
         info.updates_crossover = (crossover.primal_pivots
                                   + crossover.dual_pivots)

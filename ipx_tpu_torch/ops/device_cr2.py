@@ -24,7 +24,7 @@ from time import monotonic, perf_counter
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 from .spmv import CsrOperand, csr_spmv_plain
 
 F64 = torch.float64
@@ -76,7 +76,9 @@ class NntPlan:
         return self._kernel.launch(w)
 
     def apply(self, w: np.ndarray) -> np.ndarray:
-        """z for a host vector w, as a new host array."""
+        """z for a host vector w, as a new host array: one host read of a
+        device value, counted in host_syncs (trace.py)."""
+        trace.count("host_syncs")
         if self._kernel is None:
             return self._plain(torch.from_numpy(
                 np.ascontiguousarray(w, dtype=np.float64))).numpy()

@@ -1,4 +1,4 @@
-"""Spans and counters of the batched phase 1, one record a solver.
+"""Spans and counters of the port's solvers, one record a solver.
 
 `span(name)` times a block by the host's clock and adds its seconds to the
 record of the solve in progress. While torch.profiler runs, the span also
@@ -6,11 +6,27 @@ enters `record_function(name)`, so that the block appears in the profiler's
 trace on the trace's own clock, nested under the caller's spans.
 `count(name, n)` adds n to a counter of the same record.
 
-A BatchedPhase1Solver owns one Record (`solver.trace`) and makes it the
-record in progress inside its constructor and its solve(). Code that has no
-solver at hand (the K7 driver, kernels.py) adds to that record through the
-same two calls. Outside a solver's constructor and solve() they add to no
-record, and a span only enters the profiler's trace.
+Two owners keep a Record (`solver.trace`) and make it the record in
+progress:
+
+* a BatchedPhase1Solver (parallel/batch.py), inside its constructor and
+  its solve(), over both and every solve() since: the spans `ipxt.construct`,
+  `ipxt.solve` and theirs, the counters of the batched CR;
+* an LpSolver (lp_solver.py), inside its solve(), a new record each
+  solve(): `ipxt.lp.ipm1` (the starting point and the initial IPM, around
+  what Info.time_ipm1 times), `ipxt.lp.basis` (Info.time_starting_basis),
+  `ipxt.lp.ipm2` (Info.time_ipm2) with `ipxt.lp.factorize` (DropPrimal,
+  DropDual, maxvolume, LU, kkt/basis_precond.py) and `ipxt.lp.kkt2` (the
+  phase-2 CR solves) inside it, `ipxt.lp.crossover` (the push phases that
+  Info.time_crossover times); the counters `kkt1_trips` and `kkt2_trips`
+  (Info.kktiter1, Info.kktiter2), `basis_updates` (Info.updates_ipm),
+  `lu_factorizations` (the basis's, over the solve) and `host_syncs` (the
+  phase-2 CR's N N' applies, each one host read of the product).
+
+Code that has no solver at hand (the K7 driver, kernels.py, the phase-2
+N N' plan) adds to the record in progress through the same two calls.
+Outside a solver's constructor and solve() they add to no record, and a
+span only enters the profiler's trace.
 
 With no profiler running, a span costs one check and two clock reads; it
 never synchronizes the device or allocates on it, traced or not. Its
@@ -30,8 +46,7 @@ __all__ = ["Record", "recording", "span", "count"]
 
 
 class Record:
-    """A solver's spans (host seconds by span name) and counters, over its
-    constructor and every solve() since."""
+    """A solver's spans (host seconds by span name) and counters."""
 
     def __init__(self):
         self.seconds: dict[str, float] = {}
